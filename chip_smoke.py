@@ -9,17 +9,23 @@ Phases, each printing its lines:
    torch sees no CUDA device — there is no CPU path;
 2. build: compiles ``vfp_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/vfp_tpu_torch/`` and prints the seconds;
-3. kernels: each of the five CUDA kernels against its plain PyTorch version
-   on the card, at the main path's shapes (1080p B=16) and at edge shapes
-   (W=856, H=1078, N not a multiple of 32), within the stated tolerances;
-4. main path: ``python -m vfp_tpu_torch.cli mark`` then ``detect --payload``
-   on a 48-frame 1920x1080 .rawv (fused kernels), the same at 1918x1080
-   (W % 4 != 0: the SoA kernels), and a two-channel codec through the
-   pipeline API (``qim_embed_soa``); launch counts must show every kernel ran
+3. kernels: each of the eight CUDA kernels against its plain PyTorch version
+   on the card, at the main paths' shapes (1080p B=16) and at edge shapes
+   (W=856, H=1078, N not a multiple of 32, flat 8x8 blocks whose texture
+   mask divides 0/0), within the stated tolerances;
+4. main paths, each with the launch counts set to 0 just before it and read
+   just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
+   then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
+   the same at 1918x1080 (W % 4 != 0: the SoA kernels), and a two-channel
+   codec through the pipeline API (``qim_embed_soa``); then ``mark --codec
+   dct`` and ``detect --codec dct`` on the 1920x1080 file (the DCT-QIM
+   kernels and the Y-mean pre-pass).  The counts must show every kernel ran
    and no plain version may see a CUDA tensor;
-5. timings: ms per 16-frame 1080p batch and frames/s, kernel vs plain version,
-   with CUDA events after warm-up; then one batch of the pipeline's work split
-   into upload, device and download on the host clock.
+5. timings: ms per 16-frame 1080p batch and frames/s, kernel vs plain version
+   (and one PyTorch library call where one computes the same function),
+   with CUDA events after warm-up, beside the bound the card's HBM rate and
+   float32 peak set for the same work; then one batch of each codec's
+   pipeline work split into upload, device and download on the host clock.
 
 Then one JSON line per the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits nonzero.
@@ -29,6 +35,7 @@ The work files go under ``build/chip_smoke/`` and are removed at the end.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -42,12 +49,37 @@ ROOT = Path(__file__).resolve().parent
 PAYLOAD = "01100101"
 FULL = {"b": 16, "h": 1080, "w": 1920, "frames": 48, "narrow_w": 1918, "tail_h": 1078,
         "prime_w": 856, "prime_h": 480, "iters": 20}
+ALPHA = 20.0  # the DCT-QIM codec's default
 REPLACES = {
     "fused_mark_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:239"),
     "fused_extract_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:338"),
     "qim_triplet_soa": ("qim.cu", "vfp_tpu/kernels/qim.py:186"),
     "qim_decode_soa": ("qim.cu", "vfp_tpu/kernels/qim.py:165"),
     "qim_embed_soa": ("qim.cu", "vfp_tpu/kernels/qim.py:138"),
+    "fused_dct_qim_mark": ("fused_dct_qim.cu", "vfp_tpu/kernels/fused_dct_qim.py:311"),
+    "fused_dct_qim_extract": ("fused_dct_qim.cu", "vfp_tpu/kernels/fused_dct_qim.py:368"),
+    "y_dc_mean": ("fused_dct_qim.cu", "vfp_tpu/kernels/fused_dct_qim.py:297"),
+}
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
+# HBM bytes/s and float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# float32 operations per unit of work, counted from each kernel's source (a
+# multiply, an add, a compare or clamp, a division and a rounding count one
+# each): per 8x8 tile for the fused kernels, per 4x4 block for the SoA
+# kernels, per pixel for the Y mean.
+FLOPS_PER_UNIT = {
+    # lincomb 64 px x 5 + LL 16 x 7 + triplet 770 + QIM 5 + delta 48 + epilogue 64 x 2 x 5
+    "fused_mark_planar": 1895,
+    "fused_extract_planar": 1205,  # lincomb + LL + triplet + bit
+    "qim_triplet_soa": 770,  # Gram 112, 5 normalisations and 4 4x4 squarings, v, s0, u
+    "qim_decode_soa": 773,
+    "qim_embed_soa": 825,  # triplet + QIM + 16-entry rank-1 update
+    # Y and U lincombs 64 x 2 x 6, row pass 64 x 15 + 8 x 15, column pass 64 x 15,
+    # v 15, masks 167, QIM 10, epilogue 64 x 11
+    "fused_dct_qim_mark": 3704,
+    "fused_dct_qim_extract": 3003,
+    "y_dc_mean": 7,  # lincomb 6 + one float64 add
 }
 
 
@@ -56,6 +88,30 @@ def natural_frames(rng, b, h, w):
     small = rng.rand(b, -(-h // 8), -(-w // 8), 3)
     f = np.repeat(np.repeat(small, 8, axis=1), 8, axis=2)[:, :h, :w] * 220
     return np.clip(f + rng.rand(b, h, w, 3) * 20, 0, 255).astype(np.uint8)
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'<source> <kernel>[<packed|strided>]: N registers, S bytes spilled' per
+    kernel, from the build's ``-Xptxas=-v`` report."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            src = re.search(r"_\d+_(\w+?)_cu_", mangled)
+            fn = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            name = (f"{src.group(1) if src else '?'}.cu "
+                    f"{mangled[fn.end():fn.end() + int(fn.group(1))] if fn else mangled}")
+            if "ILb1E" in mangled or "ILb0E" in mangled:
+                name += "[packed]" if "ILb1E" in mangled else "[strided]"
+            spill = 0
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append(f"{name}: {regs} registers, {spill} bytes spilled")
+            name = None
+    return out or ["report not available (library loaded from disk)"]
 
 
 def nvidia_smi_line() -> str:
@@ -161,7 +217,59 @@ def check_kernels(device, cfg) -> dict:
         print(f"kernels: SoA triplet/decode/embed N={n}: s0 max err "
               f"{float((s0 - ws0).abs().max()):.3g}, bits "
               f"{_frac_equal(bits, want_bits):.6f} identical")
+    check_dct_kernels(device, cfg, rng, record)
     return err
+
+
+def _with_flat_blocks(frames):
+    """Black, white and mid-grey 8x8-aligned fields: their texture-mask
+    divisions are 0/0 and x/0, and IEEE comparisons decide the branches."""
+    frames[:, 0:200] = 0
+    frames[:, 200:400] = 255
+    frames[:, 400:600, : frames.shape[2] // 2] = 128
+    return frames
+
+
+def check_dct_kernels(device, cfg, rng, record):
+    """The DCT-QIM kernels and the Y mean against their plain versions; mark
+    and extract get the same means as their plain versions."""
+    from vfp_tpu_torch.kernels import fused_dct_qim as dq
+
+    shapes = [(cfg["b"], cfg["h"], cfg["w"], False), (2, cfg["prime_h"], cfg["prime_w"], False),
+              (2, cfg["h"], cfg["w"], True)]
+    for b, h, w, flat in shapes:
+        frames = natural_frames(rng, b, h, w)
+        frames = torch.as_tensor(_with_flat_blocks(frames) if flat else frames, device=device)
+        views = [frames.permute(0, 3, 1, 2)]
+        if b == 2 and not flat:
+            views.append(views[0].contiguous())  # the kernels' strided (not interleaved) path
+        for planes in views:
+            means = dq.y_dc_mean(planes)
+            torch.cuda.synchronize()
+            want_means = dq.y_dc_mean_reference(planes)
+            record("y_dc_mean", (means - want_means).abs().max())
+            assert torch.allclose(means, want_means, rtol=1e-6, atol=0), (means, want_means)
+            wm2d = torch.as_tensor(rng.randint(0, 2, (h // 8, w // 8)).astype(np.float32),
+                                   device=device)
+            got = dq.fused_dct_qim_mark(planes, wm2d, ALPHA, means)
+            torch.cuda.synchronize()
+            want = dq.fused_dct_qim_mark_reference(planes, wm2d, ALPHA, means)
+            same = _frac_equal(got, want)
+            record("fused_dct_qim_mark", (got.int() - want.int()).abs().max())
+            assert same >= 0.999, f"fused_dct_qim_mark {b}x{h}x{w}: {same:.6f} identical"
+            assert got.stride() == planes.stride()
+            bits = dq.fused_dct_qim_extract(got, ALPHA, means)
+            torch.cuda.synchronize()
+            want_bits = dq.fused_dct_qim_extract_reference(got, ALPHA, means)
+            record("fused_dct_qim_extract", (bits - want_bits).abs().max())
+            assert _frac_equal(bits, want_bits) >= 0.999, f"fused_dct_qim_extract {b}x{h}x{w}"
+            if not flat:  # a flat field clips at 0 and 255 and cannot carry every bit
+                assert _frac_equal(bits, wm2d.expand_as(bits)) >= 0.999, "bits not embedded"
+            print(f"kernels: DCT-QIM mark/extract {b}x{h}x{w}{' flat' if flat else ''} "
+                  f"{'interleaved' if planes.stride(1) == 1 else 'planar'}: {same:.6f} of "
+                  f"pixels identical, {_frac_equal(bits, want_bits):.6f} of bits identical, "
+                  f"means max rel err "
+                  f"{float(((means - want_means).abs() / want_means.abs()).max()):.3g}")
 
 
 # -- phase 4: the main path -------------------------------------------------------
@@ -188,12 +296,13 @@ class NoPlainOnDevice:
     """Within the block, every plain version raises if it is given a CUDA tensor."""
 
     def __init__(self):
-        from vfp_tpu_torch.kernels import fused_embed, qim
-        from vfp_tpu_torch.wm import dwt_dct_svd
+        from vfp_tpu_torch.kernels import fused_dct_qim, fused_embed, qim
+        from vfp_tpu_torch.wm import dct_qim, dwt_dct_svd
 
-        self.targets = [(mod, name) for mod in (qim, fused_embed) for name in dir(mod)
-                        if name.endswith("_reference")]
-        self.targets.append((dwt_dct_svd, "top_triplet_soa"))
+        self.targets = [(mod, name) for mod in (qim, fused_embed, fused_dct_qim)
+                        for name in dir(mod) if name.endswith("_reference")]
+        # the codecs' tensor paths
+        self.targets += [(dwt_dct_svd, "top_triplet_soa"), (dct_qim, "texture_mask")]
         self.saved = []
 
     def __enter__(self):
@@ -260,7 +369,10 @@ def run_main_path(device, cfg, workdir: Path) -> dict:
         print(f"main path two-channel codec {cfg['w']}x{h}: payload recovered in "
               f"{len(payloads)}/{len(payloads)} frames")
     counts = kernels.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    flagship = list(REPLACES)[:5]
+    assert all(counts[k] > 0 for k in flagship), counts
+    assert not any(counts[k] for k in REPLACES if k not in flagship), counts
+    counts = {k: counts[k] for k in flagship}
 
     # what came out is right: shape, fidelity, and agreement with the plain version
     src, out = _read_rawv(sources[cfg["w"]]), _read_rawv(workdir / f"marked_{cfg['w']}x{h}.rawv")
@@ -276,6 +388,46 @@ def run_main_path(device, cfg, workdir: Path) -> dict:
     same = float((want == out[: cfg["b"]]).mean())
     assert same >= 0.995, same
     print(f"main path output: PSNR {psnr:.2f} dB vs source, {same:.6f} of the first "
+          f"batch's pixels equal to the plain version")
+    return counts, sources[cfg["w"]]
+
+
+def run_dct_path(device, cfg, workdir: Path, source: Path) -> dict:
+    """``cli mark --codec dct`` -> ``detect --codec dct`` on the 1920x1080 file;
+    returns the launch counts of that run alone."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.kernels.fused_dct_qim import fused_dct_qim_mark_reference
+    from vfp_tpu_torch.wm import DctQim
+
+    h, w, n = cfg["h"], cfg["w"], cfg["frames"]
+    batches = -(-n // cfg["b"])
+    out = workdir / f"marked_dct_{w}x{h}.rawv"
+    flags = ["--codec", "dct", "--batch-size", str(cfg["b"]), "--device", str(device)]
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        cli(["mark", str(source), str(out), *flags])
+        cli(["detect", str(out), "--payload", PAYLOAD, *flags])  # exits 1 on a wrong payload
+    counts = kernels.launch_counts()
+    want = {"fused_dct_qim_mark": batches, "fused_dct_qim_extract": batches,
+            "y_dc_mean": 2 * batches}
+    assert all(counts[k] == v for k, v in want.items()), (counts, want)
+    assert not any(counts[k] for k in REPLACES if k not in want), counts
+    counts = {k: counts[k] for k in want}
+    print(f"main path dct {w}x{h}: {n} frames marked and detected, launches {counts}")
+
+    src, marked = _read_rawv(source), _read_rawv(out)
+    assert marked.shape == (n, h, w, 3), marked.shape
+    mse = float(np.mean((marked.astype(np.float64) - src) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / mse)
+    assert psnr > 40.0, psnr
+    codec = DctQim()
+    x = torch.as_tensor(np.array(src[: cfg["b"]]), device=device).permute(0, 3, 1, 2)
+    wm2d = spread_wm(codec, h, w, device)[: (h // 8) * (w // 8)].reshape(h // 8, w // 8)
+    want_px = fused_dct_qim_mark_reference(x, wm2d, ALPHA).permute(0, 2, 3, 1).cpu().numpy()
+    same = float((want_px == marked[: cfg["b"]]).mean())
+    assert same >= 0.995, same
+    print(f"main path dct output: PSNR {psnr:.2f} dB vs source, {same:.6f} of the first "
           f"batch's pixels equal to the plain version")
     return counts
 
@@ -295,7 +447,15 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    mem, ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
 def time_kernels(device, cfg) -> dict:
+    """{name: (kernel ms, plain ms, library ms or None, bound ms, bound_by)}."""
+    from vfp_tpu_torch.kernels import fused_dct_qim as dq
     from vfp_tpu_torch.kernels import fused_embed as fe
     from vfp_tpu_torch.kernels import qim
     from vfp_tpu_torch.ops.soa import image_to_soa
@@ -315,6 +475,9 @@ def time_kernels(device, cfg) -> dict:
     m = image_to_soa(ll[:, : 4 * nbh, : 4 * nbw], 4)
     wm = torch.as_tensor(np.random.RandomState(4).randint(0, 2, m.shape[2]).astype(np.float32),
                          device=device)
+    wm_dct = torch.as_tensor(np.random.RandomState(6).randint(0, 2, (h // 8, w // 8)).astype(
+        np.float32), device=device)
+    means = dq.y_dc_mean(planes)
     cases = {
         "fused_mark_planar": (lambda: fe.fused_mark_planar(planes, wm2d, 15.0, 1),
                               lambda: fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1)),
@@ -326,9 +489,31 @@ def time_kernels(device, cfg) -> dict:
                            lambda: qim.qim_decode_soa_reference(m, 15.0)),
         "qim_embed_soa": (lambda: qim.qim_embed_soa(m, wm, 15.0),
                           lambda: qim.qim_embed_soa_reference(m, wm, 15.0)),
+        "fused_dct_qim_mark": (lambda: dq.fused_dct_qim_mark(planes, wm_dct, ALPHA, means),
+                               lambda: dq.fused_dct_qim_mark_reference(planes, wm_dct, ALPHA,
+                                                                       means)),
+        "fused_dct_qim_extract": (lambda: dq.fused_dct_qim_extract(planes, ALPHA, means),
+                                  lambda: dq.fused_dct_qim_extract_reference(planes, ALPHA,
+                                                                             means)),
+        "y_dc_mean": (lambda: dq.y_dc_mean(planes), lambda: dq.y_dc_mean_reference(planes)),
     }
-    shapes = {"fused_mark_planar": planes.shape, "fused_extract_planar": planes.shape,
-              "qim_triplet_soa": m.shape, "qim_decode_soa": m.shape, "qim_embed_soa": m.shape}
+    # one PyTorch call that computes the same function, where there is one: the
+    # dominant triplet is the first singular triplet of each 4x4 block
+    blocks4 = m.permute(0, 2, 1).reshape(-1, 4, 4)
+    library = {"qim_triplet_soa": lambda: torch.linalg.svd(blocks4)}
+    frame_bytes, soa_bytes = planes.numel(), 4 * m.numel()
+    nb, ns, tiles = (h // 8) * (w // 8), m.shape[0] * m.shape[2], b * (h // 8) * (w // 8)
+    work = {  # (bytes each input read once and each output written once, FLOPs)
+        "fused_mark_planar": (2 * frame_bytes + 4 * wm2d.numel(), tiles),
+        "fused_extract_planar": (frame_bytes + 4 * tiles, tiles),
+        "qim_triplet_soa": (soa_bytes + 4 * 9 * ns, ns),
+        "qim_decode_soa": (soa_bytes + 4 * ns, ns),
+        "qim_embed_soa": (2 * soa_bytes + 4 * m.shape[2], ns),
+        "fused_dct_qim_mark": (2 * frame_bytes + 4 * nb + 4 * b, tiles),
+        "fused_dct_qim_extract": (frame_bytes + 4 * tiles + 4 * b, tiles),
+        "y_dc_mean": (frame_bytes + 4 * b, b * h * w),
+    }
+    shapes = {name: (m.shape if name.startswith("qim") else planes.shape) for name in cases}
     times = {}
     for name, (kernel, plain) in cases.items():
         # plain, kernel, kernel, plain: the median of each pair of turns
@@ -336,10 +521,16 @@ def time_kernels(device, cfg) -> dict:
         k1 = _time_ms(kernel, cfg["iters"])
         k2 = _time_ms(kernel, cfg["iters"])
         p2 = _time_ms(plain, max(2, cfg["iters"] // 4))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        lib = _time_ms(library[name], 2) if name in library else None
+        nbytes, units = work[name]
+        bound_ms, bound_by = bound(nbytes, units * FLOPS_PER_UNIT[name])
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, bound_ms, bound_by)
         print(f"timing {name} @ {tuple(shapes[name])}: kernel {times[name][0]:.4f} ms/batch "
               f"({b / times[name][0] * 1e3:.1f} frames/s), plain {times[name][1]:.4f} ms/batch "
-              f"({b / times[name][1] * 1e3:.1f} frames/s)")
+              f"({b / times[name][1] * 1e3:.1f} frames/s), library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB, {units * FLOPS_PER_UNIT[name] / 1e9:.3f} "
+              f"GFLOP), kernel at {bound_ms / times[name][0]:.1%} of the bound")
     return times
 
 
@@ -348,16 +539,17 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
     work, split at its synchronising boundaries: upload (pinned staging +
     H2D), device compute, download.  Median of ``reps`` after a warm-up."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
-    from vfp_tpu_torch.wm import DeShuffler, DwtDctSvd
+    from vfp_tpu_torch.wm import DctQim, DeShuffler, DwtDctSvd
 
     rng = np.random.RandomState(5)
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
     frames = natural_frames(rng, b, h, w)
-    codec = DwtDctSvd()
-    wm = spread_wm(codec, h, w, device)
     deg = DeShuffler(key=0, threshold="fixed").set_shape((len(PAYLOAD),))
-    stages = {"mark": (lambda x: codec.mark_frames(x, wm)),
-              "extract": (lambda x: deg.degenerate_batch(codec.extract_frames(x)))}
+    stages = {}
+    for label, codec in (("", DwtDctSvd()), ("dct ", DctQim())):
+        wm = spread_wm(codec, h, w, device)
+        stages[label + "mark"] = (lambda x, c=codec, wm=wm: c.mark_frames(x, wm))
+        stages[label + "extract"] = (lambda x, c=codec: deg.degenerate_batch(c.extract_frames(x)))
     for name, compute in stages.items():
         runs = []
         for _ in range(reps + 1):
@@ -398,12 +590,15 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s to a loaded library "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'not run'} s) "
           f"in {_build.BUILD_ROOT}")
+    for line in ptxas_summary(_build.build_log):
+        print(f"build: ptxas {line}")
 
     errs = check_kernels(device, cfg)
     workroot = ROOT / "build" / "chip_smoke"
     workroot.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=workroot) as tmp:
-        counts = run_main_path(device, cfg, Path(tmp))
+        counts, source_1080p = run_main_path(device, cfg, Path(tmp))
+        counts.update(run_dct_path(device, cfg, Path(tmp), source_1080p))
     times = time_kernels(device, cfg)
     time_batch_stages(device, cfg)
     print(f"timings above on {card}")
@@ -411,7 +606,8 @@ def main() -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"vfp_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": counts[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][3],
+         "bound_by": times[name][4], "library_ms": times[name][2]}
         for name, (src, replaces) in REPLACES.items()]}
     print(json.dumps(line))
     print(smi)

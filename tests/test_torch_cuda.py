@@ -6,9 +6,11 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: float outputs rtol/atol 2e-5 (the kernels and their plain
-versions share one op order, IEEE division and no FMA); u8 marks identical on
->= 99.5% of pixels and bits on >= 99.9% (a borderline s0 may take the other,
-parity-equivalent QIM bin).
+versions share one op order, IEEE division and no FMA), the Y mean rtol 1e-6;
+u8 marks identical on >= 99.5% of pixels and bits on >= 99.9% (a borderline
+s0 may take the other, parity-equivalent QIM bin).  The DCT-QIM kernels get
+the same means as their plain versions, so the comparison isolates the
+kernel.
 """
 
 import numpy as np
@@ -16,8 +18,8 @@ import pytest
 import torch
 
 from vfp_tpu_torch import kernels
-from vfp_tpu_torch.kernels import fused_embed as tfe, qim as tqim
-from vfp_tpu_torch.wm import DeShuffler, DwtDctSvd, Shuffler, block_grid
+from vfp_tpu_torch.kernels import fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
+from vfp_tpu_torch.wm import DctQim, DeShuffler, DwtDctSvd, Shuffler, block_grid
 
 from torch_parity import PAYLOAD, cuda_device, natural_frames  # noqa: F401
 
@@ -35,6 +37,17 @@ def _payloads(bits):
 
 
 def _inputs(name, device, rng, h, w):
+    if name in ("fused_dct_qim_mark", "fused_dct_qim_extract", "y_dc_mean"):
+        h8 = h // 8 * 8  # the DCT-QIM kernels take H, W % 8 == 0
+        frames = torch.as_tensor(natural_frames(rng, 2, h8, w), device=device)
+        planes = frames.permute(0, 3, 1, 2)
+        if name == "y_dc_mean":
+            return (planes,)
+        means = tdq.y_dc_mean_reference(planes)
+        if name == "fused_dct_qim_extract":
+            return (planes, 20.0, means)
+        wm2d = _wm(h8, w, device)[: (h8 // 8) * (w // 8)].reshape(h8 // 8, w // 8).contiguous()
+        return (planes, wm2d, 20.0, means)
     if name.startswith("fused"):
         frames = torch.as_tensor(natural_frames(rng, 2, h, w), device=device)
         (nbh, nbw), _ = block_grid((h, w))
@@ -56,13 +69,16 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
     got = getattr(kernels, name)(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == 1
-    want = getattr(tfe if name.startswith("fused") else tqim, name + "_reference")(*args)
+    module = next(m for m in (tdq, tfe, tqim) if hasattr(m, name))
+    want = getattr(module, name + "_reference")(*args)
     for g, r in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.shape == r.shape and g.dtype == r.dtype
         if g.dtype == torch.uint8:
             assert (g == r).float().mean() >= 0.995
-        elif name.endswith("extract_planar") or name == "qim_decode_soa":
+        elif name == "y_dc_mean":
+            torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
+        elif name.endswith("extract_planar") or name in ("qim_decode_soa", "fused_dct_qim_extract"):
             assert (g == r).float().mean() >= 0.999
         else:
             torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-5)
@@ -96,3 +112,36 @@ def test_two_channel_codec_takes_qim_embed(cuda_device):
     marked = codec.mark_frames(frames, _wm(72, 128, cuda_device))
     assert kernels.launch_counts()["qim_embed_soa"] == 2
     assert (_payloads(codec.extract_frames(marked)) == PAYLOAD).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(72, 136), (32, 856)])
+def test_dct_codec_on_the_card_takes_the_kernels(cuda_device, h, w):
+    frames = torch.as_tensor(natural_frames(np.random.RandomState(3), 3, h, w), device=cuda_device)
+    codec = DctQim()  # auto: kernels for CUDA tensors
+    kernels.reset_launch_counts()
+    marked = codec.mark_frames(frames, _wm(h, w, cuda_device))
+    bits = codec.extract_frames(marked)
+    counts = kernels.launch_counts()
+    assert (counts["fused_dct_qim_mark"], counts["fused_dct_qim_extract"],
+            counts["y_dc_mean"]) == (1, 1, 2), counts
+    assert marked.shape == frames.shape and marked.dtype == torch.uint8
+    assert (_payloads(bits) == PAYLOAD).all()
+    plain = DctQim(backend="kernel").mark_frames(frames.cpu(), _wm(h, w, "cpu"))
+    assert (marked.cpu() == plain).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_dct_kernels_take_contiguous_planes_too(cuda_device):
+    """Planes that are not an interleaved view take the kernels' strided path."""
+    rng = np.random.RandomState(4)
+    planes = torch.as_tensor(natural_frames(rng, 2, 64, 128), device=cuda_device)
+    planes = planes.permute(0, 3, 1, 2).contiguous()
+    wm2d = torch.as_tensor(rng.randint(0, 2, (8, 16)).astype(np.float32), device=cuda_device)
+    means = tdq.y_dc_mean(planes)
+    got = tdq.fused_dct_qim_mark(planes, wm2d, 20.0, means)
+    assert got.stride() == planes.stride()
+    want = tdq.fused_dct_qim_mark_reference(planes, wm2d, 20.0, means)
+    assert (got == want).float().mean() >= 0.999
+    bits = tdq.fused_dct_qim_extract(got, 20.0, means)
+    assert (bits == tdq.fused_dct_qim_extract_reference(got, 20.0, means)).float().mean() >= 0.999

@@ -20,7 +20,7 @@ import torch
 from vfp_tpu.kernels import fused_embed as jfe, qim as jqim
 from vfp_tpu.wm.dwt_dct_svd import DwtDctSvd as JaxDwtDctSvd, block_grid
 from vfp_tpu_torch import kernels
-from vfp_tpu_torch.kernels import _build, fused_embed as tfe, qim as tqim
+from vfp_tpu_torch.kernels import _build, fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
 
 from torch_parity import PAYLOAD, despread, natural_frames, spread_wm
 
@@ -118,7 +118,12 @@ def _wrapper_calls(rng):
     wm = torch.from_numpy(rng.randint(0, 2, 40).astype(np.float32))
     planes, wm2d, _, _ = _fused_inputs(rng, 40, 64)
     planes, wm2d = torch.from_numpy(planes), torch.from_numpy(wm2d)
+    bits8 = torch.from_numpy(rng.randint(0, 2, (5, 8)).astype(np.float32))  # the 8x8 grid of 40x64
+    means = tdq.y_dc_mean_reference(planes)
     return {
+        "fused_dct_qim_mark": ((planes, bits8, 20.0, means), tdq.fused_dct_qim_mark_reference),
+        "fused_dct_qim_extract": ((planes, 20.0, means), tdq.fused_dct_qim_extract_reference),
+        "y_dc_mean": ((planes,), tdq.y_dc_mean_reference),
         "qim_triplet_soa": ((m,), tqim.qim_triplet_soa_reference),
         "qim_decode_soa": ((m, SCALE), tqim.qim_decode_soa_reference),
         "qim_embed_soa": ((m, wm, SCALE), tqim.qim_embed_soa_reference),
@@ -172,7 +177,19 @@ def test_build_flags_keep_ieee_float():
     assert "arch=compute_90a,code=sm_90a" in flags and "--fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "vfp_tpu_torch")
-    assert {p.name for p in _build.sources()} == {"qim.cu", "fused_embed.cu", "triplet.cuh"}
+    assert {p.name for p in _build.sources()} == {"qim.cu", "fused_embed.cu", "fused_dct_qim.cu",
+                                                  "triplet.cuh"}
+
+
+def test_build_compiles_each_source_in_its_own_nvcc(monkeypatch):
+    """One nvcc per .cu (started together), then one link: the kernels build
+    in parallel within chip_smoke.py's time limit."""
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    srcs = sorted(_build.CSRC.glob("*.cu"))
+    cmds = [_build.compile_command(s, s.with_suffix(".o")) for s in srcs]
+    assert all("-c" in c and c[-1] == str(s) and "--fmad=false" in c for c, s in zip(cmds, srcs))
+    link = _build.link_command([s.with_suffix(".o") for s in srcs], _build.BUILD_ROOT / "x.so")
+    assert "-shared" in link and link[-len(srcs):] == [str(s.with_suffix(".o")) for s in srcs]
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))

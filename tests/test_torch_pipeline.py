@@ -5,6 +5,7 @@ counterpart.  Stated tolerance: marked u8 identical on >= 99.9% of pixels
 (the plain torch path vs the XLA path); payloads identical.
 """
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -90,7 +91,7 @@ def test_cached_bit_extractor_is_keyed_by_codec_and_device():
 
 
 def test_embedder_and_extractor_drive_a_stream(rng):
-    from vfp_tpu.io import ArrayReader, ArrayWriter
+    from vfp_tpu_torch.io import ArrayReader, ArrayWriter
 
     frames = natural_frames(rng, 7, H, W)
     writer = ArrayWriter()
@@ -107,7 +108,7 @@ def test_embedder_and_extractor_drive_a_stream(rng):
 
 
 def test_embedder_raises_a_marker_error_and_stops_its_threads(rng):
-    from vfp_tpu.io import ArrayReader, ArrayWriter
+    from vfp_tpu_torch.io import ArrayReader, ArrayWriter
 
     class Broken:
         batch_size = 1
@@ -152,18 +153,38 @@ def test_cli_never_drops_to_the_cpu(source_video, tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_cv2(source_video, tmp_path):
-    """A fresh interpreter runs the port's CLI end to end without importing jax or cv2."""
+    """A fresh interpreter runs the port's CLI end to end, both codecs, without
+    importing jax, cv2 or anything of the JAX package."""
     code = f"""
 import sys
 import vfp_tpu_torch, vfp_tpu_torch.kernels, vfp_tpu_torch.pipeline
 from vfp_tpu_torch.cli import main
-main(["mark", {str(source_video)!r}, {str(tmp_path / 'm.rawv')!r}, "--device", "cpu"])
-main(["detect", {str(tmp_path / 'm.rawv')!r}, "--payload", "01100101", "--device", "cpu"])
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2"))
+for codec in ("dwtDctSvd", "dct"):
+    out = {str(tmp_path)!r} + "/m_" + codec + ".rawv"
+    main(["mark", {str(source_video)!r}, out, "--codec", codec, "--device", "cpu"])
+    main(["detect", out, "--codec", codec, "--payload", "01100101", "--device", "cpu"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "vfp_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert "NO_JAX_OK" in r.stdout and "matches expected payload: True" in r.stdout
+    assert "NO_JAX_OK" in r.stdout and r.stdout.count("matches expected payload: True") == 2
+
+
+def _imported_modules(path: Path):
+    """Top-level module names that ``path`` imports, relative imports excluded."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "vfp_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_file_imports_jax_or_the_jax_package(path):
+    bad = sorted({m for m in _imported_modules(path) if m in ("jax", "jaxlib", "vfp_tpu")})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

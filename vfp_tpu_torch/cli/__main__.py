@@ -1,13 +1,16 @@
-"""CLI of the PyTorch/CUDA port: the flagship mark and detect.
+"""CLI of the PyTorch/CUDA port: mark and detect with the ported codecs.
 
-    python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--payload 01100101] [--key 0] [--device cuda]
-    python -m vfp_tpu_torch.cli detect INPUT [--payload-len 8 | --payload BITS] [--key 0]
+    python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct] [--payload 01100101]
+                                [--key 0] [--device cuda]
+    python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct]
+                                [--payload-len 8 | --payload BITS] [--key 0]
 
 The same subcommands, flags and printed lines as ``python -m vfp_tpu.cli``
-for the DWT+DCT+SVD codec, plus ``--device``.  The device defaults to
-``cuda`` and is never changed silently: ``--device cuda`` without a GPU
-raises; pass ``--device cpu`` to run on the CPU.  Use ``.rawv`` files: the
-other containers need cv2, and ``.y4m`` is lossy 4:2:0.
+for the DWT+DCT+SVD codec and the perceptual DCT-QIM codec (``--codec
+dct``), plus ``--device``.  The device defaults to ``cuda`` and is never
+changed silently: ``--device cuda`` without a GPU raises; pass ``--device
+cpu`` to run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
+computes in float32.  Input and output are ``.rawv`` files.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ def _device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA GPU and none is available; "
                            "pass --device cpu to run on the CPU")
+    if device.type == "cuda":
+        # QIM bins need full float32 products on the codecs' tensor paths
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return device
 
 
@@ -85,11 +92,13 @@ def main(argv=None):
     p.add_argument("--verbose", "-v", action="store_true", help="enable DEBUG logging")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    codecs = ["dwtDctSvd"]
+    codecs = ["dwtDctSvd", "dct"]
+    fast_dots_help = "accepted for vfp_tpu.cli's sake and ignored: the port computes in float32"
 
     m = sub.add_parser("mark", help="embed a payload into every frame")
     m.add_argument("input"), m.add_argument("output")
     m.add_argument("--codec", choices=codecs, default="dwtDctSvd")
+    m.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     m.add_argument("--payload", default="01100101")
     m.add_argument("--key", type=int, default=0)
     m.add_argument("--batch-size", type=int, default=16)
@@ -100,6 +109,7 @@ def main(argv=None):
     d = sub.add_parser("detect", help="extract per-frame payloads")
     d.add_argument("input")
     d.add_argument("--codec", choices=codecs, default="dwtDctSvd")
+    d.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     d.add_argument("--payload-len", type=int, default=8)
     d.add_argument("--payload", default=None,
                    help="expected payload bits; sets --payload-len and prints match")

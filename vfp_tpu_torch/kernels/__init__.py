@@ -1,12 +1,13 @@
-"""Hand-written CUDA kernels of the flagship codec, each beside its plain
+"""Hand-written CUDA kernels of the ported codecs, each beside its plain
 PyTorch version.  Importing this package builds nothing and needs no nvcc:
 the kernels are compiled at their first launch (``_build.py``)."""
 
+from .fused_dct_qim import fused_dct_qim_extract, fused_dct_qim_mark, y_dc_mean  # noqa: F401
 from .fused_embed import fused_extract_planar, fused_mark_planar  # noqa: F401
 from .qim import qim_decode_soa, qim_embed_soa, qim_triplet_soa  # noqa: F401
 
 KERNELS = (fused_mark_planar, fused_extract_planar, qim_triplet_soa, qim_decode_soa,
-           qim_embed_soa)
+           qim_embed_soa, fused_dct_qim_mark, fused_dct_qim_extract, y_dc_mean)
 
 
 def reset_launch_counts() -> None:

@@ -4,11 +4,14 @@ The library has a plain C interface (no PyTorch headers), so nvcc takes
 seconds.  It is built at the first kernel launch, never at import, into
 ``build/vfp_tpu_torch/<hash>/`` at the repository root, keyed by a hash of
 the sources and the flags; later launches in the process, and later
-processes with the same sources, load the file that is there.
+processes with the same sources, load the file that is there.  Each ``.cu``
+compiles in its own nvcc process, all started together, and one more links
+the objects.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` with no fast-math
 flag, so division and square root are IEEE and no multiply-add is
 contracted: the kernels then round as their plain PyTorch versions do.
+``-Xptxas=-v`` reports each kernel's registers and spills into ``build_log``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vfp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
 )
 LIB_NAME = "libvfp_tpu_torch_kernels.so"
 
@@ -41,11 +44,15 @@ SIGNATURES = {
     "vfp_qim_embed_soa": [_P, _P, _P, _I, _I, _F, _P, _P],
     "vfp_fused_mark_planar": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "vfp_fused_extract_planar": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "vfp_y_dc_mean": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "vfp_fused_dct_qim_mark": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
+    "vfp_fused_dct_qim_extract": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the nvcc run, None if loaded from disk
+build_seconds: float | None = None  # wall time of the nvcc runs, None if loaded from disk
+build_log = ""  # nvcc's and ptxas's reports of the last build in this process
 
 
 def sources() -> list[Path]:
@@ -73,27 +80,40 @@ def nvcc() -> str:
     return found
 
 
-def build_command(out: Path) -> list[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs: list[Path], out: Path) -> list[str]:
+    return [nvcc(), "-shared", "-o", str(out), *(str(o) for o in objs)]
+
+
+def _run_all(commands: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(commands, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
 
 
 def _compile(path: Path) -> None:
-    global build_seconds
+    global build_seconds, build_log
     path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     # build beside the target and rename, so a concurrent process never loads
     # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        r = subprocess.run(build_command(Path(tmp)), capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{r.stderr}{r.stdout}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        log = _run_all([compile_command(s, o) for s, o in zip(srcs, objs)])
+        lib = Path(tmp) / LIB_NAME
+        log += _run_all([link_command(objs, lib)])
+        os.replace(lib, path)
     build_seconds = time.perf_counter() - t0
+    build_log = log
 
 
 def library() -> ctypes.CDLL:

@@ -1,1 +1,1 @@
-"""Tensor ops of the flagship codec: colour, Haar DWT, SoA block layout."""
+"""Tensor ops of the ported codecs: colour, Haar DWT, 8x8 DCT, SoA block layout."""

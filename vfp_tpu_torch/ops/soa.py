@@ -1,15 +1,20 @@
 """Structure-of-arrays block layout (port of ``vfp_tpu/ops/soa.py``).
 
-``image [B, H, W] -> [B, 16, N]``: the flattened 4x4 block on axis 1, the
-block index N minor, so per-block math is elementwise over N.  Only the
-power-method dominant triplet is ported; the Jacobi branch, the Kronecker
-DCT and the AoS variants serve no path of the flagship codec.
+``image [B, H, W] -> [B, blk*blk, N]``: the flattened block on axis 1, the
+block index N minor, so per-block math is elementwise over N.  Ported: the
+layout transforms, the Kronecker DCT of the DctQim codec's torch path, and
+the power-method dominant triplet; the Jacobi branch and the AoS variants
+serve no ported path.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+from .dct import dct_matrix, full_f32
 
 _EPS = 1e-20
 
@@ -34,6 +39,30 @@ def soa_to_image(x: torch.Tensor, h: int, w: int, blk: int = 4) -> torch.Tensor:
     nbh, nbw = h // blk, w // blk
     y = x.reshape(b, blk, blk, nbh, nbw).permute(0, 3, 1, 4, 2)  # [B, nbh, blk, nbw, blk]
     return y.reshape(b, h, w)
+
+
+@lru_cache(maxsize=None)
+def dct_kron(n: int) -> np.ndarray:
+    """D ⊗ D [n*n, n*n] (float32, built in float64 as the JAX package builds it):
+    vec(D A Dᵀ) = (D ⊗ D) vec(A) for row-major vec."""
+    d = dct_matrix(n).astype(np.float64)
+    return np.kron(d, d).astype(np.float32)
+
+
+def dct_soa(x: torch.Tensor) -> torch.Tensor:
+    """[B, n*n, N] spatial SoA blocks -> DCT coefficients (cv2.dct-compatible per block)."""
+    full_f32(x)
+    n = int(round(x.shape[1] ** 0.5))
+    k = torch.as_tensor(dct_kron(n), device=x.device)
+    return torch.einsum("ij,bjn->bin", k, x)
+
+
+def idct_soa(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`dct_soa` (Dᵀ ⊗ Dᵀ, the transpose of the orthonormal map)."""
+    full_f32(x)
+    n = int(round(x.shape[1] ** 0.5))
+    k = torch.as_tensor(dct_kron(n), device=x.device)
+    return torch.einsum("ji,bjn->bin", k, x)
 
 
 def top_triplet_soa(m: torch.Tensor, iters: int | None = None):

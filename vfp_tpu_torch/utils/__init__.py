@@ -1,3 +1,3 @@
-"""Configuration shared with the JAX package."""
+"""Configuration (copied from the JAX package's) and the codec factory."""
 
-from .config import CodecConfig, VfpConfig, make_codec  # noqa: F401
+from .config import CodecConfig, ServeConfig, VfpConfig, WorkflowConfig, make_codec  # noqa: F401

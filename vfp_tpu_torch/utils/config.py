@@ -1,20 +1,84 @@
-"""Codec factory over the configuration the JAX package defines.
+"""One typed configuration for the library and the CLI, and the codec factory.
 
-``VfpConfig``/``CodecConfig`` are ``vfp_tpu.utils.config``'s own (that module
-imports no jax); only the factory is this package's, since it builds this
-package's codec.
+The dataclasses are this package's own copies of ``vfp_tpu/utils/config.py``,
+with the same fields and defaults, so a JSON configuration written for the
+JAX package loads here unchanged.  ``fast_dots`` is kept for that reason
+only: the port computes in float32 and ignores it.
 """
 
 from __future__ import annotations
 
-from vfp_tpu.utils.config import CodecConfig, VfpConfig  # noqa: F401
+from dataclasses import asdict, dataclass, field
 
-_UNPORTED = ("dct", "dctqim", "dct_qim", "dtcwtkey", "dtcwt_key", "dtcwtimg", "dtcwt_img")
+
+@dataclass
+class CodecConfig:
+    # DwtDctSvd
+    scales: tuple = (0.0, 15.0, 0.0)
+    blk: int = 4
+    backend: str = "auto"  # pallas | xla | auto (the JAX names; kernel | torch | auto here)
+    # DctQim
+    alpha_dct: float = 20.0
+    # Dtcwt
+    alpha_key: float = 10.0
+    alpha_img: float = 1.5
+    step: float = 5.0
+    # single-bf16-pass matmuls of the JAX package's kernels; ignored by the port
+    fast_dots: bool = False
+
+
+@dataclass
+class WorkflowConfig:
+    segment_duration: float = 2.0
+    copies: int = 3
+    key: int = 0
+    batch_size: int = 16
+    quality: int = 95
+    verify_threshold: float = 0.5  # majority frequency bar per segment
+    preservation_threshold: float = 0.75  # durability pass bar
+    correlation_threshold: float = 0.1  # spread-spectrum presence
+
+
+@dataclass
+class ServeConfig:
+    host: str = "0.0.0.0"
+    port: int = 8000
+    data_dir: str = "serve_data"
+
+
+@dataclass
+class VfpConfig:
+    codec: CodecConfig = field(default_factory=CodecConfig)
+    workflow: WorkflowConfig = field(default_factory=WorkflowConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "VfpConfig":
+        return cls(
+            codec=CodecConfig(**d.get("codec", {})),
+            workflow=WorkflowConfig(**d.get("workflow", {})),
+            serve=ServeConfig(**d.get("serve", {})),
+        )
+
+    @classmethod
+    def load(cls, path) -> "VfpConfig":
+        import json
+
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+
+_UNPORTED = ("dtcwtkey", "dtcwt_key", "dtcwtimg", "dtcwt_img")
 
 
 def make_codec(name: str, config: VfpConfig | None = None):
-    """'dwtDctSvd' -> this package's DwtDctSvd, configured from ``config.codec``
-    (its JAX backend names map as pallas -> kernel, xla -> torch)."""
+    """'dwtDctSvd' | 'dct' -> this package's codec, configured from
+    ``config.codec`` (the JAX backend names map as pallas -> kernel,
+    xla -> torch)."""
+    from ..wm.dct_qim import DctQim
     from ..wm.dwt_dct_svd import REFERENCE_BACKENDS, DwtDctSvd
 
     c = (config or VfpConfig()).codec
@@ -22,6 +86,8 @@ def make_codec(name: str, config: VfpConfig | None = None):
     if key in ("dwtdctsvd", "dwt_dct_svd", "svd"):
         return DwtDctSvd(scales=tuple(c.scales), blk=c.blk,
                          backend=REFERENCE_BACKENDS.get(c.backend, c.backend))
+    if key in ("dct", "dctqim", "dct_qim"):
+        return DctQim(alpha=c.alpha_dct)
     if key in _UNPORTED:
         raise NotImplementedError(f"codec {name!r} is not ported to vfp_tpu_torch yet "
                                   "(ROADMAP.md queue 1)")
