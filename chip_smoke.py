@@ -9,18 +9,23 @@ Phases, each printing its lines:
    torch sees no CUDA device — there is no CPU path;
 2. build: compiles ``vfp_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/vfp_tpu_torch/`` and prints the seconds;
-3. kernels: each of the eight CUDA kernels against its plain PyTorch version
-   on the card, at the main paths' shapes (1080p B=16) and at edge shapes
-   (W=856, H=1078, N not a multiple of 32, flat 8x8 blocks whose texture
-   mask divides 0/0), within the stated tolerances;
+3. kernels: each of the twelve CUDA kernels against its plain PyTorch
+   version on the card, at the main paths' shapes (1080p B=16) and at edge
+   shapes (W=856, H=1078, N not a multiple of 32, flat 8x8 blocks whose
+   texture mask divides 0/0, a black frame whose DT-CWT masks and delta are
+   0), within the stated tolerances;
 4. main paths, each with the launch counts set to 0 just before it and read
    just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
    then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
    the same at 1918x1080 (W % 4 != 0: the SoA kernels), and a two-channel
    codec through the pipeline API (``qim_embed_soa``); then ``mark --codec
    dct`` and ``detect --codec dct`` on the 1920x1080 file (the DCT-QIM
-   kernels and the Y-mean pre-pass).  The counts must show every kernel ran
-   and no plain version may see a CUDA tensor;
+   kernels and the Y-mean pre-pass); then ``mark --codec dtcwtKey`` on a
+   48-frame 1920x1080 .rawv of smooth content (the four DT-CWT kernels),
+   whose marks the port's plain extract must find with key 0 and not with
+   key 99, while ``detect --codec dtcwtKey --device cuda`` must raise (its
+   kernels are not ported).  The counts must show every kernel ran and no
+   plain version may see a CUDA tensor;
 5. timings: ms per 16-frame 1080p batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
    with CUDA events after warm-up, beside the bound the card's HBM rate and
@@ -59,7 +64,14 @@ REPLACES = {
     "fused_dct_qim_mark": ("fused_dct_qim.cu", "vfp_tpu/kernels/fused_dct_qim.py:311"),
     "fused_dct_qim_extract": ("fused_dct_qim.cu", "vfp_tpu/kernels/fused_dct_qim.py:368"),
     "y_dc_mean": ("fused_dct_qim.cu", "vfp_tpu/kernels/fused_dct_qim.py:297"),
+    # each with its chained twin (:918, dtcwt_masks.py:227): one kernel covers both
+    "dtcwt_level1_ll_y": ("dtcwt_level1.cu", "vfp_tpu/kernels/dtcwt_level1.py:508"),
+    "dtcwt_qshift_masks": ("dtcwt_masks.cu", "vfp_tpu/kernels/dtcwt_masks.py:190"),
+    "dtcwt_delta_synthesis": ("dtcwt_delta.cu", "vfp_tpu/kernels/dtcwt_delta.py:258"),
+    "dtcwt_level1_analysis": ("dtcwt_level1.cu", "vfp_tpu/kernels/dtcwt_level1.py:276"),
 }
+DTCWT = ("dtcwt_level1_ll_y", "dtcwt_qshift_masks", "dtcwt_delta_synthesis",
+         "dtcwt_level1_analysis")
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM bytes/s and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +92,16 @@ FLOPS_PER_UNIT = {
     "fused_dct_qim_mark": 3704,
     "fused_dct_qim_extract": 3003,
     "y_dc_mean": 7,  # lincomb 6 + one float64 add
+    # DT-CWT, each intermediate counted once: per level-1 position (4 planes) Y
+    # lincombs 4 x 6, row pass 2 x 2 x 9, column pass 4 x 9
+    "dtcwt_level1_ll_y": 96,
+    # per level-1 position (16 planes): rows 2 x 2 x (9 + 5), columns 4 x 28
+    "dtcwt_level1_analysis": 168,
+    # per mask output (6 bands): q-shift rows 8 x 4 x 54, columns 4 x 4 x 81,
+    # magnitudes 4 x 42, mean filter 4 x 24, rebin 24, divide and ceil 12
+    "dtcwt_qshift_masks": 3324,
+    # per output pixel: 4 trees x (40/32 + 27/16 + 13/8 + 13/4 + 2/2 + 2) + 4
+    "dtcwt_delta_synthesis": 47,
 }
 
 
@@ -88,6 +110,16 @@ def natural_frames(rng, b, h, w):
     small = rng.rand(b, -(-h // 8), -(-w // 8), 3)
     f = np.repeat(np.repeat(small, 8, axis=1), 8, axis=2)[:, :h, :w] * 220
     return np.clip(f + rng.rand(b, h, w, 3) * 20, 0, 255).astype(np.uint8)
+
+
+def smooth_frames(rng, b, h, w):
+    """Natural-like frames without cv2: coarse noise upsampled bilinearly 16x
+    plus mild grain, the compressible content the DT-CWT key codec is
+    specified on (its JAX test marks blurred noise at > 35 dB)."""
+    small = torch.as_tensor(rng.rand(b, 3, h // 16 + 2, w // 16 + 2).astype(np.float32))
+    f = torch.nn.functional.interpolate(small, size=(h, w), mode="bilinear",
+                                        align_corners=False).permute(0, 2, 3, 1).numpy()
+    return np.clip(f * 235 + rng.rand(b, h, w, 3) * 12, 0, 255).astype(np.uint8)
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -218,6 +250,7 @@ def check_kernels(device, cfg) -> dict:
               f"{float((s0 - ws0).abs().max()):.3g}, bits "
               f"{_frac_equal(bits, want_bits):.6f} identical")
     check_dct_kernels(device, cfg, rng, record)
+    check_dtcwt_kernels(device, cfg, rng, record)
     return err
 
 
@@ -272,6 +305,66 @@ def check_dct_kernels(device, cfg, rng, record):
                   f"{float(((means - want_means).abs() / want_means.abs()).max()):.3g}")
 
 
+def key_wm(codec, h, w, device, key=0):
+    from vfp_tpu_torch.wm import CorrShuffler
+
+    return torch.as_tensor(CorrShuffler(key).generate_wm(None, codec.wm_capacity((h, w, 3))),
+                           device=device)
+
+
+def check_dtcwt_kernels(device, cfg, rng, record):
+    """The four DT-CWT kernels against their plain versions, each fed the
+    same input: the level-1 Y lowpasses, the masks (which must be equal:
+    ceil turns a last-bit difference into a whole step), the delta synthesis
+    on the codec's own delta planes, and the watermark plane's spectrum."""
+    from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.wm import DtcwtKey
+
+    codec = DtcwtKey()
+    shapes = [(cfg["b"], cfg["h"], cfg["w"], False), (2, cfg["prime_h"], cfg["prime_w"], False),
+              (2, cfg["h"], cfg["w"], True)]
+    for b, h, w, flat in shapes:
+        frames = natural_frames(rng, b, h, w)
+        if flat:  # frame 0 black (masks and delta exactly 0), frame 1 flat fields
+            frames[0] = 0
+            frames[1:] = _with_flat_blocks(frames[1:])
+        frames = torch.as_tensor(frames, device=device)
+        ll = dl.dtcwt_level1_ll_y(frames)
+        torch.cuda.synchronize()
+        want_ll = dl.dtcwt_level1_ll_y_reference(frames)
+        record("dtcwt_level1_ll_y", (ll - want_ll).abs().max())
+        assert torch.allclose(ll, want_ll, rtol=1e-6, atol=1e-4), "dtcwt_level1_ll_y"
+        masks = dm.dtcwt_qshift_masks(ll, codec.step)
+        torch.cuda.synchronize()
+        want_masks = dm.dtcwt_qshift_masks_reference(ll, codec.step)
+        same_masks = _frac_equal(masks, want_masks)
+        record("dtcwt_qshift_masks", (masks - want_masks).abs().max())
+        assert same_masks >= 0.9999, f"dtcwt_qshift_masks {b}x{h}x{w}: {same_masks:.6f} equal"
+        dsubs = codec._delta_subs(masks, codec.wm_highpass(key_wm(codec, h, w, device)))
+        du = dd.dtcwt_delta_synthesis(dsubs)
+        torch.cuda.synchronize()
+        want_du = dd.dtcwt_delta_synthesis_reference(dsubs)
+        record("dtcwt_delta_synthesis", (du - want_du).abs().max())
+        assert torch.allclose(du, want_du, rtol=1e-5, atol=1e-4), "dtcwt_delta_synthesis"
+        if flat:
+            assert not masks[0].any() and not du[0].any(), "black frame: masks and delta not 0"
+        print(f"kernels: DT-CWT level-1/masks/delta {b}x{h}x{w}{' flat' if flat else ''}: "
+              f"lowpass max err {float((ll - want_ll).abs().max()):.3g}, {same_masks:.6f} of "
+              f"masks equal (max {float(masks.max()):.0f}), delta max err "
+              f"{float((du - want_du).abs().max()):.3g}")
+    wm_plane = key_wm(codec, cfg["h"], cfg["w"], device).reshape(1, *codec.wm_capacity(
+        (cfg["h"], cfg["w"], 3)))
+    for x in (wm_plane, torch.as_tensor(rng.rand(2, cfg["prime_h"], cfg["prime_w"]).astype(
+            np.float32) * 255, device=device)):
+        got = dl.dtcwt_level1_analysis(x)
+        torch.cuda.synchronize()
+        want = dl.dtcwt_level1_analysis_reference(x)
+        record("dtcwt_level1_analysis", (got - want).abs().max())
+        assert torch.allclose(got, want, rtol=1e-6, atol=1e-4), "dtcwt_level1_analysis"
+        print(f"kernels: DT-CWT level-1 analysis {tuple(x.shape)}: max err "
+              f"{float((got - want).abs().max()):.3g}")
+
+
 # -- phase 4: the main path -------------------------------------------------------
 
 def _write_rawv(path, rng, n, h, w, chunk=16):
@@ -286,8 +379,8 @@ def _read_rawv(path):
     from vfp_tpu_torch.io import RawVideoReader
 
     r = RawVideoReader(path)
-    try:
-        return r.read_batch(10 ** 6)
+    try:  # the whole file: its frames after the 24-byte header
+        return r.read_batch((Path(path).stat().st_size - 24) // (r.width * r.height * 3))
     finally:
         r.close()
 
@@ -299,10 +392,15 @@ class NoPlainOnDevice:
         from vfp_tpu_torch.kernels import fused_dct_qim, fused_embed, qim
         from vfp_tpu_torch.wm import dct_qim, dwt_dct_svd
 
-        self.targets = [(mod, name) for mod in (qim, fused_embed, fused_dct_qim)
+        from vfp_tpu_torch.kernels import dtcwt_delta, dtcwt_level1, dtcwt_masks
+        from vfp_tpu_torch.ops import dtcwt
+
+        self.targets = [(mod, name) for mod in (qim, fused_embed, fused_dct_qim, dtcwt_level1,
+                                                dtcwt_masks, dtcwt_delta)
                         for name in dir(mod) if name.endswith("_reference")]
         # the codecs' tensor paths
-        self.targets += [(dwt_dct_svd, "top_triplet_soa"), (dct_qim, "texture_mask")]
+        self.targets += [(dwt_dct_svd, "top_triplet_soa"), (dct_qim, "texture_mask"),
+                         (dtcwt, "down2"), (dtcwt, "up2")]
         self.saved = []
 
     def __enter__(self):
@@ -432,6 +530,76 @@ def run_dct_path(device, cfg, workdir: Path, source: Path) -> dict:
     return counts
 
 
+def plain_dtcwt_mark(codec, frames, wm):
+    """The kernel path's mark with every kernel replaced by its plain version."""
+    from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.ops.color import M_BWD
+    from vfp_tpu_torch.ops.dtcwt import Transform2d
+
+    h, w = frames.shape[1], frames.shape[2]
+    wm_hp = Transform2d("torch").forward(wm.reshape(codec.wm_capacity((h, w, 3))),
+                                         nlevels=1).highpasses[0]
+    masks = dm.dtcwt_qshift_masks_reference(dl.dtcwt_level1_ll_y_reference(frames), codec.step)
+    du = dd.dtcwt_delta_synthesis_reference(codec._delta_subs(masks, wm_hp))
+    marked = frames.to(torch.float32) + du[..., None] * torch.as_tensor(M_BWD[:, 1],
+                                                                       device=frames.device)
+    return torch.round(torch.clamp(marked, 0.0, 255.0)).to(torch.uint8)
+
+
+def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
+    """``cli mark --codec dtcwtKey`` on a 48-frame smooth 1920x1080 file; the
+    presence of the mark through the port's plain extract (on the CPU); and
+    ``detect --codec dtcwtKey --device cuda`` raising.  Returns the launch
+    counts of the mark run alone."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.io import RawVideoWriter
+    from vfp_tpu_torch.wm import DeCorrShuffler, DtcwtKey
+
+    rng = np.random.RandomState(11)
+    h, w, n = cfg["h"], cfg["w"], cfg["frames"]
+    batches = -(-n // cfg["b"])
+    source, out = workdir / f"smooth_{w}x{h}.rawv", workdir / f"marked_dtcwt_{w}x{h}.rawv"
+    with RawVideoWriter(source, w, h, fps=24) as writer:
+        for i in range(0, n, cfg["b"]):
+            writer.write_batch(smooth_frames(rng, min(cfg["b"], n - i), h, w))
+    flags = ["--codec", "dtcwtKey", "--batch-size", str(cfg["b"]), "--device", str(device)]
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        cli(["mark", str(source), str(out), *flags])
+    counts = kernels.launch_counts()
+    assert all(counts[k] == batches for k in DTCWT), counts
+    assert not any(counts[k] for k in REPLACES if k not in DTCWT), counts
+    counts = {k: counts[k] for k in DTCWT}
+    print(f"main path dtcwtKey {w}x{h}: {n} frames marked, launches {counts}")
+    try:
+        cli(["detect", str(out), *flags])
+    except NotImplementedError as e:
+        print(f"main path dtcwtKey detect --device cuda raises as it should: {str(e)[:90]}...")
+    else:
+        raise AssertionError("detect --codec dtcwtKey --device cuda did not raise")
+
+    src, marked = _read_rawv(source), _read_rawv(out)
+    assert marked.shape == (n, h, w, 3), marked.shape
+    mse = float(np.mean((marked.astype(np.float64) - src) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / mse)
+    assert psnr > 35.0, psnr
+    codec = DtcwtKey()
+    x = torch.as_tensor(np.array(src[: cfg["b"]]), device=device)
+    want = plain_dtcwt_mark(codec, x, key_wm(codec, h, w, device)).cpu().numpy()
+    same = float((want == marked[: cfg["b"]]).mean())
+    assert same >= 0.995, same
+    plain = DtcwtKey(backend="torch")
+    planes = plain.extract_frames(torch.as_tensor(np.array(marked[:2]), device="cpu"))
+    corr = {key: DeCorrShuffler(key).correlation_batch(planes).tolist() for key in (0, 99)}
+    assert all(c > 0.1 for c in corr[0]) and all(c < 0.1 for c in corr[99]), corr
+    print(f"main path dtcwtKey output: PSNR {psnr:.2f} dB vs source, {same:.6f} of the first "
+          f"batch's pixels equal to the plain version on the card; plain extract (CPU) "
+          f"correlation key 0 {[round(c, 4) for c in corr[0]]}, key 99 "
+          f"{[round(c, 4) for c in corr[99]]}")
+    return counts
+
+
 # -- phase 5: timings -------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -478,6 +646,7 @@ def time_kernels(device, cfg) -> dict:
     wm_dct = torch.as_tensor(np.random.RandomState(6).randint(0, 2, (h // 8, w // 8)).astype(
         np.float32), device=device)
     means = dq.y_dc_mean(planes)
+    dt_cases, dt_library, dt_work, dt_shapes = dtcwt_timing_cases(device, cfg, rng)
     cases = {
         "fused_mark_planar": (lambda: fe.fused_mark_planar(planes, wm2d, 15.0, 1),
                               lambda: fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1)),
@@ -496,11 +665,12 @@ def time_kernels(device, cfg) -> dict:
                                   lambda: dq.fused_dct_qim_extract_reference(planes, ALPHA,
                                                                              means)),
         "y_dc_mean": (lambda: dq.y_dc_mean(planes), lambda: dq.y_dc_mean_reference(planes)),
+        **dt_cases,
     }
     # one PyTorch call that computes the same function, where there is one: the
     # dominant triplet is the first singular triplet of each 4x4 block
     blocks4 = m.permute(0, 2, 1).reshape(-1, 4, 4)
-    library = {"qim_triplet_soa": lambda: torch.linalg.svd(blocks4)}
+    library = {"qim_triplet_soa": lambda: torch.linalg.svd(blocks4), **dt_library}
     frame_bytes, soa_bytes = planes.numel(), 4 * m.numel()
     nb, ns, tiles = (h // 8) * (w // 8), m.shape[0] * m.shape[2], b * (h // 8) * (w // 8)
     work = {  # (bytes each input read once and each output written once, FLOPs)
@@ -512,8 +682,10 @@ def time_kernels(device, cfg) -> dict:
         "fused_dct_qim_mark": (2 * frame_bytes + 4 * nb + 4 * b, tiles),
         "fused_dct_qim_extract": (frame_bytes + 4 * tiles + 4 * b, tiles),
         "y_dc_mean": (frame_bytes + 4 * b, b * h * w),
+        **dt_work,
     }
     shapes = {name: (m.shape if name.startswith("qim") else planes.shape) for name in cases}
+    shapes.update(dt_shapes)
     times = {}
     for name, (kernel, plain) in cases.items():
         # plain, kernel, kernel, plain: the median of each pair of turns
@@ -534,12 +706,81 @@ def time_kernels(device, cfg) -> dict:
     return times
 
 
+def _tree_weights(filters_r, filters_c) -> torch.Tensor:
+    """[n, 1, 6, 6] conv2d weights of the level-1 tree filters over a 6x6 patch
+    (row 2m - 4 + a, column 2n - 4 + b): w[a][b] = fr[rt - kr + 4] * fc[ct - kc + 4],
+    in the kernels' plane order (band, then combo (rt, ct))."""
+    ws = []
+    for fr, fc in zip(filters_r, filters_c):
+        for rt in range(2):
+            for ct in range(2):
+                wt = np.zeros((6, 6), np.float32)
+                for kr, a in enumerate(fr):
+                    for kc, c in enumerate(fc):
+                        wt[rt - kr + 4, ct - kc + 4] = np.float32(a) * np.float32(c)
+                ws.append(wt)
+    return torch.as_tensor(np.stack(ws)[:, None])
+
+
+def dtcwt_timing_cases(device, cfg, rng):
+    """The DT-CWT kernels at the main path's shapes (16 frames of 1080p; the
+    136x240 watermark plane): (cases, library calls, (bytes, units), shapes).
+    The library yardstick of the level-1 kernels is one stride-2 F.conv2d
+    with the tree filters as a [n, 1, 6, 6] weight over the plane padded
+    circularly beforehand (for ll_y: the Y plane, the lincomb not included)."""
+    from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.kernels.fused_dct_qim import _lincomb
+    from vfp_tpu_torch.ops import dtcwt_coeffs as C
+    from vfp_tpu_torch.wm import DtcwtKey
+
+    b, h, w = cfg["b"], cfg["h"], cfg["w"]
+    codec = DtcwtKey()
+    frames = torch.as_tensor(smooth_frames(rng, b, h, w), device=device)
+    ll = dl.dtcwt_level1_ll_y(frames)
+    masks = dm.dtcwt_qshift_masks(ll, codec.step)
+    wm = key_wm(codec, h, w, device).reshape(1, *codec.wm_capacity((h, w, 3)))
+    dsubs = codec._delta_subs(masks, codec.wm_highpass(wm[0])).contiguous()
+    cases = {
+        "dtcwt_level1_ll_y": (lambda: dl.dtcwt_level1_ll_y(frames),
+                              lambda: dl.dtcwt_level1_ll_y_reference(frames)),
+        "dtcwt_qshift_masks": (lambda: dm.dtcwt_qshift_masks(ll, codec.step),
+                               lambda: dm.dtcwt_qshift_masks_reference(ll, codec.step)),
+        "dtcwt_delta_synthesis": (lambda: dd.dtcwt_delta_synthesis(dsubs),
+                                  lambda: dd.dtcwt_delta_synthesis_reference(dsubs)),
+        "dtcwt_level1_analysis": (lambda: dl.dtcwt_level1_analysis(wm),
+                                  lambda: dl.dtcwt_level1_analysis_reference(wm)),
+    }
+    pad = (4, 1, 4, 1)
+    y = _lincomb(frames.permute(0, 3, 1, 2), 0)
+    ypad = torch.nn.functional.pad(y[:, None], pad, mode="circular")
+    wpad = torch.nn.functional.pad(wm[:, None], pad, mode="circular")
+    w4 = _tree_weights([C.LEGALL_H0], [C.LEGALL_H0]).to(device)
+    w16 = _tree_weights([C.LEGALL_H0, C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H1],
+                        [C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H0, C.LEGALL_H1]).to(device)
+    conv = torch.nn.functional.conv2d
+    library = {"dtcwt_level1_ll_y": lambda: conv(ypad, w4, stride=2),
+               "dtcwt_level1_analysis": lambda: conv(wpad, w16, stride=2)}
+    got = library["dtcwt_level1_analysis"]()
+    print(f"timing library yardstick: conv2d level-1 analysis of the watermark plane differs "
+          f"from the kernel by {float((got - dl.dtcwt_level1_analysis(wm)).abs().max()):.3g}")
+    n1, n3 = b * (h // 2) * (w // 2), b * (h // 8) * (w // 8)
+    work = {
+        "dtcwt_level1_ll_y": (frames.numel() + 4 * ll.numel(), n1),
+        "dtcwt_qshift_masks": (4 * ll.numel() + 4 * masks.numel(), n3),
+        "dtcwt_delta_synthesis": (4 * dsubs.numel() + 4 * b * h * w, b * h * w),
+        "dtcwt_level1_analysis": (4 * wm.numel() + 4 * 16 * wm.numel() // 4, wm.numel() // 4),
+    }
+    shapes = {"dtcwt_level1_ll_y": frames.shape, "dtcwt_qshift_masks": ll.shape,
+              "dtcwt_delta_synthesis": dsubs.shape, "dtcwt_level1_analysis": wm.shape}
+    return cases, library, work, shapes
+
+
 def time_batch_stages(device, cfg, reps: int = 5) -> None:
     """Host clock around one 16-frame 1080p batch of FrameMarker/FrameExtractor's
     work, split at its synchronising boundaries: upload (pinned staging +
     H2D), device compute, download.  Median of ``reps`` after a warm-up."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
-    from vfp_tpu_torch.wm import DctQim, DeShuffler, DwtDctSvd
+    from vfp_tpu_torch.wm import DctQim, DeShuffler, DtcwtKey, DwtDctSvd
 
     rng = np.random.RandomState(5)
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
@@ -550,6 +791,9 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
         wm = spread_wm(codec, h, w, device)
         stages[label + "mark"] = (lambda x, c=codec, wm=wm: c.mark_frames(x, wm))
         stages[label + "extract"] = (lambda x, c=codec: deg.degenerate_batch(c.extract_frames(x)))
+    key_codec = DtcwtKey()  # mark only: its extract kernels are not ported
+    wm_key = key_wm(key_codec, h, w, device)
+    stages["dtcwtKey mark"] = lambda x: key_codec.mark_frames(x, wm_key)
     for name, compute in stages.items():
         runs = []
         for _ in range(reps + 1):
@@ -599,6 +843,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workroot) as tmp:
         counts, source_1080p = run_main_path(device, cfg, Path(tmp))
         counts.update(run_dct_path(device, cfg, Path(tmp), source_1080p))
+        counts.update(run_dtcwt_path(device, cfg, Path(tmp)))
     times = time_kernels(device, cfg)
     time_batch_stages(device, cfg)
     print(f"timings above on {card}")

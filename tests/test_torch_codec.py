@@ -191,7 +191,18 @@ def test_make_codec_reads_the_shared_config():
     assert make_codec("dwtDctSvd") == DwtDctSvd()
 
 
-@pytest.mark.parametrize("name", ["dtcwt_key", "dtcwtKey", "dtcwtImg"])
+@pytest.mark.parametrize("name", ["dtcwt_img", "DTCWTIMG", "dtcwtImg"])
 def test_make_codec_refuses_unported_codecs(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         make_codec(name)
+
+
+@pytest.mark.parametrize("name", ["dtcwt_key", "dtcwtKey"])
+def test_make_codec_builds_the_dtcwt_key_codec(name):
+    from vfp_tpu_torch.wm import DtcwtKey
+
+    cfg = VfpConfig()
+    cfg.codec.alpha_key, cfg.codec.step = 7.0, 4.0
+    assert make_codec(name, cfg) == DtcwtKey(alpha=7.0, step=4.0)
+    assert make_codec(name, cfg) == DtcwtKey.from_reference(cfg.make_codec("dtcwtKey"))
+    assert make_codec(name) == DtcwtKey()

@@ -5,7 +5,7 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: float outputs rtol/atol 2e-5 (the kernels and their plain
+Tolerances: the DT-CWT masks equal; float outputs rtol/atol 2e-5 (the kernels and their plain
 versions share one op order, IEEE division and no FMA), the Y mean rtol 1e-6;
 u8 marks identical on >= 99.5% of pixels and bits on >= 99.9% (a borderline
 s0 may take the other, parity-equivalent QIM bin).  The DCT-QIM kernels get
@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from vfp_tpu_torch import kernels
+from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt_masks as tdm
 from vfp_tpu_torch.kernels import fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
-from vfp_tpu_torch.wm import DctQim, DeShuffler, DwtDctSvd, Shuffler, block_grid
+from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeCorrShuffler, DeShuffler, DtcwtKey,
+                              DwtDctSvd, Shuffler, block_grid)
 
 from torch_parity import PAYLOAD, cuda_device, natural_frames  # noqa: F401
 
@@ -37,6 +39,16 @@ def _payloads(bits):
 
 
 def _inputs(name, device, rng, h, w):
+    if name == "dtcwt_level1_ll_y":
+        return (torch.as_tensor(natural_frames(rng, 2, h, w), device=device),)
+    if name == "dtcwt_level1_analysis":
+        return (torch.as_tensor(rng.rand(2, h, w).astype(np.float32) * 255, device=device),)
+    if name == "dtcwt_qshift_masks":
+        ll4 = rng.rand(2, 4, h // 8 * 4, w // 8 * 4).astype(np.float32) * 200
+        return (torch.as_tensor(ll4, device=device), 5.0)
+    if name == "dtcwt_delta_synthesis":
+        return (torch.as_tensor(rng.randn(2, 12, h // 8, w // 8).astype(np.float32),
+                                device=device),)
     if name in ("fused_dct_qim_mark", "fused_dct_qim_extract", "y_dc_mean"):
         h8 = h // 8 * 8  # the DCT-QIM kernels take H, W % 8 == 0
         frames = torch.as_tensor(natural_frames(rng, 2, h8, w), device=device)
@@ -69,13 +81,15 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
     got = getattr(kernels, name)(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == 1
-    module = next(m for m in (tdq, tfe, tqim) if hasattr(m, name))
+    module = next(m for m in (tdq, tfe, tqim, tdd, tdl, tdm) if hasattr(m, name))
     want = getattr(module, name + "_reference")(*args)
     for g, r in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.shape == r.shape and g.dtype == r.dtype
         if g.dtype == torch.uint8:
             assert (g == r).float().mean() >= 0.995
+        elif name == "dtcwt_qshift_masks":  # quantized: one op order, so equal
+            assert torch.equal(g, r)
         elif name == "y_dc_mean":
             torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
         elif name.endswith("extract_planar") or name in ("qim_decode_soa", "fused_dct_qim_extract"):
@@ -145,3 +159,24 @@ def test_dct_kernels_take_contiguous_planes_too(cuda_device):
     assert (got == want).float().mean() >= 0.999
     bits = tdq.fused_dct_qim_extract(got, 20.0, means)
     assert (bits == tdq.fused_dct_qim_extract_reference(got, 20.0, means)).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(240, 320), (480, 856)])
+def test_dtcwt_key_mark_on_the_card_takes_the_kernels(cuda_device, h, w):
+    frames = torch.as_tensor(natural_frames(np.random.RandomState(5), 2, h, w), device=cuda_device)
+    codec = DtcwtKey()  # auto: kernels for CUDA tensors
+    wm = torch.as_tensor(CorrShuffler(0).generate_wm(None, codec.wm_capacity((h, w, 3))),
+                         device=cuda_device)
+    kernels.reset_launch_counts()
+    marked = codec.mark_frames(frames, wm)
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 1 for k in ("dtcwt_level1_ll_y", "dtcwt_qshift_masks",
+                                        "dtcwt_delta_synthesis", "dtcwt_level1_analysis")), counts
+    assert marked.shape == frames.shape and marked.dtype == torch.uint8
+    plain = DtcwtKey(backend="kernel").mark_frames(frames.cpu(), wm.cpu())
+    assert (marked.cpu() == plain).float().mean() >= 0.999
+    with pytest.raises(NotImplementedError, match="detect kernels"):
+        codec.extract_frames(marked)
+    corr = DeCorrShuffler(0).correlation_batch(DtcwtKey(backend="torch").extract_frames(marked))
+    assert bool((corr > 0.1).all()), corr

@@ -21,6 +21,7 @@ from vfp_tpu.kernels import fused_embed as jfe, qim as jqim
 from vfp_tpu.wm.dwt_dct_svd import DwtDctSvd as JaxDwtDctSvd, block_grid
 from vfp_tpu_torch import kernels
 from vfp_tpu_torch.kernels import _build, fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
+from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt_masks as tdm
 
 from torch_parity import PAYLOAD, despread, natural_frames, spread_wm
 
@@ -120,7 +121,15 @@ def _wrapper_calls(rng):
     planes, wm2d = torch.from_numpy(planes), torch.from_numpy(wm2d)
     bits8 = torch.from_numpy(rng.randint(0, 2, (5, 8)).astype(np.float32))  # the 8x8 grid of 40x64
     means = tdq.y_dc_mean_reference(planes)
+    frames = planes.permute(0, 2, 3, 1)  # interleaved [B, 40, 64, 3]
+    ll4 = torch.from_numpy(rng.rand(2, 4, 20, 32).astype(np.float32) * 100)
+    x = torch.from_numpy(rng.rand(2, 40, 64).astype(np.float32))
+    dsubs = torch.from_numpy(rng.randn(2, 12, 5, 8).astype(np.float32))
     return {
+        "dtcwt_level1_ll_y": ((frames,), tdl.dtcwt_level1_ll_y_reference),
+        "dtcwt_level1_analysis": ((x,), tdl.dtcwt_level1_analysis_reference),
+        "dtcwt_qshift_masks": ((ll4, 5.0), tdm.dtcwt_qshift_masks_reference),
+        "dtcwt_delta_synthesis": ((dsubs,), tdd.dtcwt_delta_synthesis_reference),
         "fused_dct_qim_mark": ((planes, bits8, 20.0, means), tdq.fused_dct_qim_mark_reference),
         "fused_dct_qim_extract": ((planes, 20.0, means), tdq.fused_dct_qim_extract_reference),
         "y_dc_mean": ((planes,), tdq.y_dc_mean_reference),
@@ -178,7 +187,8 @@ def test_build_flags_keep_ieee_float():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "vfp_tpu_torch")
     assert {p.name for p in _build.sources()} == {"qim.cu", "fused_embed.cu", "fused_dct_qim.cu",
-                                                  "triplet.cuh"}
+                                                  "dtcwt_level1.cu", "dtcwt_masks.cu",
+                                                  "dtcwt_delta.cu", "triplet.cuh"}
 
 
 def test_build_compiles_each_source_in_its_own_nvcc(monkeypatch):

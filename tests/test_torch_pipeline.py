@@ -153,7 +153,7 @@ def test_cli_never_drops_to_the_cpu(source_video, tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_cv2(source_video, tmp_path):
-    """A fresh interpreter runs the port's CLI end to end, both codecs, without
+    """A fresh interpreter runs the port's CLI end to end, every codec, without
     importing jax, cv2 or anything of the JAX package."""
     code = f"""
 import sys
@@ -163,6 +163,9 @@ for codec in ("dwtDctSvd", "dct"):
     out = {str(tmp_path)!r} + "/m_" + codec + ".rawv"
     main(["mark", {str(source_video)!r}, out, "--codec", codec, "--device", "cpu"])
     main(["detect", out, "--codec", codec, "--payload", "01100101", "--device", "cpu"])
+out = {str(tmp_path)!r} + "/m_dtcwtKey.rawv"
+main(["mark", {str(source_video)!r}, out, "--codec", "dtcwtKey", "--device", "cpu"])
+main(["detect", out, "--codec", "dtcwtKey", "--device", "cpu"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "vfp_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
@@ -171,6 +174,7 @@ print("NO_JAX_OK")
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO_JAX_OK" in r.stdout and r.stdout.count("matches expected payload: True") == 2
+    assert "watermark present in" in r.stdout
 
 
 def _imported_modules(path: Path):

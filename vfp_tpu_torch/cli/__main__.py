@@ -1,13 +1,16 @@
 """CLI of the PyTorch/CUDA port: mark and detect with the ported codecs.
 
-    python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct] [--payload 01100101]
-                                [--key 0] [--device cuda]
-    python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct]
+    python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct|dtcwtKey]
+                                [--payload 01100101] [--key 0] [--device cuda]
+    python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct|dtcwtKey]
                                 [--payload-len 8 | --payload BITS] [--key 0]
 
 The same subcommands, flags and printed lines as ``python -m vfp_tpu.cli``
-for the DWT+DCT+SVD codec and the perceptual DCT-QIM codec (``--codec
-dct``), plus ``--device``.  The device defaults to ``cuda`` and is never
+for the DWT+DCT+SVD codec, the perceptual DCT-QIM codec (``--codec dct``)
+and the DT-CWT key codec (``--codec dtcwtKey``: a keyed spread-spectrum
+plane, the payload ignored; detect prints per-file presence), plus
+``--device``.  ``detect --codec dtcwtKey`` has no CUDA kernels yet and
+raises NotImplementedError on ``--device cuda``.  The device defaults to ``cuda`` and is never
 changed silently: ``--device cuda`` without a GPU raises; pass ``--device
 cpu`` to run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
 computes in float32.  Input and output are ``.rawv`` files.
@@ -42,18 +45,48 @@ def cmd_mark(args):
     from ..io import open_reader, open_writer
     from ..pipeline import Embedder, FrameMarker
     from ..utils import make_codec
-    from ..wm import Shuffler
+    from ..wm import CorrShuffler, Shuffler
 
     device = _device(args.device)
     codec = make_codec(args.codec)
     reader = open_reader(args.input)
-    wm = Shuffler(key=args.key).generate_wm(
+    generator = CorrShuffler(key=args.key) if _is_dtcwt_key(args.codec) else Shuffler(key=args.key)
+    wm = generator.generate_wm(
         _payload_bits(args.payload), codec.wm_capacity((reader.height, reader.width, 3)))
     writer = open_writer(args.output, reader.width, reader.height, reader.fps, args.quality)
     stats = Embedder(reader, FrameMarker(codec, wm, args.batch_size, device=device), writer).start()
     print(f"marked {stats.frames} frames in {stats.seconds:.2f}s ({stats.fps:.1f} fps)")
     if stats.stage_seconds:
         print(f"stages: {stats.stage_seconds}")
+
+
+def _is_dtcwt_key(name: str) -> bool:
+    return name.lower() in ("dtcwtkey", "dtcwt_key")
+
+
+@torch.inference_mode()
+def _detect_presence(args, codec, device):
+    """Per-frame normalised correlations with the keyed plane, as vfp_tpu.cli."""
+    from ..io import open_reader
+    from ..pipeline.embedder import upload_batch
+    from ..wm import DeCorrShuffler
+
+    deg = DeCorrShuffler(key=args.key)
+    reader = open_reader(args.input)
+    corrs = []
+    try:
+        while True:
+            b = reader.read_batch(args.batch_size)
+            if b is None:
+                break
+            planes = codec.extract_frames(upload_batch(b, len(b), device))
+            corrs.extend(deg.correlation_batch(planes).cpu().tolist())
+    finally:
+        reader.close()
+    present = sum(c > deg.threshold for c in corrs)
+    print(f"frames: {len(corrs)}")
+    print(f"watermark present in {present}/{len(corrs)} frames "
+          f"(mean correlation {np.mean(corrs):.3f})")
 
 
 def cmd_detect(args):
@@ -64,6 +97,8 @@ def cmd_detect(args):
 
     device = _device(args.device)
     codec = make_codec(args.codec)
+    if _is_dtcwt_key(args.codec):
+        return _detect_presence(args, codec, device)
     expected = None
     if args.payload:
         expected = _payload_bits(args.payload)
@@ -92,7 +127,7 @@ def main(argv=None):
     p.add_argument("--verbose", "-v", action="store_true", help="enable DEBUG logging")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    codecs = ["dwtDctSvd", "dct"]
+    codecs = ["dwtDctSvd", "dct", "dtcwtKey"]
     fast_dots_help = "accepted for vfp_tpu.cli's sake and ignored: the port computes in float32"
 
     m = sub.add_parser("mark", help="embed a payload into every frame")

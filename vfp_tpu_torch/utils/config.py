@@ -71,14 +71,15 @@ class VfpConfig:
             return cls.from_dict(json.load(f))
 
 
-_UNPORTED = ("dtcwtkey", "dtcwt_key", "dtcwtimg", "dtcwt_img")
+_UNPORTED = ("dtcwtimg", "dtcwt_img")
 
 
 def make_codec(name: str, config: VfpConfig | None = None):
-    """'dwtDctSvd' | 'dct' -> this package's codec, configured from
-    ``config.codec`` (the JAX backend names map as pallas -> kernel,
+    """'dwtDctSvd' | 'dct' | 'dtcwtKey' -> this package's codec, configured
+    from ``config.codec`` (the JAX backend names map as pallas -> kernel,
     xla -> torch)."""
     from ..wm.dct_qim import DctQim
+    from ..wm.dtcwt_codecs import DtcwtKey
     from ..wm.dwt_dct_svd import REFERENCE_BACKENDS, DwtDctSvd
 
     c = (config or VfpConfig()).codec
@@ -88,6 +89,8 @@ def make_codec(name: str, config: VfpConfig | None = None):
                          backend=REFERENCE_BACKENDS.get(c.backend, c.backend))
     if key in ("dct", "dctqim", "dct_qim"):
         return DctQim(alpha=c.alpha_dct)
+    if key in ("dtcwtkey", "dtcwt_key"):
+        return DtcwtKey(alpha=c.alpha_key, step=c.step)
     if key in _UNPORTED:
         raise NotImplementedError(f"codec {name!r} is not ported to vfp_tpu_torch yet "
                                   "(ROADMAP.md queue 1)")
