@@ -9,11 +9,12 @@ Phases, each printing its lines:
    torch sees no CUDA device — there is no CPU path;
 2. build: compiles ``vfp_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/vfp_tpu_torch/`` and prints the seconds;
-3. kernels: each of the twelve CUDA kernels against its plain PyTorch
+3. kernels: each of the sixteen CUDA kernels against its plain PyTorch
    version on the card, at the main paths' shapes (1080p B=16) and at edge
    shapes (W=856, H=1078, N not a multiple of 32, flat 8x8 blocks whose
    texture mask divides 0/0, a black frame whose DT-CWT masks and delta are
-   0), within the stated tolerances;
+   0), within the stated tolerances; the masks and the q-shift level also on
+   the in-place halves of the detect path's level-1 output;
 4. main paths, each with the launch counts set to 0 just before it and read
    just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
    then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
@@ -21,11 +22,12 @@ Phases, each printing its lines:
    codec through the pipeline API (``qim_embed_soa``); then ``mark --codec
    dct`` and ``detect --codec dct`` on the 1920x1080 file (the DCT-QIM
    kernels and the Y-mean pre-pass); then ``mark --codec dtcwtKey`` on a
-   48-frame 1920x1080 .rawv of smooth content (the four DT-CWT kernels),
-   whose marks the port's plain extract must find with key 0 and not with
-   key 99, while ``detect --codec dtcwtKey --device cuda`` must raise (its
-   kernels are not ported).  The counts must show every kernel ran and no
-   plain version may see a CUDA tensor;
+   48-frame 1920x1080 .rawv of smooth content (the four DT-CWT mark
+   kernels), then ``detect --codec dtcwtKey`` on the card (the four detect
+   kernels and the masks), which must find the mark with key 0 in 48/48
+   frames and with key 99 in 0/48, and agree with the plain kernel path on
+   the card.  The counts must show every kernel ran and no plain version may
+   see a CUDA tensor;
 5. timings: ms per 16-frame 1080p batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
    with CUDA events after warm-up, beside the bound the card's HBM rate and
@@ -39,6 +41,8 @@ The work files go under ``build/chip_smoke/`` and are removed at the end.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import subprocess
@@ -69,9 +73,18 @@ REPLACES = {
     "dtcwt_qshift_masks": ("dtcwt_masks.cu", "vfp_tpu/kernels/dtcwt_masks.py:190"),
     "dtcwt_delta_synthesis": ("dtcwt_delta.cu", "vfp_tpu/kernels/dtcwt_delta.py:258"),
     "dtcwt_level1_analysis": ("dtcwt_level1.cu", "vfp_tpu/kernels/dtcwt_level1.py:276"),
+    # the detect path, each with its chained twin (dtcwt_level1.py:888
+    # dtcwt_level1_ll_color_chain, :947 dtcwt_qshift_ll_chain, :972
+    # dtcwt_qshift_hp_chain): one kernel covers both
+    "dtcwt_level1_ll_color": ("dtcwt_level1.cu", "vfp_tpu/kernels/dtcwt_level1.py:428"),
+    "dtcwt_qshift_ll": ("dtcwt_qshift.cu", "vfp_tpu/kernels/dtcwt_level1.py:685"),
+    "dtcwt_qshift_hp": ("dtcwt_qshift.cu", "vfp_tpu/kernels/dtcwt_level1.py:797"),
+    "dtcwt_legall_synthesis_hp": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:467"),
 }
 DTCWT = ("dtcwt_level1_ll_y", "dtcwt_qshift_masks", "dtcwt_delta_synthesis",
          "dtcwt_level1_analysis")
+DTCWT_DETECT = ("dtcwt_level1_ll_color", "dtcwt_qshift_ll", "dtcwt_qshift_hp",
+                "dtcwt_qshift_masks", "dtcwt_legall_synthesis_hp")
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM bytes/s and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -102,6 +115,14 @@ FLOPS_PER_UNIT = {
     "dtcwt_qshift_masks": 3324,
     # per output pixel: 4 trees x (40/32 + 27/16 + 13/8 + 13/4 + 2/2 + 2) + 4
     "dtcwt_delta_synthesis": 47,
+    # per level-1 position (8 planes): ll_y's 96 for each of Y and U
+    "dtcwt_level1_ll_color": 192,
+    # per output position, 4 trees x (row pass 2 x 27 + column pass 27)
+    "dtcwt_qshift_ll": 324,
+    # per output position, 4 trees x (row passes 2 x 2 x 27 + column passes 3 x 27)
+    "dtcwt_qshift_hp": 756,
+    # per output pixel: 4 trees x (columns (lo 4 + hi 7) / 2 + rows 7) + 3 adds + 1 multiply
+    "dtcwt_legall_synthesis_hp": 54,
 }
 
 
@@ -352,6 +373,8 @@ def check_dtcwt_kernels(device, cfg, rng, record):
               f"lowpass max err {float((ll - want_ll).abs().max()):.3g}, {same_masks:.6f} of "
               f"masks equal (max {float(masks.max()):.0f}), delta max err "
               f"{float((du - want_du).abs().max()):.3g}")
+        check_dtcwt_detect_kernels(codec, frames, ll, masks, record, f"{b}x{h}x{w}"
+                                   + (" flat" if flat else ""))
     wm_plane = key_wm(codec, cfg["h"], cfg["w"], device).reshape(1, *codec.wm_capacity(
         (cfg["h"], cfg["w"], 3)))
     for x in (wm_plane, torch.as_tensor(rng.rand(2, cfg["prime_h"], cfg["prime_w"]).astype(
@@ -363,6 +386,45 @@ def check_dtcwt_kernels(device, cfg, rng, record):
         assert torch.allclose(got, want, rtol=1e-6, atol=1e-4), "dtcwt_level1_analysis"
         print(f"kernels: DT-CWT level-1 analysis {tuple(x.shape)}: max err "
               f"{float((got - want).abs().max()):.3g}")
+
+
+def check_dtcwt_detect_kernels(codec, frames, ll_y, masks_y, record, label):
+    """The detect kernels against their plain versions on the same input:
+    the Y and U lowpasses, the U q-shift levels 2 (lowpasses) and 3
+    (highpasses) on the in-place U half, the masks on the in-place Y half
+    (equal to those of the mark path's contiguous Y lowpasses), and the
+    synthesis on the codec's own folded planes."""
+    from vfp_tpu_torch.kernels import dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.kernels import dtcwt_synthesis as ds
+
+    ll = dl.dtcwt_level1_ll_color(frames)
+    torch.cuda.synchronize()
+    want = dl.dtcwt_level1_ll_color_reference(frames)
+    record("dtcwt_level1_ll_color", (ll - want).abs().max())
+    assert torch.allclose(ll, want, rtol=1e-6, atol=1e-4), "dtcwt_level1_ll_color"
+    assert torch.equal(ll[:, 0], ll_y), "the Y half differs from dtcwt_level1_ll_y"
+    masks = dm.dtcwt_qshift_masks(ll[:, 0], codec.step)  # the strided view, in place
+    torch.cuda.synchronize()
+    assert torch.equal(masks, masks_y), "masks of the strided Y half differ"
+    errs = {}
+    u_ll2 = dl.dtcwt_qshift_ll(ll[:, 1])
+    torch.cuda.synchronize()
+    errs["dtcwt_qshift_ll"] = (u_ll2 - dl.dtcwt_qshift_ll_reference(ll[:, 1])).abs().max()
+    assert torch.equal(u_ll2, dl.dtcwt_qshift_ll(ll[:, 1].contiguous())), "strided U half"
+    u_hp3 = dl.dtcwt_qshift_hp(u_ll2)
+    torch.cuda.synchronize()
+    errs["dtcwt_qshift_hp"] = (u_hp3 - dl.dtcwt_qshift_hp_reference(u_ll2)).abs().max()
+    folded = codec._decode_coeffs(u_hp3, masks, lambda subs: subs)  # the synthesis input
+    planes = ds.dtcwt_legall_synthesis_hp(folded)
+    torch.cuda.synchronize()
+    errs["dtcwt_legall_synthesis_hp"] = (
+        planes - ds.dtcwt_legall_synthesis_hp_reference(folded)).abs().max()
+    for name, e in errs.items():
+        record(name, e)
+        assert float(e) <= 1e-5, f"{name} {label}: max err {float(e)}"
+    print(f"kernels: DT-CWT detect {label}: Y/U lowpass max err "
+          f"{float((ll - want).abs().max()):.3g}, strided-Y masks equal, "
+          + ", ".join(f"{k[6:]} max err {float(v):.3g}" for k, v in errs.items()))
 
 
 # -- phase 4: the main path -------------------------------------------------------
@@ -392,11 +454,11 @@ class NoPlainOnDevice:
         from vfp_tpu_torch.kernels import fused_dct_qim, fused_embed, qim
         from vfp_tpu_torch.wm import dct_qim, dwt_dct_svd
 
-        from vfp_tpu_torch.kernels import dtcwt_delta, dtcwt_level1, dtcwt_masks
+        from vfp_tpu_torch.kernels import dtcwt_delta, dtcwt_level1, dtcwt_masks, dtcwt_synthesis
         from vfp_tpu_torch.ops import dtcwt
 
         self.targets = [(mod, name) for mod in (qim, fused_embed, fused_dct_qim, dtcwt_level1,
-                                                dtcwt_masks, dtcwt_delta)
+                                                dtcwt_masks, dtcwt_delta, dtcwt_synthesis)
                         for name in dir(mod) if name.endswith("_reference")]
         # the codecs' tensor paths
         self.targets += [(dwt_dct_svd, "top_triplet_soa"), (dct_qim, "texture_mask"),
@@ -546,11 +608,31 @@ def plain_dtcwt_mark(codec, frames, wm):
     return torch.round(torch.clamp(marked, 0.0, 255.0)).to(torch.uint8)
 
 
+def plain_dtcwt_extract(codec, frames):
+    """The kernel path's extract with every kernel replaced by its plain version."""
+    from vfp_tpu_torch.kernels import dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.kernels import dtcwt_synthesis as ds
+
+    ll = dl.dtcwt_level1_ll_color_reference(frames)
+    u_hp3 = dl.dtcwt_qshift_hp_reference(dl.dtcwt_qshift_ll_reference(ll[:, 1]))
+    masks = dm.dtcwt_qshift_masks_reference(ll[:, 0], codec.step)
+    return codec._decode_coeffs(u_hp3, masks, ds.dtcwt_legall_synthesis_hp_reference)
+
+
+def _cli_lines(cli, argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli(argv)
+    return out.getvalue()
+
+
 def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
-    """``cli mark --codec dtcwtKey`` on a 48-frame smooth 1920x1080 file; the
-    presence of the mark through the port's plain extract (on the CPU); and
-    ``detect --codec dtcwtKey --device cuda`` raising.  Returns the launch
-    counts of the mark run alone."""
+    """``cli mark --codec dtcwtKey`` on a 48-frame smooth 1920x1080 file, then
+    ``cli detect --codec dtcwtKey`` on the card with key 0 (48/48 present)
+    and key 99 (0/48); the first batch's correlations against the plain
+    kernel path on the card, and the port's tensor-path extract (CPU) on two
+    frames.  Returns the launch counts of the mark run plus the key-0 detect
+    run, each counted alone."""
     from vfp_tpu_torch import kernels
     from vfp_tpu_torch.cli import main as cli
     from vfp_tpu_torch.io import RawVideoWriter
@@ -570,14 +652,31 @@ def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
     counts = kernels.launch_counts()
     assert all(counts[k] == batches for k in DTCWT), counts
     assert not any(counts[k] for k in REPLACES if k not in DTCWT), counts
-    counts = {k: counts[k] for k in DTCWT}
-    print(f"main path dtcwtKey {w}x{h}: {n} frames marked, launches {counts}")
-    try:
-        cli(["detect", str(out), *flags])
-    except NotImplementedError as e:
-        print(f"main path dtcwtKey detect --device cuda raises as it should: {str(e)[:90]}...")
-    else:
-        raise AssertionError("detect --codec dtcwtKey --device cuda did not raise")
+    mark_counts = {k: counts[k] for k in DTCWT}
+    print(f"main path dtcwtKey {w}x{h}: {n} frames marked, launches {mark_counts}")
+
+    def detect(key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = _cli_lines(cli, ["detect", str(out), "--key", str(key), *flags])
+        return text, time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        lines, seconds = detect(0)
+    counts = kernels.launch_counts()
+    assert all(counts[k] == batches for k in DTCWT_DETECT), counts
+    assert not any(counts[k] for k in REPLACES if k not in DTCWT_DETECT), counts
+    detect_counts = {k: counts[k] for k in DTCWT_DETECT}
+    with NoPlainOnDevice():
+        lines_99, seconds_99 = detect(99)
+    for text, want in ((lines, f"{n}/{n}"), (lines_99, f"0/{n}")):
+        assert f"frames: {n}" in text and f"watermark present in {want} frames" in text, text
+    print(f"main path dtcwtKey detect {w}x{h} --device {device}: key 0 "
+          f"{lines.strip().splitlines()[-1]!r}, key 99 {lines_99.strip().splitlines()[-1]!r}; "
+          f"{n} frames in {seconds:.3f} s ({n / seconds:.1f} frames/s; key 99, the second run: "
+          f"{seconds_99:.3f} s, {n / seconds_99:.1f} frames/s; host clock around the CLI call, "
+          f"the file read and the keyed plane included), launches {detect_counts}")
 
     src, marked = _read_rawv(source), _read_rawv(out)
     assert marked.shape == (n, h, w, 3), marked.shape
@@ -589,15 +688,24 @@ def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
     want = plain_dtcwt_mark(codec, x, key_wm(codec, h, w, device)).cpu().numpy()
     same = float((want == marked[: cfg["b"]]).mean())
     assert same >= 0.995, same
+    first = torch.as_tensor(np.array(marked[: cfg["b"]]), device=device)
+    deg = DeCorrShuffler(0)
+    got_corr = deg.correlation_batch(codec.extract_frames(first))
+    want_corr = deg.correlation_batch(plain_dtcwt_extract(codec, first))
+    corr_err = float((got_corr - want_corr).abs().max())
+    assert corr_err <= 1e-4, corr_err
     plain = DtcwtKey(backend="torch")
     planes = plain.extract_frames(torch.as_tensor(np.array(marked[:2]), device="cpu"))
     corr = {key: DeCorrShuffler(key).correlation_batch(planes).tolist() for key in (0, 99)}
     assert all(c > 0.1 for c in corr[0]) and all(c < 0.1 for c in corr[99]), corr
     print(f"main path dtcwtKey output: PSNR {psnr:.2f} dB vs source, {same:.6f} of the first "
-          f"batch's pixels equal to the plain version on the card; plain extract (CPU) "
-          f"correlation key 0 {[round(c, 4) for c in corr[0]]}, key 99 "
-          f"{[round(c, 4) for c in corr[99]]}")
-    return counts
+          f"batch's pixels equal to the plain version on the card; first batch's key-0 "
+          f"correlations (min {float(got_corr.min()):.4f}) within {corr_err:.3g} of the plain "
+          f"kernel path on the card; tensor-path extract (CPU) correlation key 0 "
+          f"{[round(c, 4) for c in corr[0]]}, key 99 {[round(c, 4) for c in corr[99]]}")
+    return {**mark_counts, **detect_counts,
+            "dtcwt_qshift_masks": mark_counts["dtcwt_qshift_masks"]
+            + detect_counts["dtcwt_qshift_masks"]}
 
 
 # -- phase 5: timings -------------------------------------------------------------
@@ -722,15 +830,56 @@ def _tree_weights(filters_r, filters_c) -> torch.Tensor:
     return torch.as_tensor(np.stack(ws)[:, None])
 
 
+def _qshift_weights(trees_bands) -> torch.Tensor:
+    """[n, 1, 14, 14] conv2d weights of q-shift tree filters over a window
+    padded 13 rows and columns before: w[13 - kr][13 - kc] = fr[kr] * fc[kc]."""
+    ws = []
+    for fr, fc in trees_bands:
+        wt = np.zeros((14, 14), np.float32)
+        for kr, a in enumerate(fr):
+            for kc, c in enumerate(fc):
+                wt[13 - kr, 13 - kc] = np.float32(a) * np.float32(c)
+        ws.append(wt)
+    return torch.as_tensor(np.stack(ws)[:, None])
+
+
+def _legall_hp_weights() -> torch.Tensor:
+    """[12, 1, 6, 6] conv_transpose2d weights of the highpass-only LeGall
+    synthesis, planes [lh*4, hl*4, hh*4]: tree (rt, ct)'s sampling phase
+    shifts the taps, w[rt + kr][ct + kc] = 0.25 * fr[kr] * fc[kc], with rows
+    g0 (lh) or g1 (hl, hh) and columns g1 (lh, hh) or g0 (hl)."""
+    from vfp_tpu_torch.ops import dtcwt_coeffs as C
+
+    ws = []
+    for fr, fc in ((C.LEGALL_G0, C.LEGALL_G1), (C.LEGALL_G1, C.LEGALL_G0),
+                   (C.LEGALL_G1, C.LEGALL_G1)):
+        for rt in range(2):
+            for ct in range(2):
+                wt = np.zeros((6, 6), np.float32)
+                for kr, a in enumerate(fr):
+                    for kc, c in enumerate(fc):
+                        wt[rt + kr, ct + kc] = np.float32(0.25) * np.float32(a) * np.float32(c)
+                ws.append(wt)
+    return torch.as_tensor(np.stack(ws)[:, None])
+
+
 def dtcwt_timing_cases(device, cfg, rng):
     """The DT-CWT kernels at the main path's shapes (16 frames of 1080p; the
     136x240 watermark plane): (cases, library calls, (bytes, units), shapes).
-    The library yardstick of the level-1 kernels is one stride-2 F.conv2d
-    with the tree filters as a [n, 1, 6, 6] weight over the plane padded
-    circularly beforehand (for ll_y: the Y plane, the lincomb not included)."""
+    The library yardsticks, each one call over an input padded circularly
+    beforehand: for the level-1 kernels a stride-2 F.conv2d with the tree
+    filters as a [n, 1, 6, 6] weight (for ll_y and ll_color: over the Y (and
+    U) plane, the lincomb not included); for the q-shift levels a grouped
+    stride-2 F.conv2d with each tree's separable filters as [4 or 12, 1, 14,
+    14] weights (its highpass planes come out tree-major, a permutation of
+    the kernel's band-major order); for the synthesis a stride-2
+    F.conv_transpose2d of the 12 planes into one, the phases and 0.25 in
+    the weights and the roll in the crop (a view)."""
     from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.kernels import dtcwt_synthesis as ds
     from vfp_tpu_torch.kernels.fused_dct_qim import _lincomb
     from vfp_tpu_torch.ops import dtcwt_coeffs as C
+    from vfp_tpu_torch.ops.dtcwt import _qshift
     from vfp_tpu_torch.wm import DtcwtKey
 
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
@@ -740,6 +889,15 @@ def dtcwt_timing_cases(device, cfg, rng):
     masks = dm.dtcwt_qshift_masks(ll, codec.step)
     wm = key_wm(codec, h, w, device).reshape(1, *codec.wm_capacity((h, w, 3)))
     dsubs = codec._delta_subs(masks, codec.wm_highpass(wm[0])).contiguous()
+    # the detect path's inputs: the marked batch's level-1 output, its U half
+    # in place, level 2, and the codec's own folded level-3 planes
+    marked = codec.mark_frames(frames, key_wm(codec, h, w, device))
+    llc = dl.dtcwt_level1_ll_color(marked)
+    u_ll1 = llc[:, 1]
+    u_ll2 = dl.dtcwt_qshift_ll(u_ll1)
+    u_hp3 = dl.dtcwt_qshift_hp(u_ll2)
+    folded = codec._decode_coeffs(u_hp3, dm.dtcwt_qshift_masks(llc[:, 0], codec.step),
+                                  lambda subs: subs)
     cases = {
         "dtcwt_level1_ll_y": (lambda: dl.dtcwt_level1_ll_y(frames),
                               lambda: dl.dtcwt_level1_ll_y_reference(frames)),
@@ -749,6 +907,14 @@ def dtcwt_timing_cases(device, cfg, rng):
                                   lambda: dd.dtcwt_delta_synthesis_reference(dsubs)),
         "dtcwt_level1_analysis": (lambda: dl.dtcwt_level1_analysis(wm),
                                   lambda: dl.dtcwt_level1_analysis_reference(wm)),
+        "dtcwt_level1_ll_color": (lambda: dl.dtcwt_level1_ll_color(marked),
+                                  lambda: dl.dtcwt_level1_ll_color_reference(marked)),
+        "dtcwt_qshift_ll": (lambda: dl.dtcwt_qshift_ll(u_ll1),
+                            lambda: dl.dtcwt_qshift_ll_reference(u_ll1)),
+        "dtcwt_qshift_hp": (lambda: dl.dtcwt_qshift_hp(u_ll2),
+                            lambda: dl.dtcwt_qshift_hp_reference(u_ll2)),
+        "dtcwt_legall_synthesis_hp": (lambda: ds.dtcwt_legall_synthesis_hp(folded),
+                                      lambda: ds.dtcwt_legall_synthesis_hp_reference(folded)),
     }
     pad = (4, 1, 4, 1)
     y = _lincomb(frames.permute(0, 3, 1, 2), 0)
@@ -758,20 +924,59 @@ def dtcwt_timing_cases(device, cfg, rng):
     w16 = _tree_weights([C.LEGALL_H0, C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H1],
                         [C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H0, C.LEGALL_H1]).to(device)
     conv = torch.nn.functional.conv2d
-    library = {"dtcwt_level1_ll_y": lambda: conv(ypad, w4, stride=2),
-               "dtcwt_level1_analysis": lambda: conv(wpad, w16, stride=2)}
-    got = library["dtcwt_level1_analysis"]()
-    print(f"timing library yardstick: conv2d level-1 analysis of the watermark plane differs "
-          f"from the kernel by {float((got - dl.dtcwt_level1_analysis(wm)).abs().max()):.3g}")
-    n1, n3 = b * (h // 2) * (w // 2), b * (h // 8) * (w // 8)
+    mp = marked.permute(0, 3, 1, 2)
+    yupad = torch.nn.functional.pad(torch.cat([_lincomb(mp, 0), _lincomb(mp, 1)])[:, None], pad,
+                                    mode="circular")
+    wq4 = _qshift_weights([(_qshift(rt)[0], _qshift(ct)[0])
+                           for rt in range(2) for ct in range(2)]).to(device)
+    wq12 = _qshift_weights([(fr, fc) for rt in range(2) for ct in range(2)
+                            for fr, fc in ((_qshift(rt)[0], _qshift(ct)[1]),
+                                           (_qshift(rt)[1], _qshift(ct)[0]),
+                                           (_qshift(rt)[1], _qshift(ct)[1]))
+                            ]).to(device)
+    u1pad = torch.nn.functional.pad(u_ll1, (13, 0, 13, 0), mode="circular")
+    u2pad = torch.nn.functional.pad(u_ll2, (13, 0, 13, 0), mode="circular")
+    fpad = torch.nn.functional.pad(folded, (1, 2, 1, 2), mode="circular")
+    wsyn = _legall_hp_weights().to(device)
+    hh, ww = folded.shape[-2:]
+    library = {
+        "dtcwt_level1_ll_y": lambda: conv(ypad, w4, stride=2),
+        "dtcwt_level1_analysis": lambda: conv(wpad, w16, stride=2),
+        "dtcwt_level1_ll_color": lambda: conv(yupad, w4, stride=2),
+        "dtcwt_qshift_ll": lambda: conv(u1pad, wq4, stride=2, groups=4),
+        "dtcwt_qshift_hp": lambda: conv(u2pad, wq12, stride=2, groups=4),
+        "dtcwt_legall_synthesis_hp": lambda: torch.nn.functional.conv_transpose2d(
+            fpad, wsyn, stride=2)[:, 0, 5:5 + 2 * hh, 5:5 + 2 * ww],
+    }
+    band_major = torch.arange(12).reshape(4, 3).t().reshape(-1)  # tree-major -> the kernel's order
+    diffs = {
+        "level-1 analysis of the watermark plane": (
+            library["dtcwt_level1_analysis"](), dl.dtcwt_level1_analysis(wm)),
+        "Y/U level 1": (library["dtcwt_level1_ll_color"]().reshape(2, b, 4, h // 2, w // 2)
+                        .transpose(0, 1), llc),
+        "U level 2": (library["dtcwt_qshift_ll"](), u_ll2),
+        "U level 3": (library["dtcwt_qshift_hp"]()[:, band_major], u_hp3),
+        "LeGall synthesis": (library["dtcwt_legall_synthesis_hp"](),
+                             ds.dtcwt_legall_synthesis_hp(folded)),
+    }
+    print("timing library yardsticks differ from the kernels by: " + ", ".join(
+        f"{k} {float((a - b_).abs().max()):.3g} (of max {float(b_.abs().max()):.3g})"
+        for k, (a, b_) in diffs.items()))
+    n1, n2, n3 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4), b * (h // 8) * (w // 8)
     work = {
         "dtcwt_level1_ll_y": (frames.numel() + 4 * ll.numel(), n1),
         "dtcwt_qshift_masks": (4 * ll.numel() + 4 * masks.numel(), n3),
         "dtcwt_delta_synthesis": (4 * dsubs.numel() + 4 * b * h * w, b * h * w),
         "dtcwt_level1_analysis": (4 * wm.numel() + 4 * 16 * wm.numel() // 4, wm.numel() // 4),
+        "dtcwt_level1_ll_color": (marked.numel() + 4 * llc.numel(), n1),
+        "dtcwt_qshift_ll": (4 * u_ll1.numel() + 4 * u_ll2.numel(), n2),
+        "dtcwt_qshift_hp": (4 * u_ll2.numel() + 4 * u_hp3.numel(), n3),
+        "dtcwt_legall_synthesis_hp": (4 * folded.numel() + 4 * b * 4 * hh * ww, b * 4 * hh * ww),
     }
     shapes = {"dtcwt_level1_ll_y": frames.shape, "dtcwt_qshift_masks": ll.shape,
-              "dtcwt_delta_synthesis": dsubs.shape, "dtcwt_level1_analysis": wm.shape}
+              "dtcwt_delta_synthesis": dsubs.shape, "dtcwt_level1_analysis": wm.shape,
+              "dtcwt_level1_ll_color": marked.shape, "dtcwt_qshift_ll": u_ll1.shape,
+              "dtcwt_qshift_hp": u_ll2.shape, "dtcwt_legall_synthesis_hp": folded.shape}
     return cases, library, work, shapes
 
 
@@ -780,7 +985,7 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
     work, split at its synchronising boundaries: upload (pinned staging +
     H2D), device compute, download.  Median of ``reps`` after a warm-up."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
-    from vfp_tpu_torch.wm import DctQim, DeShuffler, DtcwtKey, DwtDctSvd
+    from vfp_tpu_torch.wm import DctQim, DeCorrShuffler, DeShuffler, DtcwtKey, DwtDctSvd
 
     rng = np.random.RandomState(5)
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
@@ -791,9 +996,11 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
         wm = spread_wm(codec, h, w, device)
         stages[label + "mark"] = (lambda x, c=codec, wm=wm: c.mark_frames(x, wm))
         stages[label + "extract"] = (lambda x, c=codec: deg.degenerate_batch(c.extract_frames(x)))
-    key_codec = DtcwtKey()  # mark only: its extract kernels are not ported
+    key_codec = DtcwtKey()
     wm_key = key_wm(key_codec, h, w, device)
     stages["dtcwtKey mark"] = lambda x: key_codec.mark_frames(x, wm_key)
+    deg_key = DeCorrShuffler(0)  # one per run, as the CLI: its keyed plane is made once
+    stages["dtcwtKey extract"] = lambda x: deg_key.correlation_batch(key_codec.extract_frames(x))
     for name, compute in stages.items():
         runs = []
         for _ in range(reps + 1):

@@ -6,7 +6,9 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: the DT-CWT masks equal; float outputs rtol/atol 2e-5 (the kernels and their plain
-versions share one op order, IEEE division and no FMA), the Y mean rtol 1e-6;
+versions share one op order, IEEE division and no FMA; the detect kernels at 480x856
+atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on the card against the
+CPU's kernel path atol 1e-4 (PyTorch's complex division may round otherwise);
 u8 marks identical on >= 99.5% of pixels and bits on >= 99.9% (a borderline
 s0 may take the other, parity-equivalent QIM bin).  The DCT-QIM kernels get
 the same means as their plain versions, so the comparison isolates the
@@ -19,6 +21,7 @@ import torch
 
 from vfp_tpu_torch import kernels
 from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt_masks as tdm
+from vfp_tpu_torch.kernels import dtcwt_synthesis as tds
 from vfp_tpu_torch.kernels import fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
 from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeCorrShuffler, DeShuffler, DtcwtKey,
                               DwtDctSvd, Shuffler, block_grid)
@@ -26,6 +29,8 @@ from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeCorrShuffler, DeShuffler, 
 from torch_parity import PAYLOAD, cuda_device, natural_frames  # noqa: F401
 
 SCALE = 15.0
+DETECT_KERNELS = ("dtcwt_level1_ll_color", "dtcwt_qshift_ll", "dtcwt_qshift_hp",
+                  "dtcwt_legall_synthesis_hp")
 
 
 def _wm(h, w, device):
@@ -39,8 +44,14 @@ def _payloads(bits):
 
 
 def _inputs(name, device, rng, h, w):
-    if name == "dtcwt_level1_ll_y":
+    if name in ("dtcwt_level1_ll_y", "dtcwt_level1_ll_color"):
         return (torch.as_tensor(natural_frames(rng, 2, h, w), device=device),)
+    if name in ("dtcwt_qshift_ll", "dtcwt_qshift_hp"):  # the level-1 (or -2) lowpasses
+        ll4 = rng.rand(2, 4, h // 4 * 2, w // 4 * 2).astype(np.float32) * 200
+        return (torch.as_tensor(ll4, device=device),)
+    if name == "dtcwt_legall_synthesis_hp":  # the folded level-3 coefficients
+        return (torch.as_tensor(rng.randn(2, 12, h // 8, w // 8).astype(np.float32),
+                                device=device),)
     if name == "dtcwt_level1_analysis":
         return (torch.as_tensor(rng.rand(2, h, w).astype(np.float32) * 255, device=device),)
     if name == "dtcwt_qshift_masks":
@@ -81,7 +92,7 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
     got = getattr(kernels, name)(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == 1
-    module = next(m for m in (tdq, tfe, tqim, tdd, tdl, tdm) if hasattr(m, name))
+    module = next(m for m in (tdq, tfe, tqim, tdd, tdl, tdm, tds) if hasattr(m, name))
     want = getattr(module, name + "_reference")(*args)
     for g, r in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
@@ -162,6 +173,31 @@ def test_dct_kernels_take_contiguous_planes_too(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", DETECT_KERNELS)
+def test_detect_kernel_matches_plain_version_at_480x856(cuda_device, name):
+    args = _inputs(name, cuda_device, np.random.RandomState(6), 480, 856)
+    got = getattr(kernels, name)(*args)
+    torch.cuda.synchronize()
+    want = getattr(tdl if hasattr(tdl, name) else tds, name + "_reference")(*args)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_masks_and_qshift_read_the_level1_halves_in_place(cuda_device):
+    """``ll[:, 0]`` and ``ll[:, 1]`` of the [B, 2, 4, h, w] level-1 output go
+    to the kernels by batch stride, with the results of contiguous copies."""
+    frames = torch.as_tensor(natural_frames(np.random.RandomState(7), 3, 240, 320),
+                             device=cuda_device)
+    ll = tdl.dtcwt_level1_ll_color(frames)
+    for half in (ll[:, 0], ll[:, 1]):
+        assert not half.is_contiguous()
+        assert torch.equal(tdm.dtcwt_qshift_masks(half), tdm.dtcwt_qshift_masks(half.contiguous()))
+        assert torch.equal(tdl.dtcwt_qshift_ll(half), tdl.dtcwt_qshift_ll(half.contiguous()))
+        assert torch.equal(tdl.dtcwt_qshift_hp(half), tdl.dtcwt_qshift_hp(half.contiguous()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,w", [(240, 320), (480, 856)])
 def test_dtcwt_key_mark_on_the_card_takes_the_kernels(cuda_device, h, w):
     frames = torch.as_tensor(natural_frames(np.random.RandomState(5), 2, h, w), device=cuda_device)
@@ -176,7 +212,13 @@ def test_dtcwt_key_mark_on_the_card_takes_the_kernels(cuda_device, h, w):
     assert marked.shape == frames.shape and marked.dtype == torch.uint8
     plain = DtcwtKey(backend="kernel").mark_frames(frames.cpu(), wm.cpu())
     assert (marked.cpu() == plain).float().mean() >= 0.999
-    with pytest.raises(NotImplementedError, match="detect kernels"):
-        codec.extract_frames(marked)
-    corr = DeCorrShuffler(0).correlation_batch(DtcwtKey(backend="torch").extract_frames(marked))
+    kernels.reset_launch_counts()
+    planes = codec.extract_frames(marked)
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 1 for k in (*DETECT_KERNELS, "dtcwt_qshift_masks")), counts
+    assert sum(counts.values()) == 5, counts
+    assert planes.shape == (2, *codec.wm_capacity((h, w, 3)))
+    want = DtcwtKey(backend="kernel").extract_frames(marked.cpu())
+    torch.testing.assert_close(planes.cpu(), want, rtol=0, atol=1e-4)
+    corr = DeCorrShuffler(0).correlation_batch(planes)
     assert bool((corr > 0.1).all()), corr

@@ -37,6 +37,7 @@ from vfp_tpu_torch import kernels
 from vfp_tpu_torch.cli import main as port_cli
 from vfp_tpu_torch.io import RawVideoReader, RawVideoWriter
 from vfp_tpu_torch.kernels import dtcwt_delta as tdelta, dtcwt_level1 as tl1, dtcwt_masks as tmasks
+from vfp_tpu_torch.kernels import dtcwt_synthesis as tsyn
 from vfp_tpu_torch.ops import dtcwt as tdt, dtcwt_coeffs as tcoeffs, filters as tfilters
 from vfp_tpu_torch.utils import make_codec
 from vfp_tpu_torch.wm import CorrShuffler, DeCorrShuffler, DtcwtKey, dtcwt_codecs as tcodecs
@@ -244,6 +245,17 @@ def test_delta_synthesis_matches_pallas_and_the_chain(rng, h3, w3):
     lambda: tmasks.dtcwt_qshift_masks(torch.zeros(1, 4, 6, 8)),
     lambda: tmasks.dtcwt_qshift_masks(torch.zeros(1, 3, 8, 8)),
     lambda: tdelta.dtcwt_delta_synthesis(torch.zeros(1, 11, 4, 4)),
+    lambda: tl1.dtcwt_level1_ll_color(torch.zeros(1, 8, 8, 3)),
+    lambda: tl1.dtcwt_level1_ll_color(torch.zeros(1, 8, 8, 4, dtype=torch.uint8)),
+    lambda: tl1.dtcwt_level1_ll_color(torch.zeros(1, 8, 7, 3, dtype=torch.uint8)),
+    lambda: tl1.dtcwt_qshift_ll(torch.zeros(1, 4, 8, 8, dtype=torch.float64)),
+    lambda: tl1.dtcwt_qshift_ll(torch.zeros(4, 8, 8)),
+    lambda: tl1.dtcwt_qshift_ll(torch.zeros(1, 3, 8, 8)),
+    lambda: tl1.dtcwt_qshift_hp(torch.zeros(1, 4, 7, 8)),
+    lambda: tl1.dtcwt_qshift_hp(torch.zeros(1, 4, 8, 9)),
+    lambda: tsyn.dtcwt_legall_synthesis_hp(torch.zeros(1, 11, 4, 4)),
+    lambda: tsyn.dtcwt_legall_synthesis_hp(torch.zeros(1, 12, 4, 4, dtype=torch.float64)),
+    lambda: tsyn.dtcwt_legall_synthesis_hp(torch.zeros(12, 4, 4)),
 ])
 def test_kernel_wrappers_reject_malformed_input(call):
     with pytest.raises(ValueError):

@@ -22,6 +22,7 @@ from vfp_tpu.wm.dwt_dct_svd import DwtDctSvd as JaxDwtDctSvd, block_grid
 from vfp_tpu_torch import kernels
 from vfp_tpu_torch.kernels import _build, fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
 from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt_masks as tdm
+from vfp_tpu_torch.kernels import dtcwt_synthesis as tds
 
 from torch_parity import PAYLOAD, despread, natural_frames, spread_wm
 
@@ -127,6 +128,10 @@ def _wrapper_calls(rng):
     dsubs = torch.from_numpy(rng.randn(2, 12, 5, 8).astype(np.float32))
     return {
         "dtcwt_level1_ll_y": ((frames,), tdl.dtcwt_level1_ll_y_reference),
+        "dtcwt_level1_ll_color": ((frames,), tdl.dtcwt_level1_ll_color_reference),
+        "dtcwt_qshift_ll": ((ll4,), tdl.dtcwt_qshift_ll_reference),
+        "dtcwt_qshift_hp": ((ll4,), tdl.dtcwt_qshift_hp_reference),
+        "dtcwt_legall_synthesis_hp": ((dsubs,), tds.dtcwt_legall_synthesis_hp_reference),
         "dtcwt_level1_analysis": ((x,), tdl.dtcwt_level1_analysis_reference),
         "dtcwt_qshift_masks": ((ll4, 5.0), tdm.dtcwt_qshift_masks_reference),
         "dtcwt_delta_synthesis": ((dsubs,), tdd.dtcwt_delta_synthesis_reference),
@@ -188,7 +193,8 @@ def test_build_flags_keep_ieee_float():
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "vfp_tpu_torch")
     assert {p.name for p in _build.sources()} == {"qim.cu", "fused_embed.cu", "fused_dct_qim.cu",
                                                   "dtcwt_level1.cu", "dtcwt_masks.cu",
-                                                  "dtcwt_delta.cu", "triplet.cuh"}
+                                                  "dtcwt_delta.cu", "dtcwt_qshift.cu",
+                                                  "dtcwt_synthesis.cu", "triplet.cuh"}
 
 
 def test_build_compiles_each_source_in_its_own_nvcc(monkeypatch):

@@ -9,10 +9,10 @@ The same subcommands, flags and printed lines as ``python -m vfp_tpu.cli``
 for the DWT+DCT+SVD codec, the perceptual DCT-QIM codec (``--codec dct``)
 and the DT-CWT key codec (``--codec dtcwtKey``: a keyed spread-spectrum
 plane, the payload ignored; detect prints per-file presence), plus
-``--device``.  ``detect --codec dtcwtKey`` has no CUDA kernels yet and
-raises NotImplementedError on ``--device cuda``.  The device defaults to ``cuda`` and is never
-changed silently: ``--device cuda`` without a GPU raises; pass ``--device
-cpu`` to run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
+``--device``.  On ``--device cuda`` every codec marks and detects through
+its CUDA kernels.  The device defaults to ``cuda`` and is never changed
+silently: ``--device cuda`` without a GPU raises; pass ``--device cpu`` to
+run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
 computes in float32.  Input and output are ``.rawv`` files.
 """
 

@@ -4,7 +4,9 @@
 //
 // Replaces the Pallas kernels of vfp_tpu/kernels/dtcwt_masks.py:
 // dtcwt_qshift_masks (:190) and its chained twin dtcwt_qshift_masks_chain
-// (:227).  Input: the Y tree lowpasses [B, 4, h1, w1], f32, h1 and w1 % 4 == 0;
+// (:227).  Input: the Y tree lowpasses [B, 4, h1, w1], f32, h1 and w1 % 4 == 0,
+// each batch item's 4 planes contiguous and the items ``bstride`` floats apart
+// (so the detect path reads the Y half of [B, 2, 4, h1, w1] in place);
 // output: [B, 6, h3, w3] with h3 = h1 / 4, w3 = w1 / 4, bands [LH+, LH-, HL+,
 // HL-, HH+, HH-].
 //
@@ -64,7 +66,7 @@ __device__ __forceinline__ int level2_index(int t0, int s) {
 
 __global__ void __launch_bounds__(kThreads)
     masks_kernel(const float* __restrict__ ll4, float* __restrict__ out, int h1, int w1,
-                 float step, MaskParams k) {
+                 int bstride, float step, MaskParams k) {
   __shared__ float lohi[4][2][kWin][kXWin];
   __shared__ float mags[6][kWin][kWin];
   const int h3 = h1 / 4, w3 = w1 / 4;
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
     const int fi = (it / (kXWin * kWin)) % 2;
     const int ci = it / (kXWin * kWin * 2);
     const float* f = filt[ci >> 1][fi];
-    const float* src = ll4 + (b * 4 + ci) * h1 * w1 + wrap(xs + xl, w1);
+    const float* src = ll4 + b * bstride + (long long)ci * h1 * w1 + wrap(xs + xl, w1);
     const int row0 = wrap(2 * level2_index(r0, wr), h1);
     float acc = f[0] * src[(long long)row0 * w1];
 #pragma unroll
@@ -169,15 +171,16 @@ MaskParams params(const void* host_params) {
 }  // namespace vfp
 
 // Plain C interface, bound with ctypes (kernels/_build.py).  ll4/out are
-// device pointers to contiguous f32 [B, 4, h1, w1] and [B, 6, h1/4, w1/4];
-// params is host memory (56 floats: h0a, h1a, h0b, h1b).  Returns the
-// launch's cudaError_t.
+// device pointers to f32 [B, 4, h1, w1] (batch stride ``bstride`` floats,
+// the rest contiguous) and a contiguous [B, 6, h1/4, w1/4]; params is host
+// memory (56 floats: h0a, h1a, h0b, h1b).  Returns the launch's cudaError_t.
 extern "C" int vfp_dtcwt_qshift_masks(const void* ll4, void* out, int batch, int h1, int w1,
-                                      float step, const void* params, void* stream) {
+                                      int bstride, float step, const void* params,
+                                      void* stream) {
   const int h3 = h1 / 4, w3 = w1 / 4;
   if (batch == 0 || h3 == 0 || w3 == 0) return 0;
   const dim3 grid((w3 + vfp::kTile - 1) / vfp::kTile, (h3 + vfp::kTile - 1) / vfp::kTile, batch);
   vfp::masks_kernel<<<grid, vfp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)ll4, (float*)out, h1, w1, step, vfp::params(params));
+      (const float*)ll4, (float*)out, h1, w1, bstride, step, vfp::params(params));
   return (int)cudaGetLastError();
 }

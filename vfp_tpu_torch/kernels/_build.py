@@ -49,8 +49,12 @@ SIGNATURES = {
     "vfp_fused_dct_qim_extract": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
     "vfp_dtcwt_level1_ll_y": [_P, _P, _I, _I, _I, _P, _P],
     "vfp_dtcwt_level1_analysis": [_P, _P, _I, _I, _I, _P, _P],
-    "vfp_dtcwt_qshift_masks": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "vfp_dtcwt_level1_ll_color": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_qshift_masks": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "vfp_dtcwt_delta_synthesis": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_qshift_ll": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_qshift_hp": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_legall_synthesis_hp": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,10 @@ filter (reflect-101 at the top row and left column: row -1 reads row 1) ->
 the 2x2 mean rebin onto the level-3 grid -> ceil(m / step), [B, 6, h1/4,
 w1/4].  h1 and w1 must be multiples of 4 (the level-2 grid even, so the
 rebin needs no zero row).  The codecs' ==0 guard and mask normalisation stay
-outside, on the small output.
+outside, on the small output.  The input may be a view whose batch items
+are each contiguous, such as ``ll[:, 0]`` of the detect path's
+[B, 2, 4, h1, w1] level-1 output: the kernel takes the batch stride and
+reads it in place (``batch_strided``).
 
 ``ceil`` turns a last-bit difference into a whole mask step, so the plain
 version (``dtcwt_qshift_masks_reference``: the plain transform's level-2
@@ -41,6 +44,18 @@ def _params_host() -> np.ndarray:
         [C.QSHIFT_H0A, C.QSHIFT_H1A, C.QSHIFT_H0B, C.QSHIFT_H1B]).astype(np.float32))
 
 
+def batch_strided(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``x`` [B, C, h, w] and its batch stride in elements, for a kernel that
+    takes one: a view whose batch items are each contiguous (``ll[:, 0]`` of
+    a contiguous [B, 2, C, h, w]) is used in place, any other layout copied."""
+    _, c, h, w = x.shape
+    if x.stride()[1:] != (h * w, w, 1):
+        x = x.contiguous()
+    if x.stride(0) >= 2 ** 31:
+        raise ValueError(f"batch stride {x.stride(0)} does not fit the kernels' int")
+    return x, x.stride(0)
+
+
 def _check(ll4: torch.Tensor) -> None:
     if ll4.dtype != torch.float32 or ll4.dim() != 4 or ll4.shape[1] != 4:
         raise ValueError(f"dtcwt_qshift_masks: want float32 [B, 4, h1, w1], got "
@@ -65,12 +80,12 @@ def dtcwt_qshift_masks(ll4: torch.Tensor, step: float = 5.0) -> torch.Tensor:
     _check(ll4)
     if not ll4.is_cuda:
         return dtcwt_qshift_masks_reference(ll4, step)
-    ll4 = ll4.contiguous()
+    ll4, bstride = batch_strided(ll4)
     b, _, h1, w1 = ll4.shape
     out = torch.empty((b, 6, h1 // 4, w1 // 4), dtype=torch.float32, device=ll4.device)
     with torch.cuda.device(ll4.device):
         _build.launch("vfp_dtcwt_qshift_masks", ll4.data_ptr(), out.data_ptr(), b, h1, w1,
-                      float(step), _params_host().ctypes.data)
+                      bstride, float(step), _params_host().ctypes.data)
     dtcwt_qshift_masks.launches += 1
     return out
 

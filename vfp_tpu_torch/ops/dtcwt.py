@@ -10,12 +10,17 @@ mixes, ordered [LH+, LH-, HL+, HL-, HH+, HH-].  Everything is batched over
 leading axes.
 
 ``Transform2d(backend=...)``: ``"torch"`` runs the plain tensor code below;
-``"kernel"`` (and ``"auto"`` for CUDA tensors) takes the CUDA kernel of the
-one level ported so far, the full level-1 analysis
-(``kernels/dtcwt_level1.py:dtcwt_level1_analysis``), and raises
+``"kernel"`` (and ``"auto"`` for CUDA tensors) takes the CUDA kernels of the
+blocks ported so far, as the JAX package routes them to Pallas: the full
+level-1 analysis (``kernels/dtcwt_level1.py:dtcwt_level1_analysis``), the
+q-shift analysis with lowpasses only (``dtcwt_qshift_ll``) and with
+highpasses only (``analysis_qshift_hp``: ``dtcwt_qshift_hp``), and the
+highpass-only LeGall synthesis (``synthesis_legall_hp``:
+``kernels/dtcwt_synthesis.py:dtcwt_legall_synthesis_hp``).  It raises
 NotImplementedError where the JAX package would reach a kernel that is not
-ported yet.  The plain single-level blocks are the plain versions of those
-kernels.
+ported yet: the lowpass-only level 1, the full q-shift analysis, the other
+three syntheses, ``inverse``, and ``forward`` with nlevels > 1.  The plain
+single-level blocks are the plain versions of those kernels.
 """
 
 from __future__ import annotations
@@ -166,6 +171,13 @@ class Transform2d:
     def _kernel_mode(self, x: torch.Tensor) -> bool:
         return self.backend == "kernel" or (self.backend == "auto" and x.is_cuda)
 
+    @staticmethod
+    def _on_kernel(fn, x: torch.Tensor, planes: int) -> torch.Tensor:
+        """``fn`` over the leading axes of [..., planes, h, w]."""
+        lead, (h, w) = x.shape[:-3], x.shape[-2:]
+        out = fn(x.reshape(-1, planes, h, w))
+        return out.reshape(*lead, *out.shape[1:])
+
     def _plain(self, x: torch.Tensor, what: str) -> None:
         """Raise where the JAX package runs a kernel this port has not yet."""
         if self._kernel_mode(x):
@@ -249,7 +261,11 @@ class Transform2d:
         """[..., 4, h, w] tree lowpasses -> one q-shift analysis level
         ([..., 16 or 4, h/2, w/2], pre-pad size)."""
         stack, lvl = _pad_even(ll4.to(torch.float32))
-        self._plain(stack, "analysis_qshift")
+        if self._kernel_mode(stack) and lowpass_only:
+            from ..kernels.dtcwt_level1 import dtcwt_qshift_ll
+
+            return self._on_kernel(dtcwt_qshift_ll, stack, 4), lvl
+        self._plain(stack, "analysis_qshift(lowpass_only=False)")
         ll, subs = {}, {}
         for ci, (rt, ct) in enumerate(_TREES):
             xi = stack[..., ci, :, :]
@@ -267,6 +283,11 @@ class Transform2d:
     def analysis_qshift_hp(self, ll4: torch.Tensor):
         """[..., 4, h, w] -> ([..., 12, h/2, w/2] planes [lh*4, hl*4, hh*4],
         pre-pad size)."""
+        stack, lvl = _pad_even(ll4.to(torch.float32))
+        if self._kernel_mode(stack):
+            from ..kernels.dtcwt_level1 import dtcwt_qshift_hp
+
+            return self._on_kernel(dtcwt_qshift_hp, stack, 4), lvl
         planes, lvl = self.analysis_qshift(ll4)
         return planes[..., 4:, :, :], lvl
 
@@ -292,7 +313,10 @@ class Transform2d:
     def synthesis_legall_hp(self, subs12: torch.Tensor) -> torch.Tensor:
         """Highpass-only LeGall level-1 synthesis: [..., 12, h, w] planes
         [lh*4, hl*4, hh*4] with a zero lowpass -> [..., 2h, 2w]."""
-        self._plain(subs12, "synthesis_legall_hp")
+        if self._kernel_mode(subs12):
+            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_hp
+
+            return self._on_kernel(dtcwt_legall_synthesis_hp, subs12.to(torch.float32), 12)
         out = 0.0
         for ci, (rt, ct) in enumerate(_TREES):
             lh, hl, hh = (subs12[..., band * 4 + ci, :, :] for band in range(3))

@@ -11,19 +11,23 @@ delta alone: the U channel is never analysed.  Detection divides the
 level-3 U highpasses by ``mask * alpha``, folds the 4 corner replicas, and
 inverts a 1-level pyramid with a zero lowpass.
 
-``backend``: ``"kernel"`` (and ``"auto"`` for CUDA tensors) marks through
-the CUDA kernels (their plain versions for CPU tensors):
-``dtcwt_level1_ll_y`` (u8 frames -> Y tree lowpasses), ``dtcwt_qshift_masks``
-(-> quantized masks), ``dtcwt_delta_synthesis`` (delta planes -> pixel
-delta), and ``dtcwt_level1_analysis`` for the watermark plane's spectrum
-(through ``Transform2d.forward``, every batch, as the JAX package's traced
-path does).  They take H, W % 8 == 0, the geometry where every level halves
-exactly and the JAX codec takes its fused kernels; other shapes raise there.
-``"torch"`` (and ``"auto"`` for CPU tensors) runs the tensor path below, the
-JAX package's XLA path.  ``extract_frames`` has only the tensor path: its
-kernels are not ported yet (ROADMAP.md queue 1), so a CUDA tensor under ``"auto"`` or
-``"kernel"`` raises NotImplementedError.  The codec has 3 levels, as the
-JAX package's default; other depths and the image variant (mask
+``backend``: ``"kernel"`` (and ``"auto"`` for CUDA tensors) runs both
+directions on the CUDA kernels (their plain versions for CPU tensors).
+Marking: ``dtcwt_level1_ll_y`` (u8 frames -> Y tree lowpasses),
+``dtcwt_qshift_masks`` (-> quantized masks), ``dtcwt_delta_synthesis``
+(delta planes -> pixel delta), and ``dtcwt_level1_analysis`` for the
+watermark plane's spectrum (through ``Transform2d.forward``, every batch, as
+the JAX package's traced path does).  Detection, as the JAX package's
+chained path (``_decode_from_ll1_chain``): ``dtcwt_level1_ll_color`` (u8
+frames -> Y and U tree lowpasses), ``dtcwt_qshift_ll`` then
+``dtcwt_qshift_hp`` on the U half (-> level-3 highpasses),
+``dtcwt_qshift_masks`` on the Y half (both halves read in place), and
+``dtcwt_legall_synthesis_hp`` after the glue (q2c, divide by mask and alpha,
+fold the corners, c2q).  The kernels take H, W % 8 == 0, the geometry where
+every level halves exactly and the JAX codec takes its fused kernels; other
+shapes raise there.  ``"torch"`` (and ``"auto"`` for CPU tensors) runs the
+tensor path below, the JAX package's XLA path.  The codec has 3 levels, as
+the JAX package's default; other depths and the image variant (mask
 normalisation) are not ported yet.
 """
 
@@ -34,18 +38,16 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.dtcwt_delta import dtcwt_delta_synthesis
-from ..kernels.dtcwt_level1 import dtcwt_level1_ll_y
+from ..kernels.dtcwt_level1 import (dtcwt_level1_ll_color, dtcwt_level1_ll_y, dtcwt_qshift_hp,
+                                    dtcwt_qshift_ll)
 from ..kernels.dtcwt_masks import dtcwt_qshift_masks
+from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_hp
 from ..kernels.fused_dct_qim import true_div
 from ..ops.color import M_BWD, bgr_to_yuv
 from ..ops.dtcwt import Transform2d, c2q_subs, q2c_magnitudes, q2c_planes
 from ..ops.filters import filter2d_mean2x2, rebin_mean
 
 BACKENDS = ("auto", "kernel", "torch")
-DETECT_KERNELS = (
-    "dtcwt_level1_analysis_ll_color (vfp_tpu/kernels/dtcwt_level1.py:428, :888), "
-    "dtcwt_qshift_analysis_ll (:685, :947), dtcwt_qshift_analysis_hp (:797, :972) and "
-    "dtcwt_legall_synthesis_hp (vfp_tpu/kernels/dtcwt_synthesis.py:467)")
 
 
 def infer_wm_shape(img_shape):
@@ -105,7 +107,7 @@ class _DtcwtBase:
         h, w = frames.shape[1], frames.shape[2]
         if h % 8 or w % 8:
             raise NotImplementedError(
-                f"the DT-CWT mark kernels take H, W % 8 == 0, got {h}x{w}; the 3-stage "
+                f"the DT-CWT kernels take H, W % 8 == 0, got {h}x{w}; the 3-stage "
                 "synthesis kernels that other shapes need are not ported yet (ROADMAP.md "
                 "queue 1); pass backend='torch' for the tensor path")
         return True
@@ -117,11 +119,9 @@ class _DtcwtBase:
         return Transform2d(self.backend).forward(wm.to(torch.float32), nlevels=1).highpasses[0]
 
     # -- masks and delta ---------------------------------------------------------------
-    def _masks3_from_mags(self, mags: torch.Tensor, shape3, zero_guard: bool = False):
-        """[B, 6, h2, w2] subband magnitudes -> [B, 6, h3, w3] masks; the
-        decoder replaces 0 by 0.01 (``zero_guard``)."""
-        m = torch.ceil(true_div(rebin_mean(filter2d_mean2x2(mags), shape3), self.step))
-        return torch.where(m == 0, torch.full_like(m, 0.01), m) if zero_guard else m
+    def _masks3_from_mags(self, mags: torch.Tensor, shape3):
+        """[B, 6, h2, w2] subband magnitudes -> [B, 6, h3, w3] masks."""
+        return torch.ceil(true_div(rebin_mean(filter2d_mean2x2(mags), shape3), self.step))
 
     def _delta_subs(self, masks: torch.Tensor, wm_hp: torch.Tensor) -> torch.Tensor:
         """[B, 6, h3, w3] masks + complex [h, w, 6] watermark spectrum -> the
@@ -165,13 +165,12 @@ class _DtcwtBase:
         return torch.round(torch.clamp(marked, 0.0, 255.0)).to(torch.uint8)
 
     def extract_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] uint8 -> recovered watermark planes [B, h, w] (tensor
-        path only)."""
-        if frames.is_cuda and self.backend != "torch":
-            raise NotImplementedError(
-                "DT-CWT extract on the card needs the detect kernels " + DETECT_KERNELS
-                + ", which are not ported yet (ROADMAP.md queue 1); pass backend='torch' "
-                "for the tensor path")
+        """[B, H, W, 3] uint8 -> recovered watermark planes [B, h, w]."""
+        if self._use_kernel(frames):
+            ll = dtcwt_level1_ll_color(frames)  # [B, 2, 4, H/2, W/2]
+            u_hp3 = dtcwt_qshift_hp(dtcwt_qshift_ll(ll[:, 1]))  # [B, 12, H/8, W/8]
+            masks = dtcwt_qshift_masks(ll[:, 0], self.step)
+            return self._decode_coeffs(u_hp3, masks, dtcwt_legall_synthesis_hp)
         yuv = bgr_to_yuv(frames.to(torch.float32))
         return self._decode_channel(yuv[..., 0], yuv[..., 1])
 
@@ -183,14 +182,21 @@ class _DtcwtBase:
         ll1, _ = t.analysis_level1(torch.cat([y, u], dim=0), lowpass_only=True)
         u_ll2, _ = t.analysis_qshift(ll1[b:], lowpass_only=True)
         u_hp3, _ = t.analysis_qshift_hp(u_ll2)
-        shape3 = (u_hp3.shape[-2], u_hp3.shape[-1])
         y_hp2, _ = t.analysis_qshift_hp(ll1[:b])
-        masks = self._masks3_from_mags(q2c_magnitudes(y_hp2), shape3, zero_guard=True)
+        masks = self._masks3_from_mags(q2c_magnitudes(y_hp2), u_hp3.shape[-2:])
+        return self._decode_coeffs(u_hp3, masks, t.synthesis_legall_hp)
+
+    def _decode_coeffs(self, u_hp3: torch.Tensor, masks: torch.Tensor, synthesis):
+        """U level-3 highpasses [B, 12, h3, w3] and masks [B, 6, h3, w3] ->
+        the recovered planes: the decoder's 0 -> 0.01 mask guard, q2c,
+        division by mask and alpha, the fold of the 4 corner replicas, c2q,
+        and ``synthesis`` (the highpass-only LeGall level-1 synthesis)."""
+        masks = torch.where(masks == 0, torch.full_like(masks, 0.01), masks)
         coeff = q2c_planes(u_hp3) / masks.permute(0, 2, 3, 1).to(torch.complex64)
         coeff = coeff / torch.full_like(coeff, self.alpha)
-        hh, ww = (shape3[0] + 1) // 2, (shape3[1] + 1) // 2
+        hh, ww = (u_hp3.shape[-2] + 1) // 2, (u_hp3.shape[-1] + 1) // 2
         folded = _fold_corners(coeff.permute(0, 3, 1, 2), hh, ww).permute(0, 2, 3, 1)
-        return t.synthesis_legall_hp(c2q_subs(folded))
+        return synthesis(c2q_subs(folded))
 
 
 @dataclass(frozen=True)
