@@ -9,12 +9,15 @@ Phases, each printing its lines:
    torch sees no CUDA device — there is no CPU path;
 2. build: compiles ``vfp_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/vfp_tpu_torch/`` and prints the seconds;
-3. kernels: each of the sixteen CUDA kernels against its plain PyTorch
-   version on the card, at the main paths' shapes (1080p B=16) and at edge
-   shapes (W=856, H=1078, N not a multiple of 32, flat 8x8 blocks whose
-   texture mask divides 0/0, a black frame whose DT-CWT masks and delta are
-   0), within the stated tolerances; the masks and the q-shift level also on
-   the in-place halves of the detect path's level-1 output;
+3. kernels: each of the 22 CUDA kernels against its plain PyTorch version on
+   the card, at the main paths' shapes (1080p B=16, 1920x804 for the scope
+   path's syntheses, [32, 1080, 1920] and [32, 4, 540, 960] for the level-1
+   and q-shift analyses of [Y; U]) and at edge shapes (W=856, H=1078, N not
+   a multiple of 32, flat 8x8 blocks whose texture mask divides 0/0, a black
+   frame whose DT-CWT masks and delta are 0, every level of 854x480, 853x480
+   and 2048x858 pyramids, an odd 33x65 grid), within the stated tolerances
+   (the DT-CWT kernels equal); the masks and the q-shift level also on the
+   in-place halves of the detect path's level-1 output;
 4. main paths, each with the launch counts set to 0 just before it and read
    just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
    then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
@@ -26,13 +29,21 @@ Phases, each printing its lines:
    kernels), then ``detect --codec dtcwtKey`` on the card (the four detect
    kernels and the masks), which must find the mark with key 0 in 48/48
    frames and with key 99 in 0/48, and agree with the plain kernel path on
+   the card; then the rest of the DT-CWT: ``mark`` -> ``detect --codec
+   dtcwtKey`` on a 48-frame 1920x804 scope file (the three-stage synthesis
+   kernels; key 0 48/48, key 99 0/48), a float32 1080p batch through the
+   codec (level 1 lowpass-only), and ``DtcwtKey(nlevels=4)`` through the
+   pipeline API on 48 frames of 1280x720 plus a 4-level ``Transform2d``
+   round trip of a 1080p batch (the full q-shift
+   analysis and the full syntheses), each equal to the plain kernel path on
    the card.  The counts must show every kernel ran and no plain version may
    see a CUDA tensor;
-5. timings: ms per 16-frame 1080p batch and frames/s, kernel vs plain version
+5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
    with CUDA events after warm-up, beside the bound the card's HBM rate and
    float32 peak set for the same work; then one batch of each codec's
-   pipeline work split into upload, device and download on the host clock.
+   pipeline work (and ``dtcwtKey`` at 1920x804) split into upload, device
+   and download on the host clock.
 
 Then one JSON line per the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits nonzero.
@@ -41,6 +52,7 @@ The work files go under ``build/chip_smoke/`` and are removed at the end.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -57,7 +69,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PAYLOAD = "01100101"
 FULL = {"b": 16, "h": 1080, "w": 1920, "frames": 48, "narrow_w": 1918, "tail_h": 1078,
-        "prime_w": 856, "prime_h": 480, "iters": 20}
+        "prime_w": 856, "prime_h": 480, "scope_h": 804, "depth_h": 720, "depth_w": 1280,
+        "iters": 20}
 ALPHA = 20.0  # the DCT-QIM codec's default
 REPLACES = {
     "fused_mark_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:239"),
@@ -80,6 +93,13 @@ REPLACES = {
     "dtcwt_qshift_ll": ("dtcwt_qshift.cu", "vfp_tpu/kernels/dtcwt_level1.py:685"),
     "dtcwt_qshift_hp": ("dtcwt_qshift.cu", "vfp_tpu/kernels/dtcwt_level1.py:797"),
     "dtcwt_legall_synthesis_hp": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:467"),
+    # the rest of the transform: frames off the fused geometry, float frames, any depth
+    "dtcwt_level1_analysis_ll": ("dtcwt_level1.cu", "vfp_tpu/kernels/dtcwt_level1.py:347"),
+    "dtcwt_qshift_analysis": ("dtcwt_qshift.cu", "vfp_tpu/kernels/dtcwt_level1.py:715"),
+    "dtcwt_qshift_synthesis": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:273"),
+    "dtcwt_qshift_synthesis_ll": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:497"),
+    "dtcwt_legall_synthesis": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:299"),
+    "dtcwt_legall_synthesis_ll": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:523"),
 }
 DTCWT = ("dtcwt_level1_ll_y", "dtcwt_qshift_masks", "dtcwt_delta_synthesis",
          "dtcwt_level1_analysis")
@@ -123,6 +143,16 @@ FLOPS_PER_UNIT = {
     "dtcwt_qshift_hp": 756,
     # per output pixel: 4 trees x (columns (lo 4 + hi 7) / 2 + rows 7) + 3 adds + 1 multiply
     "dtcwt_legall_synthesis_hp": 54,
+    # per level-1 position (4 planes): rows 2 x 2 x 9, columns 4 x 9
+    "dtcwt_level1_analysis_ll": 72,
+    # per output position, 4 trees x (row passes 2 x 2 x 27 + column passes 4 x 27)
+    "dtcwt_qshift_analysis": 864,
+    # per output sample, 7 of the 14 taps hitting: rows 2 x 13 + 1, columns (lo 27 + hi 27) / 2
+    "dtcwt_qshift_synthesis": 54,
+    "dtcwt_qshift_synthesis_ll": 19.5,  # rows 13, columns 13 / 2
+    # per output pixel: 4 trees x (columns (lo 7 + hi 7) / 2 + rows 7) + 3 adds + 1 multiply
+    "dtcwt_legall_synthesis": 60,
+    "dtcwt_legall_synthesis_ll": 16,  # 4 trees x (columns 2 / 2 + rows 2) + 4
 }
 
 
@@ -144,8 +174,8 @@ def smooth_frames(rng, b, h, w):
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """'<source> <kernel>[<packed|strided>]: N registers, S bytes spilled' per
-    kernel, from the build's ``-Xptxas=-v`` report."""
+    """'<source> <kernel><template arguments>: N registers, S bytes spilled'
+    per kernel, from the build's ``-Xptxas=-v`` report."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -153,10 +183,11 @@ def ptxas_summary(log: str) -> list[str]:
             mangled = m.group(1)
             src = re.search(r"_\d+_(\w+?)_cu_", mangled)
             fn = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
-            name = (f"{src.group(1) if src else '?'}.cu "
-                    f"{mangled[fn.end():fn.end() + int(fn.group(1))] if fn else mangled}")
-            if "ILb1E" in mangled or "ILb0E" in mangled:
-                name += "[packed]" if "ILb1E" in mangled else "[strided]"
+            end = fn.end() + int(fn.group(1)) if fn else 0
+            name = f"{src.group(1) if src else '?'}.cu {mangled[fn.end():end] if fn else mangled}"
+            targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end:])
+            if targs:  # bool and int template arguments, e.g. ILb1ELi2EE -> <1, 2>
+                name += f"<{', '.join(re.findall(r'L[a-z](\d+)E', targs.group(1)))}>"
             spill = 0
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -272,6 +303,7 @@ def check_kernels(device, cfg) -> dict:
               f"{_frac_equal(bits, want_bits):.6f} identical")
     check_dct_kernels(device, cfg, rng, record)
     check_dtcwt_kernels(device, cfg, rng, record)
+    check_full_dtcwt_kernels(device, cfg, rng, record)
     return err
 
 
@@ -427,6 +459,93 @@ def check_dtcwt_detect_kernels(codec, frames, ll_y, masks_y, record, label):
           + ", ".join(f"{k[6:]} max err {float(v):.3g}" for k, v in errs.items()))
 
 
+def compare_plain(name, x, record, label):
+    """One DT-CWT wrapper against its plain version on the same card input:
+    they must be equal.  Returns the kernel's output."""
+    from vfp_tpu_torch.kernels import dtcwt_level1 as dl, dtcwt_synthesis as ds
+
+    module = dl if hasattr(dl, name) else ds
+    got = getattr(module, name)(x)
+    torch.cuda.synchronize()
+    want = getattr(module, name + "_reference")(x)
+    err = float((got - want).abs().max())
+    record(name, err)
+    assert got.shape == want.shape and torch.equal(got, want), f"{name} {label}: max err {err}"
+    return got
+
+
+def scope_delta_stages(device, cfg, rng):
+    """The inputs of path 1's three synthesis stages, from the mark glue on 16
+    smooth 1920x804 frames: the level-3 delta planes [16, 16, 101, 240], the
+    cropped level-2 lowpasses [16, 4, 201, 480] and the level-1 lowpasses
+    [16, 4, 402, 960]."""
+    from vfp_tpu_torch.kernels import dtcwt_level1 as dl
+    from vfp_tpu_torch.ops.dtcwt import Transform2d, q2c_magnitudes
+    from vfp_tpu_torch.wm import DtcwtKey
+
+    codec, t = DtcwtKey(), Transform2d("kernel")
+    h, w = cfg["scope_h"], cfg["w"]
+    y_ll1 = dl.dtcwt_level1_ll_y(torch.as_tensor(smooth_frames(rng, cfg["b"], h, w),
+                                                 device=device))
+    y_hp2, s1 = t.analysis_qshift_hp(y_ll1)
+    h2, w2 = y_hp2.shape[-2:]
+    shape3 = ((h2 + 1) // 2, (w2 + 1) // 2)
+    wm_hp = codec.wm_highpass(key_wm(codec, h, w, device).reshape(codec.wm_capacity((h, w, 3))))
+    dsubs = codec._delta_subs(codec._masks3_from_mags(q2c_magnitudes(y_hp2), shape3), wm_hp)
+    d3 = torch.cat([torch.zeros_like(dsubs[:, :4]), dsubs], dim=1)
+    dll2 = t.synthesis_qshift(d3)[..., :h2, :w2].contiguous()
+    dll1 = t.synthesis_qshift_ll(dll2)[..., : s1[0], : s1[1]].contiguous()
+    return d3, dll2, dll1
+
+
+def check_full_dtcwt_kernels(device, cfg, rng, record):
+    """The six kernels of the rest of the transform against their plain
+    versions on the card, which must be equal: at the new paths' shapes
+    (level 1 lowpass-only on [Y; U] of a 1080p batch, [32, 1080, 1920]; a
+    full q-shift level on its output, [32, 4, 540, 960]; the full LeGall
+    synthesis of 16 frames' level-1 planes, [16, 16, 540, 960]; path 1's
+    three synthesis stages at 1920x804), then on every level of 4-level
+    pyramids of 854x480, 853x480 and 2048x858 frames (odd level grids, the
+    odd ones replicate-padded), and on an odd [2, 16, 33, 65] grid."""
+    from vfp_tpu_torch.kernels import dtcwt_level1 as dl
+    from vfp_tpu_torch.ops.color import bgr_to_yuv
+    from vfp_tpu_torch.ops.dtcwt import Transform2d, _pad_even
+
+    b, h, w = cfg["b"], cfg["h"], cfg["w"]
+    yuv = bgr_to_yuv(torch.as_tensor(smooth_frames(rng, b, h, w), device=device).to(
+        torch.float32))
+    x32 = torch.cat([yuv[..., 0], yuv[..., 1]]).contiguous()
+    ll1 = compare_plain("dtcwt_level1_analysis_ll", x32, record, "[32, 1080, 1920]")
+    compare_plain("dtcwt_qshift_analysis", ll1, record, "[32, 4, 540, 960]")
+    compare_plain("dtcwt_legall_synthesis", dl.dtcwt_level1_analysis(x32[:b]), record,
+                  "[16, 16, 540, 960]")
+    del x32, ll1
+    for name, x in zip(("dtcwt_qshift_synthesis", "dtcwt_qshift_synthesis_ll",
+                        "dtcwt_legall_synthesis_ll"), scope_delta_stages(device, cfg, rng)):
+        compare_plain(name, x, record, f"1920x804 {list(x.shape)}")
+    plain = Transform2d("torch")
+    for fh, fw in ((cfg["prime_h"], 854), (cfg["prime_h"], 853), (858, 2048)):
+        x = torch.as_tensor(rng.rand(2, fh, fw).astype(np.float32) * 255, device=device)
+        planes, _ = plain.forward_raw(x, 4)
+        label = f"{fw}x{fh} pyramid"
+        compare_plain("dtcwt_level1_analysis_ll", _pad_even(x)[0], record, label)
+        for lev in range(3):
+            compare_plain("dtcwt_qshift_analysis", _pad_even(planes[lev][:, :4])[0], record,
+                          label)
+            compare_plain("dtcwt_qshift_synthesis", planes[lev + 1], record, label)
+            compare_plain("dtcwt_qshift_synthesis_ll", planes[lev + 1][:, :4], record, label)
+        compare_plain("dtcwt_legall_synthesis", planes[0], record, label)
+        compare_plain("dtcwt_legall_synthesis_ll", planes[0][:, :4], record, label)
+    grid = torch.as_tensor(rng.randn(2, 16, 33, 65).astype(np.float32), device=device)
+    for name in ("dtcwt_qshift_synthesis", "dtcwt_legall_synthesis"):
+        compare_plain(name, grid, record, "[2, 16, 33, 65]")
+        compare_plain(name + "_ll", grid[:, :4], record, "[2, 4, 33, 65]")
+    print("kernels: DT-CWT level1_analysis_ll, qshift_analysis, qshift_synthesis(_ll), "
+          "legall_synthesis(_ll) equal to their plain versions at [32, 1080, 1920], "
+          "[32, 4, 540, 960], [16, 16, 540, 960], path 1's 1920x804 stages, every level of "
+          "854x480, 853x480 and 2048x858 pyramids and a [2, 16, 33, 65] grid")
+
+
 # -- phase 4: the main path -------------------------------------------------------
 
 def _write_rawv(path, rng, n, h, w, chunk=16):
@@ -571,8 +690,7 @@ def run_dct_path(device, cfg, workdir: Path, source: Path) -> dict:
     counts = kernels.launch_counts()
     want = {"fused_dct_qim_mark": batches, "fused_dct_qim_extract": batches,
             "y_dc_mean": 2 * batches}
-    assert all(counts[k] == v for k, v in want.items()), (counts, want)
-    assert not any(counts[k] for k in REPLACES if k not in want), counts
+    assert_counts(counts, want, "dct")
     counts = {k: counts[k] for k in want}
     print(f"main path dct {w}x{h}: {n} frames marked and detected, launches {counts}")
 
@@ -592,31 +710,33 @@ def run_dct_path(device, cfg, workdir: Path, source: Path) -> dict:
     return counts
 
 
-def plain_dtcwt_mark(codec, frames, wm):
-    """The kernel path's mark with every kernel replaced by its plain version."""
-    from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_level1 as dl, dtcwt_masks as dm
-    from vfp_tpu_torch.ops.color import M_BWD
-    from vfp_tpu_torch.ops.dtcwt import Transform2d
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, every DT-CWT kernel wrapper is replaced by its plain
+    version (on the card too), wherever the port looks it up: the codec's
+    kernel path then runs with the plain versions."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.kernels import dtcwt_delta, dtcwt_level1, dtcwt_masks, dtcwt_synthesis
+    from vfp_tpu_torch.wm import dtcwt_codecs
 
-    h, w = frames.shape[1], frames.shape[2]
-    wm_hp = Transform2d("torch").forward(wm.reshape(codec.wm_capacity((h, w, 3))),
-                                         nlevels=1).highpasses[0]
-    masks = dm.dtcwt_qshift_masks_reference(dl.dtcwt_level1_ll_y_reference(frames), codec.step)
-    du = dd.dtcwt_delta_synthesis_reference(codec._delta_subs(masks, wm_hp))
-    marked = frames.to(torch.float32) + du[..., None] * torch.as_tensor(M_BWD[:, 1],
-                                                                       device=frames.device)
-    return torch.round(torch.clamp(marked, 0.0, 255.0)).to(torch.uint8)
+    saved = []
+    for fn in kernels.KERNELS:
+        home = sys.modules[fn.__module__]
+        for mod in (dtcwt_level1, dtcwt_masks, dtcwt_delta, dtcwt_synthesis, dtcwt_codecs):
+            if getattr(mod, fn.__name__, None) is fn:
+                saved.append((mod, fn.__name__, fn))
+                setattr(mod, fn.__name__, getattr(home, fn.__name__ + "_reference"))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def plain_dtcwt_extract(codec, frames):
-    """The kernel path's extract with every kernel replaced by its plain version."""
-    from vfp_tpu_torch.kernels import dtcwt_level1 as dl, dtcwt_masks as dm
-    from vfp_tpu_torch.kernels import dtcwt_synthesis as ds
-
-    ll = dl.dtcwt_level1_ll_color_reference(frames)
-    u_hp3 = dl.dtcwt_qshift_hp_reference(dl.dtcwt_qshift_ll_reference(ll[:, 1]))
-    masks = dm.dtcwt_qshift_masks_reference(ll[:, 0], codec.step)
-    return codec._decode_coeffs(u_hp3, masks, ds.dtcwt_legall_synthesis_hp_reference)
+def assert_counts(counts, want, label):
+    """Exactly the kernels of ``want`` ran, each as often as it says."""
+    assert all(counts[k] == v for k, v in want.items()), (label, counts, want)
+    assert not any(counts[k] for k in REPLACES if k not in want), (label, counts, want)
 
 
 def _cli_lines(cli, argv) -> str:
@@ -626,13 +746,13 @@ def _cli_lines(cli, argv) -> str:
     return out.getvalue()
 
 
-def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
+def run_dtcwt_path(device, cfg, workdir: Path):
     """``cli mark --codec dtcwtKey`` on a 48-frame smooth 1920x1080 file, then
     ``cli detect --codec dtcwtKey`` on the card with key 0 (48/48 present)
     and key 99 (0/48); the first batch's correlations against the plain
     kernel path on the card, and the port's tensor-path extract (CPU) on two
     frames.  Returns the launch counts of the mark run plus the key-0 detect
-    run, each counted alone."""
+    run, each counted alone, and the source file."""
     from vfp_tpu_torch import kernels
     from vfp_tpu_torch.cli import main as cli
     from vfp_tpu_torch.io import RawVideoWriter
@@ -650,8 +770,7 @@ def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
     with NoPlainOnDevice():
         cli(["mark", str(source), str(out), *flags])
     counts = kernels.launch_counts()
-    assert all(counts[k] == batches for k in DTCWT), counts
-    assert not any(counts[k] for k in REPLACES if k not in DTCWT), counts
+    assert_counts(counts, {k: batches for k in DTCWT}, "dtcwtKey mark")
     mark_counts = {k: counts[k] for k in DTCWT}
     print(f"main path dtcwtKey {w}x{h}: {n} frames marked, launches {mark_counts}")
 
@@ -665,8 +784,7 @@ def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
     with NoPlainOnDevice():
         lines, seconds = detect(0)
     counts = kernels.launch_counts()
-    assert all(counts[k] == batches for k in DTCWT_DETECT), counts
-    assert not any(counts[k] for k in REPLACES if k not in DTCWT_DETECT), counts
+    assert_counts(counts, {k: batches for k in DTCWT_DETECT}, "dtcwtKey detect")
     detect_counts = {k: counts[k] for k in DTCWT_DETECT}
     with NoPlainOnDevice():
         lines_99, seconds_99 = detect(99)
@@ -685,13 +803,15 @@ def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
     assert psnr > 35.0, psnr
     codec = DtcwtKey()
     x = torch.as_tensor(np.array(src[: cfg["b"]]), device=device)
-    want = plain_dtcwt_mark(codec, x, key_wm(codec, h, w, device)).cpu().numpy()
+    with plain_kernels():
+        want = codec.mark_frames(x, key_wm(codec, h, w, device)).cpu().numpy()
     same = float((want == marked[: cfg["b"]]).mean())
     assert same >= 0.995, same
     first = torch.as_tensor(np.array(marked[: cfg["b"]]), device=device)
     deg = DeCorrShuffler(0)
     got_corr = deg.correlation_batch(codec.extract_frames(first))
-    want_corr = deg.correlation_batch(plain_dtcwt_extract(codec, first))
+    with plain_kernels():
+        want_corr = deg.correlation_batch(codec.extract_frames(first))
     corr_err = float((got_corr - want_corr).abs().max())
     assert corr_err <= 1e-4, corr_err
     plain = DtcwtKey(backend="torch")
@@ -703,9 +823,200 @@ def run_dtcwt_path(device, cfg, workdir: Path) -> dict:
           f"correlations (min {float(got_corr.min()):.4f}) within {corr_err:.3g} of the plain "
           f"kernel path on the card; tensor-path extract (CPU) correlation key 0 "
           f"{[round(c, 4) for c in corr[0]]}, key 99 {[round(c, 4) for c in corr[99]]}")
-    return {**mark_counts, **detect_counts,
-            "dtcwt_qshift_masks": mark_counts["dtcwt_qshift_masks"]
-            + detect_counts["dtcwt_qshift_masks"]}
+    return collections.Counter(mark_counts) + collections.Counter(detect_counts), source
+
+
+def _psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+def run_dtcwt_scope_path(device, cfg, workdir: Path) -> dict:
+    """Path 1: ``cli mark`` -> ``cli detect --codec dtcwtKey`` on a 48-frame
+    smooth 1920x804 file (a 2.39:1 scope film at 1080p width; H % 8 == 4, so
+    no level but level 1 halves exactly).  Mark: ``dtcwt_level1_ll_y``, the Y
+    level 2 highpass-only, the mask glue, then ``dtcwt_qshift_synthesis`` ->
+    crop to 201 rows -> ``dtcwt_qshift_synthesis_ll`` ->
+    ``dtcwt_legall_synthesis_ll``.  Detect: ``dtcwt_level1_ll_color``, U
+    level 2 (201x480) padded to 202 rows, U level 3, the mask glue on the Y
+    level 2, ``dtcwt_legall_synthesis_hp`` on the folded 51x120 planes.  Key
+    0 must be found in 48/48 frames, key 99 in 0/48, PSNR > 35 dB, and the
+    first batch equal to the same path with the kernels' plain versions on
+    the card.  Returns the launch counts of the mark and key-0 detect runs."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.io import RawVideoWriter
+    from vfp_tpu_torch.wm import DtcwtKey
+
+    rng = np.random.RandomState(17)
+    h, w, n, b = cfg["scope_h"], cfg["w"], cfg["frames"], cfg["b"]
+    batches = -(-n // b)
+    source, out = workdir / f"smooth_{w}x{h}.rawv", workdir / f"marked_dtcwt_{w}x{h}.rawv"
+    with RawVideoWriter(source, w, h, fps=24) as writer:
+        for i in range(0, n, b):
+            writer.write_batch(smooth_frames(rng, min(b, n - i), h, w))
+    flags = ["--codec", "dtcwtKey", "--batch-size", str(b), "--device", str(device)]
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        mark_lines = _cli_lines(cli, ["mark", str(source), str(out), *flags])
+    mark_counts = kernels.launch_counts()
+    assert_counts(mark_counts, {k: batches for k in (
+        "dtcwt_level1_ll_y", "dtcwt_level1_analysis", "dtcwt_qshift_hp", "dtcwt_qshift_synthesis",
+        "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis_ll")}, "scope mark")
+
+    def detect(key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = _cli_lines(cli, ["detect", str(out), "--key", str(key), *flags])
+        return text, time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        lines, seconds = detect(0)
+    detect_counts = kernels.launch_counts()
+    assert_counts(detect_counts, {"dtcwt_level1_ll_color": batches, "dtcwt_qshift_ll": batches,
+                                  "dtcwt_qshift_hp": 2 * batches,
+                                  "dtcwt_legall_synthesis_hp": batches}, "scope detect")
+    with NoPlainOnDevice():
+        lines_99, seconds_99 = detect(99)
+    for text, want in ((lines, f"{n}/{n}"), (lines_99, f"0/{n}")):
+        assert f"frames: {n}" in text and f"watermark present in {want} frames" in text, text
+    src, marked = _read_rawv(source), _read_rawv(out)
+    assert marked.shape == (n, h, w, 3), marked.shape
+    psnr = _psnr(marked, src)
+    assert psnr > 35.0, psnr
+    codec = DtcwtKey()
+    with plain_kernels():
+        want = codec.mark_frames(torch.as_tensor(np.array(src[:b]), device=device),
+                                 key_wm(codec, h, w, device)).cpu().numpy()
+    same = float((want == marked[:b]).mean())
+    assert same == 1.0, same
+    counts = collections.Counter(mark_counts) + collections.Counter(detect_counts)
+    print(f"main path dtcwtKey {w}x{h}: {mark_lines.strip().splitlines()[0]!r}; detect key 0 "
+          f"{lines.strip().splitlines()[-1]!r} in {seconds:.3f} s ({n / seconds:.1f} frames/s), "
+          f"key 99 {lines_99.strip().splitlines()[-1]!r} in {seconds_99:.3f} s "
+          f"({n / seconds_99:.1f} frames/s; host clock around the CLI call); PSNR {psnr:.2f} dB; "
+          f"first batch equal to the plain kernel path on the card; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def run_dtcwt_float_path(device, cfg) -> dict:
+    """Path 2: one [16, 1080, 1920, 3] float32 batch of integer values through
+    ``DtcwtKey.mark_frames`` / ``extract_frames`` on the card: the
+    ``bgr_to_yuv`` channel path, ``dtcwt_level1_analysis_ll`` on Y (mark) and
+    on [Y; U] (detect), then the fused masks and delta kernels (1080p is a
+    multiple of 8).  Both outputs must equal the same path with the kernels'
+    plain versions on the card, and detection must find key 0 (not key 99)
+    in every frame.  Returns its launch counts."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.wm import DeCorrShuffler, DtcwtKey
+
+    rng = np.random.RandomState(19)
+    b, h, w = cfg["b"], cfg["h"], cfg["w"]
+    codec = DtcwtKey()
+    src = smooth_frames(rng, b, h, w)
+    frames = torch.as_tensor(src, device=device).to(torch.float32)
+    wm = key_wm(codec, h, w, device)
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        marked = codec.mark_frames(frames, wm)
+        planes = codec.extract_frames(marked.to(torch.float32))
+    counts = kernels.launch_counts()
+    assert_counts(counts, {"dtcwt_level1_analysis_ll": 2, "dtcwt_level1_analysis": 1,
+                           "dtcwt_qshift_masks": 2, "dtcwt_delta_synthesis": 1,
+                           "dtcwt_qshift_ll": 1, "dtcwt_qshift_hp": 1,
+                           "dtcwt_legall_synthesis_hp": 1}, "float path")
+    with plain_kernels():
+        want_marked = codec.mark_frames(frames, wm)
+        want_planes = codec.extract_frames(marked.to(torch.float32))
+    assert torch.equal(marked, want_marked), float((marked == want_marked).float().mean())
+    assert torch.equal(planes, want_planes), float((planes - want_planes).abs().max())
+    corr = {key: DeCorrShuffler(key).correlation_batch(planes) for key in (0, 99)}
+    assert bool((corr[0] > 0.1).all()) and bool((corr[99] < 0.1).all()), corr
+    psnr = _psnr(marked.cpu().numpy(), src)
+    assert psnr > 35.0, psnr
+    print(f"main path dtcwtKey float frames {b}x{h}x{w}: marked and extracted on the kernels, "
+          f"both equal to the plain kernel path on the card; PSNR {psnr:.2f} dB; correlation "
+          f"key 0 min {float(corr[0].min()):.4f}, key 99 max {float(corr[99].max()):.4f}; "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def run_dtcwt_depth_path(device, cfg, workdir: Path, source_1080p: Path) -> dict:
+    """Path 3: ``DtcwtKey(nlevels=4)`` through the pipeline API
+    (``FrameMarker`` per 16-frame batch, then ``codec.extract_frames``) on a
+    48-frame smooth 1280x720 file: ``forward_raw`` over [Y; U] (level 1, then
+    three full q-shift levels, 360x640, 180x320 and 90x160), the delta on
+    level 4, ``inverse_raw`` of U (three q-shift syntheses, the full LeGall
+    synthesis).  At 4 levels the JAX codec, and so the port, takes only
+    frames whose level-2 grid rebins onto level 4 (H, W % 16 == 0 for even
+    frames): 720p does, 1080p does not (270 rows onto 68).  The first
+    batch's marked frames and recovered planes must equal the same path
+    with the kernels' plain versions on the card; its correlations are
+    printed, not held (the JAX codec detects its own mark only at 3
+    levels).  Then ``Transform2d.forward(x, 4)`` -> ``inverse`` of a
+    [16, 1080, 1920] float batch (channel 0 of the 1080p file) on the
+    kernels must reconstruct within 2e-3.  Returns the launch counts of both
+    runs."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.io import RawVideoWriter
+    from vfp_tpu_torch.ops.dtcwt import Transform2d
+    from vfp_tpu_torch.pipeline import FrameMarker
+    from vfp_tpu_torch.wm import CorrShuffler, DeCorrShuffler, DtcwtKey
+
+    rng = np.random.RandomState(23)
+    b, n, h, w = cfg["b"], cfg["frames"], cfg["depth_h"], cfg["depth_w"]
+    batches = -(-n // b)
+    source = workdir / f"smooth_{w}x{h}.rawv"
+    with RawVideoWriter(source, w, h, fps=24) as writer:
+        for i in range(0, n, b):
+            writer.write_batch(smooth_frames(rng, min(b, n - i), h, w))
+    frames = _read_rawv(source)
+    codec = DtcwtKey(nlevels=4)
+    marker = FrameMarker(codec, CorrShuffler(0).generate_wm(None, codec.wm_capacity((h, w, 3))),
+                         b, device=device)
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        marked = np.concatenate([marker.mark(frames[i:i + b]) for i in range(0, n, b)])
+        planes = torch.cat([codec.extract_frames(torch.as_tensor(marked[i:i + b], device=device))
+                            for i in range(0, n, b)])
+    counts = kernels.launch_counts()
+    assert_counts(counts, {"dtcwt_level1_analysis": 3 * batches,
+                           "dtcwt_qshift_analysis": 6 * batches,
+                           "dtcwt_qshift_synthesis": 3 * batches,
+                           "dtcwt_legall_synthesis": batches,
+                           "dtcwt_legall_synthesis_hp": batches}, "nlevels=4 path")
+    with plain_kernels():
+        want_marked = codec.mark_frames(torch.as_tensor(np.array(frames[:b]), device=device),
+                                        marker.wm).cpu().numpy()
+        want_planes = codec.extract_frames(torch.as_tensor(marked[:b], device=device))
+    same = float((want_marked == marked[:b]).mean())
+    assert same == 1.0, same
+    assert torch.equal(planes[:b], want_planes), float((planes[:b] - want_planes).abs().max())
+    corr = {key: DeCorrShuffler(key).correlation_batch(planes).cpu().numpy() for key in (0, 99)}
+
+    x = torch.as_tensor(np.array(_read_rawv(source_1080p)[:b, ..., 0]), device=device).to(
+        torch.float32)
+    t = Transform2d()
+    kernels.reset_launch_counts()
+    with NoPlainOnDevice():
+        rec = t.inverse(t.forward(x, nlevels=4))
+    transform_counts = kernels.launch_counts()
+    assert_counts(transform_counts, {"dtcwt_level1_analysis": 1, "dtcwt_qshift_analysis": 3,
+                                     "dtcwt_qshift_synthesis": 3, "dtcwt_legall_synthesis": 1},
+                  "forward -> inverse")
+    rec_err = float((rec - x).abs().max())
+    assert rec_err <= 2e-3, rec_err
+    print(f"main path dtcwtKey nlevels=4 {w}x{h}: {n} frames through FrameMarker and "
+          f"extract_frames, PSNR {_psnr(marked, frames):.2f} dB, first batch's marks and planes "
+          f"equal to the plain kernel path on the card; correlation key 0 mean "
+          f"{corr[0].mean():.4f} (min {corr[0].min():.4f}), key 99 mean {corr[99].mean():.4f} "
+          f"(not held: the JAX codec detects only at 3 levels); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; Transform2d forward(nlevels=4) -> "
+          f"inverse of {list(x.shape)} on the kernels: max err {rec_err:.3g} on 0-255 values, "
+          f"launches { {k: v for k, v in transform_counts.items() if v} }")
+    return collections.Counter(counts) + collections.Counter(transform_counts)
 
 
 # -- phase 5: timings -------------------------------------------------------------
@@ -755,6 +1066,11 @@ def time_kernels(device, cfg) -> dict:
         np.float32), device=device)
     means = dq.y_dc_mean(planes)
     dt_cases, dt_library, dt_work, dt_shapes = dtcwt_timing_cases(device, cfg, rng)
+    full_cases, full_library, full_work, full_shapes = full_dtcwt_timing_cases(device, cfg, rng)
+    dt_cases.update(full_cases)
+    dt_library.update(full_library)
+    dt_work.update(full_work)
+    dt_shapes.update(full_shapes)
     cases = {
         "fused_mark_planar": (lambda: fe.fused_mark_planar(planes, wm2d, 15.0, 1),
                               lambda: fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1)),
@@ -843,16 +1159,18 @@ def _qshift_weights(trees_bands) -> torch.Tensor:
     return torch.as_tensor(np.stack(ws)[:, None])
 
 
-def _legall_hp_weights() -> torch.Tensor:
-    """[12, 1, 6, 6] conv_transpose2d weights of the highpass-only LeGall
-    synthesis, planes [lh*4, hl*4, hh*4]: tree (rt, ct)'s sampling phase
-    shifts the taps, w[rt + kr][ct + kc] = 0.25 * fr[kr] * fc[kc], with rows
-    g0 (lh) or g1 (hl, hh) and columns g1 (lh, hh) or g0 (hl)."""
+def _legall_weights(bands) -> torch.Tensor:
+    """[4 x len(bands), 1, 6, 6] conv_transpose2d weights of the LeGall
+    synthesis of the given bands (0 ll, 1 lh, 2 hl, 3 hh), band-major: tree
+    (rt, ct)'s sampling phase shifts the taps, w[rt + kr][ct + kc] = 0.25 *
+    fr[kr] * fc[kc], with rows g0 (ll, lh) or g1 (hl, hh) and columns g0 (ll,
+    hl) or g1 (lh, hh)."""
     from vfp_tpu_torch.ops import dtcwt_coeffs as C
 
     ws = []
-    for fr, fc in ((C.LEGALL_G0, C.LEGALL_G1), (C.LEGALL_G1, C.LEGALL_G0),
-                   (C.LEGALL_G1, C.LEGALL_G1)):
+    for band in bands:
+        fr = (C.LEGALL_G0, C.LEGALL_G1)[band >> 1]
+        fc = (C.LEGALL_G0, C.LEGALL_G1)[band & 1]
         for rt in range(2):
             for ct in range(2):
                 wt = np.zeros((6, 6), np.float32)
@@ -860,6 +1178,23 @@ def _legall_hp_weights() -> torch.Tensor:
                     for kc, c in enumerate(fc):
                         wt[rt + kr, ct + kc] = np.float32(0.25) * np.float32(a) * np.float32(c)
                 ws.append(wt)
+    return torch.as_tensor(np.stack(ws)[:, None])
+
+
+def _qshift_synthesis_weights(nbands: int) -> torch.Tensor:
+    """[4 x nbands, 1, 14, 14] grouped conv_transpose2d weights of the q-shift
+    synthesis, tree-major (the first ``nbands`` of ll, lh, hl, hh per tree):
+    w[kr][kc] = fr[kr] * fc[kc], rows g0r (ll, lh) or g1r (hl, hh), columns
+    g0c (ll, hl) or g1c (lh, hh)."""
+    from vfp_tpu_torch.ops.dtcwt import _qshift
+
+    ws = []
+    for rt in range(2):
+        for ct in range(2):
+            for band in range(nbands):
+                fr = _qshift(rt)[2 + (band >> 1)]
+                fc = _qshift(ct)[2 + (band & 1)]
+                ws.append(np.outer(np.asarray(fr, np.float32), np.asarray(fc, np.float32)))
     return torch.as_tensor(np.stack(ws)[:, None])
 
 
@@ -937,7 +1272,7 @@ def dtcwt_timing_cases(device, cfg, rng):
     u1pad = torch.nn.functional.pad(u_ll1, (13, 0, 13, 0), mode="circular")
     u2pad = torch.nn.functional.pad(u_ll2, (13, 0, 13, 0), mode="circular")
     fpad = torch.nn.functional.pad(folded, (1, 2, 1, 2), mode="circular")
-    wsyn = _legall_hp_weights().to(device)
+    wsyn = _legall_weights((1, 2, 3)).to(device)
     hh, ww = folded.shape[-2:]
     library = {
         "dtcwt_level1_ll_y": lambda: conv(ypad, w4, stride=2),
@@ -980,10 +1315,93 @@ def dtcwt_timing_cases(device, cfg, rng):
     return cases, library, work, shapes
 
 
+def full_dtcwt_timing_cases(device, cfg, rng):
+    """The six kernels of the rest of the transform at the new paths' shapes:
+    level 1 lowpass-only on [Y; U] of a 1080p batch [32, 1080, 1920] (path 2's
+    detect), a full q-shift level on its output [32, 4, 540, 960] (path 3's
+    level 2), the full LeGall synthesis of [16, 16, 540, 960] (path 3's U
+    inverse) and path 1's three synthesis stages at 1920x804.  The library
+    yardsticks, one call each over an input padded circularly beforehand:
+    a stride-2 F.conv2d with the LeGall tree weights [4, 1, 6, 6]; a grouped
+    stride-2 F.conv2d with [16, 1, 14, 14] q-shift weights (planes come out
+    tree-major); a grouped stride-2 F.conv_transpose2d with [16 or 4, 1, 14,
+    14] weights for the q-shift syntheses (the input tree-major, the roll in
+    the crop); a stride-2 F.conv_transpose2d of 16 or 4 planes into one for
+    the LeGall syntheses (phases and 0.25 in the weights, the roll in the
+    crop).  Returns (cases, library calls, (bytes, units), shapes)."""
+    from vfp_tpu_torch.kernels import dtcwt_level1 as dl, dtcwt_synthesis as ds
+    from vfp_tpu_torch.ops import dtcwt_coeffs as C
+    from vfp_tpu_torch.ops.color import bgr_to_yuv
+    from vfp_tpu_torch.ops.dtcwt import _qshift
+
+    b, h, w = cfg["b"], cfg["h"], cfg["w"]
+    F = torch.nn.functional
+    yuv = bgr_to_yuv(torch.as_tensor(smooth_frames(rng, b, h, w), device=device).to(
+        torch.float32))
+    x32 = torch.cat([yuv[..., 0], yuv[..., 1]]).contiguous()
+    del yuv
+    ll1 = dl.dtcwt_level1_analysis_ll(x32)
+    planes1 = dl.dtcwt_level1_analysis(x32[:b])
+    d3, dll2, dll1 = scope_delta_stages(device, cfg, rng)
+    inputs = {"dtcwt_level1_analysis_ll": x32, "dtcwt_qshift_analysis": ll1,
+              "dtcwt_legall_synthesis": planes1, "dtcwt_qshift_synthesis": d3,
+              "dtcwt_qshift_synthesis_ll": dll2, "dtcwt_legall_synthesis_ll": dll1}
+    cases = {}
+    for name, x in inputs.items():
+        module = dl if hasattr(dl, name) else ds
+        cases[name] = (lambda f=getattr(module, name), x=x: f(x),
+                       lambda f=getattr(module, name + "_reference"), x=x: f(x))
+    tree_major = torch.arange(16, device=device).reshape(4, 4).t().reshape(-1)
+    x32pad = F.pad(x32[:, None], (4, 1, 4, 1), mode="circular")
+    w4 = _tree_weights([C.LEGALL_H0], [C.LEGALL_H0]).to(device)
+    ll1pad = F.pad(ll1, (13, 0, 13, 0), mode="circular")
+    wq16 = _qshift_weights([(_qshift(rt)[band >> 1], _qshift(ct)[band & 1])
+                            for rt in range(2) for ct in range(2) for band in range(4)]).to(device)
+    d3pad = F.pad(d3[:, tree_major], (7, 7, 7, 7), mode="circular")
+    dll2pad = F.pad(dll2, (7, 7, 7, 7), mode="circular")
+    wqs16, wqs4 = _qshift_synthesis_weights(4).to(device), _qshift_synthesis_weights(1).to(device)
+    p1pad = F.pad(planes1, (1, 2, 1, 2), mode="circular")
+    dll1pad = F.pad(dll1, (1, 2, 1, 2), mode="circular")
+    wl16, wl4 = _legall_weights(range(4)).to(device), _legall_weights((0,)).to(device)
+
+    def crop(y, x, off):  # the roll as a window of the transposed convolution's output
+        return y[..., off:off + 2 * x.shape[-2], off:off + 2 * x.shape[-1]]
+
+    library = {
+        "dtcwt_level1_analysis_ll": lambda: F.conv2d(x32pad, w4, stride=2),
+        "dtcwt_qshift_analysis": lambda: F.conv2d(ll1pad, wq16, stride=2, groups=4),
+        "dtcwt_qshift_synthesis": lambda: crop(
+            F.conv_transpose2d(d3pad, wqs16, stride=2, groups=4), d3, 27),
+        "dtcwt_qshift_synthesis_ll": lambda: crop(
+            F.conv_transpose2d(dll2pad, wqs4, stride=2, groups=4), dll2, 27),
+        "dtcwt_legall_synthesis": lambda: crop(
+            F.conv_transpose2d(p1pad, wl16, stride=2)[:, 0], planes1, 5),
+        "dtcwt_legall_synthesis_ll": lambda: crop(
+            F.conv_transpose2d(dll1pad, wl4, stride=2)[:, 0], dll1, 5),
+    }
+    outs = {name: fn() for name, (fn, _) in cases.items()}
+    lib_outs = {name: fn() for name, fn in library.items()}
+    lib_outs["dtcwt_qshift_analysis"] = lib_outs["dtcwt_qshift_analysis"][:, tree_major]
+    print("timing library yardsticks differ from the kernels by: " + ", ".join(
+        f"{k} {float((lib_outs[k] - v).abs().max()):.3g} (of max {float(v.abs().max()):.3g})"
+        for k, v in outs.items()))
+    work = {name: (4 * x.numel() + 4 * outs[name].numel(), outs[name].numel())
+            for name, x in inputs.items()}
+    # units: positions for the analyses (level-1 positions, q-shift output positions)
+    work["dtcwt_level1_analysis_ll"] = (work["dtcwt_level1_analysis_ll"][0],
+                                        outs["dtcwt_level1_analysis_ll"].numel() // 4)
+    work["dtcwt_qshift_analysis"] = (work["dtcwt_qshift_analysis"][0],
+                                     outs["dtcwt_qshift_analysis"].numel() // 16)
+    shapes = {name: x.shape for name, x in inputs.items()}
+    del outs, lib_outs
+    return cases, library, work, shapes
+
+
 def time_batch_stages(device, cfg, reps: int = 5) -> None:
-    """Host clock around one 16-frame 1080p batch of FrameMarker/FrameExtractor's
+    """Host clock around one 16-frame batch of FrameMarker/FrameExtractor's
     work, split at its synchronising boundaries: upload (pinned staging +
-    H2D), device compute, download.  Median of ``reps`` after a warm-up."""
+    H2D), device compute, download.  Median of ``reps`` after a warm-up.
+    1080p for every codec, and 1920x804 (path 1) for ``dtcwtKey``."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
     from vfp_tpu_torch.wm import DctQim, DeCorrShuffler, DeShuffler, DtcwtKey, DwtDctSvd
 
@@ -994,18 +1412,22 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
     stages = {}
     for label, codec in (("", DwtDctSvd()), ("dct ", DctQim())):
         wm = spread_wm(codec, h, w, device)
-        stages[label + "mark"] = (lambda x, c=codec, wm=wm: c.mark_frames(x, wm))
-        stages[label + "extract"] = (lambda x, c=codec: deg.degenerate_batch(c.extract_frames(x)))
+        stages[label + "mark"] = (frames, lambda x, c=codec, wm=wm: c.mark_frames(x, wm))
+        stages[label + "extract"] = (frames,
+                                     lambda x, c=codec: deg.degenerate_batch(c.extract_frames(x)))
     key_codec = DtcwtKey()
-    wm_key = key_wm(key_codec, h, w, device)
-    stages["dtcwtKey mark"] = lambda x: key_codec.mark_frames(x, wm_key)
     deg_key = DeCorrShuffler(0)  # one per run, as the CLI: its keyed plane is made once
-    stages["dtcwtKey extract"] = lambda x: deg_key.correlation_batch(key_codec.extract_frames(x))
-    for name, compute in stages.items():
+    scope = smooth_frames(rng, b, cfg["scope_h"], w)
+    for label, fr in (("dtcwtKey", frames), ("dtcwtKey 1920x804", scope)):
+        wm_key = key_wm(key_codec, fr.shape[1], w, device)
+        stages[label + " mark"] = (fr, lambda x, wm=wm_key: key_codec.mark_frames(x, wm))
+        stages[label + " extract"] = (fr, lambda x: deg_key.correlation_batch(
+            key_codec.extract_frames(x)))
+    for name, (host, compute) in stages.items():
         runs = []
         for _ in range(reps + 1):
             t0 = time.perf_counter()
-            x = upload_batch(frames, b, device)
+            x = upload_batch(host, b, device)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             y = compute(x)
@@ -1015,8 +1437,8 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
             t3 = time.perf_counter()
             runs.append((t1 - t0, t2 - t1, t3 - t2))
         up, dev, down = (1e3 * float(np.median(col)) for col in zip(*runs[1:]))
-        print(f"batch stages {name} @ {b}x{h}x{w}: upload {up:.3f} ms, device {dev:.3f} ms, "
-              f"download {down:.3f} ms (host clock, median of {reps})")
+        print(f"batch stages {name} @ {b}x{host.shape[1]}x{host.shape[2]}: upload {up:.3f} ms, "
+              f"device {dev:.3f} ms, download {down:.3f} ms (host clock, median of {reps})")
 
 
 def main() -> int:
@@ -1047,10 +1469,17 @@ def main() -> int:
     errs = check_kernels(device, cfg)
     workroot = ROOT / "build" / "chip_smoke"
     workroot.mkdir(parents=True, exist_ok=True)
+    counts = collections.Counter()  # each path's launches, zeroed before it and read after
     with tempfile.TemporaryDirectory(dir=workroot) as tmp:
-        counts, source_1080p = run_main_path(device, cfg, Path(tmp))
+        flagship, source_1080p = run_main_path(device, cfg, Path(tmp))
+        counts.update(flagship)
         counts.update(run_dct_path(device, cfg, Path(tmp), source_1080p))
-        counts.update(run_dtcwt_path(device, cfg, Path(tmp)))
+        dtcwt, smooth_1080p = run_dtcwt_path(device, cfg, Path(tmp))
+        counts.update(dtcwt)
+        counts.update(run_dtcwt_scope_path(device, cfg, Path(tmp)))
+        counts.update(run_dtcwt_float_path(device, cfg))
+        counts.update(run_dtcwt_depth_path(device, cfg, Path(tmp), smooth_1080p))
+    assert all(counts[k] > 0 for k in REPLACES), counts
     times = time_kernels(device, cfg)
     time_batch_stages(device, cfg)
     print(f"timings above on {card}")

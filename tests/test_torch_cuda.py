@@ -5,7 +5,8 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: the DT-CWT masks equal; float outputs rtol/atol 2e-5 (the kernels and their plain
+Tolerances: the DT-CWT masks and the six full-transform DT-CWT kernels equal
+(max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and their plain
 versions share one op order, IEEE division and no FMA; the detect kernels at 480x856
 atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on the card against the
 CPU's kernel path atol 1e-4 (PyTorch's complex division may round otherwise);
@@ -31,6 +32,10 @@ from torch_parity import PAYLOAD, cuda_device, natural_frames  # noqa: F401
 SCALE = 15.0
 DETECT_KERNELS = ("dtcwt_level1_ll_color", "dtcwt_qshift_ll", "dtcwt_qshift_hp",
                   "dtcwt_legall_synthesis_hp")
+NEW_DTCWT = ("dtcwt_level1_analysis_ll", "dtcwt_qshift_analysis", "dtcwt_qshift_synthesis",
+             "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis", "dtcwt_legall_synthesis_ll")
+SYNTHESIS_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4,
+                    "dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4}
 
 
 def _wm(h, w, device):
@@ -52,8 +57,14 @@ def _inputs(name, device, rng, h, w):
     if name == "dtcwt_legall_synthesis_hp":  # the folded level-3 coefficients
         return (torch.as_tensor(rng.randn(2, 12, h // 8, w // 8).astype(np.float32),
                                 device=device),)
-    if name == "dtcwt_level1_analysis":
+    if name in ("dtcwt_level1_analysis", "dtcwt_level1_analysis_ll"):
         return (torch.as_tensor(rng.rand(2, h, w).astype(np.float32) * 255, device=device),)
+    if name == "dtcwt_qshift_analysis":
+        ll4 = rng.rand(2, 4, h // 4 * 2, w // 4 * 2).astype(np.float32) * 200
+        return (torch.as_tensor(ll4, device=device),)
+    if name in SYNTHESIS_PLANES:  # level-3-sized planes: odd rows at every shape
+        planes = rng.randn(2, SYNTHESIS_PLANES[name], h // 8, w // 8).astype(np.float32)
+        return (torch.as_tensor(planes, device=device),)
     if name == "dtcwt_qshift_masks":
         ll4 = rng.rand(2, 4, h // 8 * 4, w // 8 * 4).astype(np.float32) * 200
         return (torch.as_tensor(ll4, device=device), 5.0)
@@ -99,7 +110,7 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
         assert g.shape == r.shape and g.dtype == r.dtype
         if g.dtype == torch.uint8:
             assert (g == r).float().mean() >= 0.995
-        elif name == "dtcwt_qshift_masks":  # quantized: one op order, so equal
+        elif name == "dtcwt_qshift_masks" or name in NEW_DTCWT:  # one op order: equal
             assert torch.equal(g, r)
         elif name == "y_dc_mean":
             torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
@@ -222,3 +233,63 @@ def test_dtcwt_key_mark_on_the_card_takes_the_kernels(cuda_device, h, w):
     torch.testing.assert_close(planes.cpu(), want, rtol=0, atol=1e-4)
     corr = DeCorrShuffler(0).correlation_batch(planes)
     assert bool((corr > 0.1).all()), corr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(804, 1920), (204, 328), (239, 317), (64, 128)])
+def test_dtcwt_key_off_the_fused_geometry_takes_the_kernels(cuda_device, h, w):
+    """uint8 frames whose H or W is not a multiple of 8 (804x1920, 204x328),
+    odd frames (239x317, the bgr_to_yuv path) and float frames (64x128) mark
+    and extract on the card through the kernels alone, equal to the same
+    path with every kernel's plain version on the CPU."""
+    rng = np.random.RandomState(h + w)
+    frames = torch.as_tensor(natural_frames(rng, 2, h, w), device=cuda_device)
+    if (h, w) == (64, 128):
+        frames = frames.to(torch.float32)
+    codec = DtcwtKey()
+    wm = torch.as_tensor(CorrShuffler(0).generate_wm(None, codec.wm_capacity((h, w, 3))),
+                         device=cuda_device)
+    kernels.reset_launch_counts()
+    marked = codec.mark_frames(frames, wm)
+    planes = codec.extract_frames(marked.to(frames.dtype))
+    counts = kernels.launch_counts()
+    u8_even = frames.dtype == torch.uint8 and h % 2 == 0 and w % 2 == 0
+    fused = h % 8 == 0 and w % 8 == 0
+    want = {"dtcwt_level1_ll_y": u8_even, "dtcwt_level1_ll_color": u8_even,
+            "dtcwt_level1_analysis_ll": not u8_even,
+            "dtcwt_qshift_masks": fused, "dtcwt_delta_synthesis": fused,
+            "dtcwt_qshift_synthesis": not fused, "dtcwt_qshift_synthesis_ll": not fused,
+            "dtcwt_legall_synthesis_ll": not fused}
+    for name, ran in want.items():
+        assert (counts[name] > 0) == ran, (name, counts)
+    assert marked.shape == frames.shape and marked.dtype == torch.uint8
+    plain = DtcwtKey(backend="kernel")
+    want_marked = plain.mark_frames(frames.cpu(), wm.cpu())
+    assert (marked.cpu() == want_marked).float().mean() >= 0.999
+    torch.testing.assert_close(planes.cpu(), plain.extract_frames(marked.cpu().to(frames.dtype)),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_transform_at_four_levels_on_the_card(cuda_device):
+    """forward -> inverse and forward_raw -> inverse_raw at 4 levels of an
+    odd-sized batch on the kernels: equal to the plain transform, and a
+    reconstruction within 2e-3 on 0-255 values."""
+    from vfp_tpu_torch.ops.dtcwt import Transform2d
+
+    x = torch.as_tensor(np.random.RandomState(9).rand(3, 134, 250).astype(np.float32) * 255,
+                        device=cuda_device)
+    t, plain = Transform2d("kernel"), Transform2d("torch")
+    kernels.reset_launch_counts()
+    pyr = t.forward(x, nlevels=4)
+    rec = t.inverse(pyr)
+    counts = kernels.launch_counts()
+    assert (counts["dtcwt_level1_analysis"], counts["dtcwt_qshift_analysis"],
+            counts["dtcwt_qshift_synthesis"], counts["dtcwt_legall_synthesis"]) == (1, 3, 3, 1)
+    want = plain.forward(x, nlevels=4)
+    assert torch.equal(pyr.lowpass, want.lowpass)
+    assert all(torch.equal(a, b) for a, b in zip(pyr.highpasses, want.highpasses))
+    assert torch.equal(rec, plain.inverse(want))
+    torch.testing.assert_close(rec, x, rtol=0, atol=2e-3)
+    planes, sizes = t.forward_raw(x, nlevels=4)
+    torch.testing.assert_close(t.inverse_raw(planes, sizes), x, rtol=0, atol=2e-3)

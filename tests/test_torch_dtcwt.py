@@ -150,13 +150,21 @@ def test_q2c_helpers_match_jax(rng):
 
 
 def test_kernel_backend_raises_where_no_kernel_is_ported(rng):
-    t = tdt.Transform2d("kernel")
+    """Named for the refusals it pinned before every block had a kernel: the
+    kernel backend now routes each of those blocks to its wrapper, whose
+    plain version on the CPU equals the plain transform without a launch;
+    only an unknown backend still raises."""
+    t, plain = tdt.Transform2d("kernel"), tdt.Transform2d("torch")
     x = torch.from_numpy(rng.rand(1, 16, 16).astype(np.float32))
-    assert t.forward(x, nlevels=1).highpasses[0].shape == (1, 8, 8, 6)  # K4's plain version
-    for call in (lambda: t.forward(x, nlevels=2), lambda: t.analysis_level1(x, True),
-                 lambda: t.synthesis_qshift_ll(x[:, None].expand(1, 4, 16, 16))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    kernels.reset_launch_counts()
+    assert t.forward(x, nlevels=1).highpasses[0].shape == (1, 8, 8, 6)
+    got, want = t.forward(x, nlevels=2), plain.forward(x, nlevels=2)
+    assert torch.equal(got.lowpass, want.lowpass)
+    assert all(torch.equal(a, b) for a, b in zip(got.highpasses, want.highpasses, strict=True))
+    assert torch.equal(t.analysis_level1(x, True)[0], plain.analysis_level1(x, True)[0])
+    ll4 = x[:, None].expand(1, 4, 16, 16)
+    assert torch.equal(t.synthesis_qshift_ll(ll4), plain.synthesis_qshift_ll(ll4))
+    assert not any(kernels.launch_counts().values())
     with pytest.raises(ValueError):
         tdt.Transform2d("xla")
 
@@ -256,6 +264,12 @@ def test_delta_synthesis_matches_pallas_and_the_chain(rng, h3, w3):
     lambda: tsyn.dtcwt_legall_synthesis_hp(torch.zeros(1, 11, 4, 4)),
     lambda: tsyn.dtcwt_legall_synthesis_hp(torch.zeros(1, 12, 4, 4, dtype=torch.float64)),
     lambda: tsyn.dtcwt_legall_synthesis_hp(torch.zeros(12, 4, 4)),
+    lambda: tl1.dtcwt_level1_analysis_ll(torch.zeros(1, 8, 8, dtype=torch.uint8)),
+    lambda: tl1.dtcwt_qshift_analysis(torch.zeros(1, 3, 8, 8)),
+    lambda: tsyn.dtcwt_qshift_synthesis(torch.zeros(1, 15, 4, 4)),
+    lambda: tsyn.dtcwt_qshift_synthesis_ll(torch.zeros(1, 4, 4, 4, dtype=torch.float64)),
+    lambda: tsyn.dtcwt_legall_synthesis(torch.zeros(16, 4, 4)),
+    lambda: tsyn.dtcwt_legall_synthesis_ll(torch.zeros(1, 5, 4, 4)),
 ])
 def test_kernel_wrappers_reject_malformed_input(call):
     with pytest.raises(ValueError):
@@ -338,9 +352,21 @@ def test_jax_detects_the_port_marks(rng):
 
 
 def test_kernel_path_refuses_shapes_without_exact_levels(rng):
-    f, wm = _frames_and_wm(rng, 68, 192)
-    with pytest.raises(NotImplementedError, match="H, W % 8 == 0"):
-        DtcwtKey(backend="kernel").mark_frames(torch.from_numpy(f), torch.from_numpy(wm))
+    """Named for the refusal it pinned before the three-stage synthesis had
+    kernels: at 68x192 (H % 8 != 0) the kernel path marks and extracts as
+    the JAX codec, through the mask glue and the synthesis wrappers."""
+    h, w = 68, 192
+    f, wm = _frames_and_wm(rng, h, w)
+    want = _np(JAX_CODEC.mark_frames(jnp.asarray(f), jnp.asarray(wm)))
+    codec = DtcwtKey(backend="kernel")
+    got = codec.mark_frames(torch.from_numpy(f), torch.from_numpy(wm)).numpy()
+    d = np.abs(got.astype(int) - want)
+    assert (d == 0).mean() >= 0.999 and d.max() <= 2, ((d == 0).mean(), d.max())
+    planes = codec.extract_frames(torch.from_numpy(np.array(want)))
+    yuv = jax_bgr_to_yuv(jnp.asarray(want, jnp.float32))
+    np.testing.assert_allclose(planes.numpy(),
+                               _np(JAX_CODEC._decode_channel_raw(yuv[..., 0], yuv[..., 1])),
+                               atol=1e-4)
 
 
 def test_codec_config_and_reference():
@@ -349,9 +375,11 @@ def test_codec_config_and_reference():
     assert DtcwtKey().wm_capacity((1080, 1920, 3)) == (136, 240)
     with pytest.raises(ValueError):
         DtcwtKey(backend="pallas")
-    for ref in (jcodecs.DtcwtKey(nlevels=2), jcodecs.DtcwtImg()):
-        with pytest.raises(NotImplementedError):
-            DtcwtKey.from_reference(ref)
+    assert DtcwtKey.from_reference(jcodecs.DtcwtKey(nlevels=2)) == DtcwtKey(nlevels=2)
+    with pytest.raises(NotImplementedError):
+        DtcwtKey.from_reference(jcodecs.DtcwtImg())
+    with pytest.raises(ValueError):
+        DtcwtKey(nlevels=1)
 
 
 def _read(path):

@@ -126,6 +126,7 @@ def _wrapper_calls(rng):
     ll4 = torch.from_numpy(rng.rand(2, 4, 20, 32).astype(np.float32) * 100)
     x = torch.from_numpy(rng.rand(2, 40, 64).astype(np.float32))
     dsubs = torch.from_numpy(rng.randn(2, 12, 5, 8).astype(np.float32))
+    planes16 = torch.from_numpy(rng.randn(2, 16, 5, 9).astype(np.float32))  # an odd grid
     return {
         "dtcwt_level1_ll_y": ((frames,), tdl.dtcwt_level1_ll_y_reference),
         "dtcwt_level1_ll_color": ((frames,), tdl.dtcwt_level1_ll_color_reference),
@@ -135,6 +136,12 @@ def _wrapper_calls(rng):
         "dtcwt_level1_analysis": ((x,), tdl.dtcwt_level1_analysis_reference),
         "dtcwt_qshift_masks": ((ll4, 5.0), tdm.dtcwt_qshift_masks_reference),
         "dtcwt_delta_synthesis": ((dsubs,), tdd.dtcwt_delta_synthesis_reference),
+        "dtcwt_level1_analysis_ll": ((x,), tdl.dtcwt_level1_analysis_ll_reference),
+        "dtcwt_qshift_analysis": ((ll4,), tdl.dtcwt_qshift_analysis_reference),
+        "dtcwt_qshift_synthesis": ((planes16,), tds.dtcwt_qshift_synthesis_reference),
+        "dtcwt_qshift_synthesis_ll": ((planes16[:, :4],), tds.dtcwt_qshift_synthesis_ll_reference),
+        "dtcwt_legall_synthesis": ((planes16,), tds.dtcwt_legall_synthesis_reference),
+        "dtcwt_legall_synthesis_ll": ((planes16[:, :4],), tds.dtcwt_legall_synthesis_ll_reference),
         "fused_dct_qim_mark": ((planes, bits8, 20.0, means), tdq.fused_dct_qim_mark_reference),
         "fused_dct_qim_extract": ((planes, 20.0, means), tdq.fused_dct_qim_extract_reference),
         "y_dc_mean": ((planes,), tdq.y_dc_mean_reference),

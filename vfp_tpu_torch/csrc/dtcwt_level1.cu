@@ -7,9 +7,12 @@
 //   ll_color_kernel<2> <- dtcwt_level1_analysis_ll_color (:428) and its chained
 //                         twin dtcwt_level1_ll_color_chain (:888): u8 frames
 //                         -> the Y and U tree lowpasses [B, 2, 4, H/2, W/2];
-//   analysis_kernel    <- dtcwt_level1_analysis (:276): f32 [B, H, W] -> the 16
-//                         planes [ll*4, lh*4, hl*4, hh*4], combos (rt, ct)
-//                         row-major.
+//   analysis_kernel<true>  <- dtcwt_level1_analysis (:276): f32 [B, H, W] -> the
+//                         16 planes [ll*4, lh*4, hl*4, hh*4], combos (rt, ct)
+//                         row-major;
+//   analysis_kernel<false> <- dtcwt_level1_analysis_ll (:347): f32 [B, H, W] ->
+//                         the 4 tree lowpasses [B, 4, H/2, W/2] (the codecs'
+//                         float-frame and odd-shape path), ll_y's row pass.
 //
 // Per tree (rt, ct) and output (m, n): a row pass
 //   lo_rt[x] = sum_k f[k] * X[(2m + rt - k) mod H][x]       (k from 0 upward)
@@ -27,10 +30,10 @@
 //
 // Bound on the card: memory (3 B/pixel read for the u8 kernels and 4 B
 // (Y) or 8 B (Y and U) per pixel written; 4 B/pixel read and 16 B/pixel
-// written for the full analysis) against about 100 (190, 170) FLOPs per
-// output position.  A patch overlaps its neighbours' 9-fold; the overlap is
-// served by L1/L2, not HBM.  Neighbouring threads take neighbouring n, so
-// the plane stores coalesce.
+// written for the full analysis, 4 B/pixel for its lowpass-only twin)
+// against about 100 (190, 170, 72) FLOPs per output position.  A patch
+// overlaps its neighbours' 9-fold; the overlap is served by L1/L2, not HBM.
+// Neighbouring threads take neighbouring n, so the plane stores coalesce.
 
 #include <cstdint>
 
@@ -110,9 +113,12 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// kFull: all 16 planes; else the 4 lowpasses [B, 4, H/2, W/2].
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads)
     analysis_kernel(const float* __restrict__ x, float* __restrict__ out, int batch, int h, int w,
                     L1Params k) {
+  constexpr int kPlanes = kFull ? 16 : 4;
   const int h1 = h / 2, w1 = w / 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)batch * h1 * w1) return;
@@ -128,19 +134,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 6; ++c) p[r][c] = row[wrap(2 * n - 4 + c, w)];
   }
   const long long plane = (long long)h1 * w1;
-  float* ob = out + b * 16 * plane + (long long)m * w1 + n;
+  float* ob = out + b * kPlanes * plane + (long long)m * w1 + n;
 #pragma unroll
   for (int rt = 0; rt < 2; ++rt) {
-    float lo[6], hi[6];
+    float lo[6];
     row_pass<5>(p, k.h0, rt, lo);
-    row_pass<3>(p, k.h1, rt, hi);
 #pragma unroll
-    for (int ct = 0; ct < 2; ++ct) {
-      const int combo = rt * 2 + ct;
-      ob[(0 * 4 + combo) * plane] = col_pass<5>(lo, k.h0, ct);  // ll
-      ob[(1 * 4 + combo) * plane] = col_pass<3>(lo, k.h1, ct);  // lh
-      ob[(2 * 4 + combo) * plane] = col_pass<5>(hi, k.h0, ct);  // hl
-      ob[(3 * 4 + combo) * plane] = col_pass<3>(hi, k.h1, ct);  // hh
+    for (int ct = 0; ct < 2; ++ct) ob[(rt * 2 + ct) * plane] = col_pass<5>(lo, k.h0, ct);  // ll
+    if constexpr (kFull) {
+      float hi[6];
+      row_pass<3>(p, k.h1, rt, hi);
+#pragma unroll
+      for (int ct = 0; ct < 2; ++ct) {
+        const int combo = rt * 2 + ct;
+        ob[(1 * 4 + combo) * plane] = col_pass<3>(lo, k.h1, ct);  // lh
+        ob[(2 * 4 + combo) * plane] = col_pass<5>(hi, k.h0, ct);  // hl
+        ob[(3 * 4 + combo) * plane] = col_pass<3>(hi, k.h1, ct);  // hh
+      }
     }
   }
 }
@@ -188,11 +198,22 @@ extern "C" int vfp_dtcwt_level1_ll_color(const void* x, void* out, int batch, in
   return launch_ll<2>(x, out, batch, h, w, params, stream);
 }
 
-extern "C" int vfp_dtcwt_level1_analysis(const void* x, void* out, int batch, int h, int w,
-                                         const void* params, void* stream) {
+template <bool kFull>
+static int launch_analysis(const void* x, void* out, int batch, int h, int w, const void* params,
+                           void* stream) {
   const long long total = (long long)batch * (h / 2) * (w / 2);
   if (total == 0) return 0;
-  vfp::analysis_kernel<<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
+  vfp::analysis_kernel<kFull><<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, batch, h, w, vfp::params(params));
   return (int)cudaGetLastError();
+}
+
+extern "C" int vfp_dtcwt_level1_analysis(const void* x, void* out, int batch, int h, int w,
+                                         const void* params, void* stream) {
+  return launch_analysis<true>(x, out, batch, h, w, params, stream);
+}
+
+extern "C" int vfp_dtcwt_level1_analysis_ll(const void* x, void* out, int batch, int h, int w,
+                                            const void* params, void* stream) {
+  return launch_analysis<false>(x, out, batch, h, w, params, stream);
 }

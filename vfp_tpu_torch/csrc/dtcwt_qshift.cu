@@ -1,14 +1,17 @@
 // One q-shift DT-CWT analysis level (levels >= 2) with circular indexing.
 //
 // Replaces the Pallas kernels of vfp_tpu/kernels/dtcwt_level1.py:
-//   qshift_kernel<false> <- dtcwt_qshift_analysis_ll (:685) and its chained
-//                           twin dtcwt_qshift_ll_chain (:947): the tree
-//                           lowpasses [B, 4, h, w] -> the next level's
-//                           lowpasses [B, 4, h/2, w/2];
-//   qshift_kernel<true>  <- dtcwt_qshift_analysis_hp (:797) and its chained
-//                           twin dtcwt_qshift_hp_chain (:972): -> the 12
-//                           highpass planes [B, 12, h/2, w/2], [lh*4, hl*4,
-//                           hh*4], tree combos (rt, ct) row-major.
+//   qshift_kernel<kLl>  <- dtcwt_qshift_analysis_ll (:685) and its chained
+//                          twin dtcwt_qshift_ll_chain (:947): the tree
+//                          lowpasses [B, 4, h, w] -> the next level's
+//                          lowpasses [B, 4, h/2, w/2];
+//   qshift_kernel<kHp>  <- dtcwt_qshift_analysis_hp (:797) and its chained
+//                          twin dtcwt_qshift_hp_chain (:972): -> the 12
+//                          highpass planes [B, 12, h/2, w/2], [lh*4, hl*4,
+//                          hh*4], tree combos (rt, ct) row-major;
+//   qshift_kernel<kAll> <- dtcwt_qshift_analysis (:715): -> all 16 planes
+//                          [B, 16, h/2, w/2], [ll*4, lh*4, hl*4, hh*4] (the
+//                          transform at any depth).
 //
 // Per tree (rt, ct) with the 14-tap q-shift filters (tree a, tree b its time
 // reverse), phase 0 on both axes: a row pass
@@ -28,10 +31,11 @@
 // runtime tree would go to local memory.  The batch stride is an argument, so
 // the U half of the level-1 output [B, 2, 4, h, w] is read in place.
 //
-// Bound on the card: memory (16 B read per input position; 4 B (ll) or 12 B
-// (highpasses) written per output position, 1/4 as many) against 14 FLOP x 2
-// per row-pass value and per column-pass value.  The window overlaps its
-// neighbours by 13 rows and columns, about 2x of the input, served by L2.
+// Bound on the card: memory (16 B read per input position; 4 B (ll), 12 B
+// (highpasses) or 16 B (all) written per output position, 1/4 as many)
+// against 14 FLOP x 2 per row-pass value and per column-pass value.  The
+// window overlaps its neighbours by 13 rows and columns, about 2x of the
+// input, served by L2.
 
 #include <cstdint>
 
@@ -42,6 +46,7 @@ constexpr int kThreads = 256;
 constexpr int kTile = 16;                    // output positions per tile side
 constexpr int kTaps = 14;
 constexpr int kWin = 2 * kTile + kTaps - 1;  // input rows/cols of the window (45)
+constexpr int kLl = 0, kHp = 1, kAll = 2;    // the planes a level writes
 
 // q-shift analysis filters from Python (kernels/dtcwt_masks.py:_params_host).
 struct QParams {
@@ -61,11 +66,11 @@ __device__ __forceinline__ float taps(const float* f, const float* v, int x0, in
   return acc;
 }
 
-template <bool kHp>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     qshift_kernel(const float* __restrict__ x, float* __restrict__ out, int h, int w,
                   int bstride, QParams k) {
-  constexpr int kRows = kHp ? 2 : 1;  // row-pass outputs: lo (and hi)
+  constexpr int kRows = kMode == kLl ? 1 : 2;  // row-pass outputs: lo (and hi)
   __shared__ float win[kWin][kWin];
   __shared__ float rows[kRows][kTile][kWin];
   __shared__ float filt[2][2][kTaps];
@@ -105,13 +110,15 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = 2 * jj + kTaps - 1;
     const long long plane = (long long)ho * wo;
     const long long o = (long long)i * wo + j;
-    if constexpr (kHp) {
-      float* ob = out + b * 12 * plane + o;
-      ob[(0 * 4 + ci) * plane] = taps(filt[ct][1], rows[0][ii], c0, 1);          // lh
-      ob[(1 * 4 + ci) * plane] = taps(filt[ct][0], rows[kRows - 1][ii], c0, 1);  // hl
-      ob[(2 * 4 + ci) * plane] = taps(filt[ct][1], rows[kRows - 1][ii], c0, 1);  // hh
-    } else {
+    if constexpr (kMode == kLl) {
       out[(b * 4 + ci) * plane + o] = taps(filt[ct][0], rows[0][ii], c0, 1);  // ll
+    } else {
+      constexpr int kPlanes = kMode == kAll ? 16 : 12, kOff = kMode == kAll ? 4 : 0;
+      float* ob = out + b * kPlanes * plane + o;
+      if constexpr (kMode == kAll) ob[ci * plane] = taps(filt[ct][0], rows[0][ii], c0, 1);  // ll
+      ob[(kOff + 0 * 4 + ci) * plane] = taps(filt[ct][1], rows[0][ii], c0, 1);  // lh
+      ob[(kOff + 1 * 4 + ci) * plane] = taps(filt[ct][0], rows[kRows - 1][ii], c0, 1);  // hl
+      ob[(kOff + 2 * 4 + ci) * plane] = taps(filt[ct][1], rows[kRows - 1][ii], c0, 1);  // hh
     }
   }
 }
@@ -125,13 +132,13 @@ QParams qparams(const void* host_params) {
   return k;
 }
 
-template <bool kHp>
+template <int kMode>
 int launch(const void* x, void* out, int batch, int h, int w, int bstride, const void* params,
            void* stream) {
   const int ho = h / 2, wo = w / 2;
   if (batch == 0 || ho == 0 || wo == 0) return 0;
   const dim3 grid((wo + kTile - 1) / kTile, (ho + kTile - 1) / kTile, 4 * batch);
-  qshift_kernel<kHp><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  qshift_kernel<kMode><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, h, w, bstride, qparams(params));
   return (int)cudaGetLastError();
 }
@@ -142,15 +149,21 @@ int launch(const void* x, void* out, int batch, int h, int w, int bstride, const
 // Plain C interface, bound with ctypes (kernels/_build.py).  x is a device
 // pointer to f32 [B, 4, h, w] (batch stride ``bstride`` floats, the rest
 // contiguous; h and w even), out to a contiguous f32 [B, 4, h/2, w/2]
-// (qshift_ll) or [B, 12, h/2, w/2] (qshift_hp); params is host memory (56
-// floats: h0a, h1a, h0b, h1b).  Returns the launch's cudaError_t.
+// (qshift_ll), [B, 12, h/2, w/2] (qshift_hp) or [B, 16, h/2, w/2]
+// (qshift_analysis); params is host memory (56 floats: h0a, h1a, h0b, h1b).
+// Returns the launch's cudaError_t.
 
 extern "C" int vfp_dtcwt_qshift_ll(const void* x, void* out, int batch, int h, int w,
                                    int bstride, const void* params, void* stream) {
-  return vfp::launch<false>(x, out, batch, h, w, bstride, params, stream);
+  return vfp::launch<vfp::kLl>(x, out, batch, h, w, bstride, params, stream);
 }
 
 extern "C" int vfp_dtcwt_qshift_hp(const void* x, void* out, int batch, int h, int w,
                                    int bstride, const void* params, void* stream) {
-  return vfp::launch<true>(x, out, batch, h, w, bstride, params, stream);
+  return vfp::launch<vfp::kHp>(x, out, batch, h, w, bstride, params, stream);
+}
+
+extern "C" int vfp_dtcwt_qshift_analysis(const void* x, void* out, int batch, int h, int w,
+                                         int bstride, const void* params, void* stream) {
+  return vfp::launch<vfp::kAll>(x, out, batch, h, w, bstride, params, stream);
 }

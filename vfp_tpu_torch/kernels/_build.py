@@ -55,6 +55,12 @@ SIGNATURES = {
     "vfp_dtcwt_qshift_ll": [_P, _P, _I, _I, _I, _I, _P, _P],
     "vfp_dtcwt_qshift_hp": [_P, _P, _I, _I, _I, _I, _P, _P],
     "vfp_dtcwt_legall_synthesis_hp": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_level1_analysis_ll": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_qshift_analysis": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_qshift_synthesis": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_qshift_synthesis_ll": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_legall_synthesis": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_legall_synthesis_ll": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

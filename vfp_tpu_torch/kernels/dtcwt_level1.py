@@ -11,13 +11,18 @@ Each wrapper replaces Pallas kernels of ``vfp_tpu/kernels/dtcwt_level1.py``:
   (channel 1) tree lowpasses [B, 2, 4, H/2, W/2] (the detect path's input);
 - ``dtcwt_level1_analysis``: ``dtcwt_level1_analysis``; f32 [B, H, W] -> the
   16 level-1 planes [ll*4, lh*4, hl*4, hh*4], tree combos (rt, ct)
-  row-major (the watermark plane's spectrum);
+  row-major (the watermark plane's spectrum, the transform at any depth);
+- ``dtcwt_level1_analysis_ll``: ``dtcwt_level1_analysis_ll``; f32 [B, H, W]
+  -> the 4 tree lowpasses [B, 4, H/2, W/2] (the codecs' path for float
+  frames and frames of odd H or W);
 - ``dtcwt_qshift_ll``: ``dtcwt_qshift_analysis_ll`` and
   ``dtcwt_qshift_ll_chain``; f32 tree lowpasses [B, 4, h, w] -> the next
   level's [B, 4, h/2, w/2];
 - ``dtcwt_qshift_hp``: ``dtcwt_qshift_analysis_hp`` and
   ``dtcwt_qshift_hp_chain``; f32 [B, 4, h, w] -> the 12 highpass planes
-  [B, 12, h/2, w/2], [lh*4, hl*4, hh*4].
+  [B, 12, h/2, w/2], [lh*4, hl*4, hh*4];
+- ``dtcwt_qshift_analysis``: ``dtcwt_qshift_analysis``; f32 [B, 4, h, w] ->
+  all 16 planes [B, 16, h/2, w/2] (the transform at any depth).
 
 All compute, per tree (rt, ct): a row pass down2(x, f, phase) along H, then a
 column pass down2(., g, phase) along W, y[m] = sum_k f[k] * x[(2m + phase -
@@ -26,7 +31,9 @@ ct), the q-shift levels with tree rt's and tree ct's 14-tap filters at phase
 0.  The chained and unchained Pallas twins differ only in their pad layout;
 one kernel with modular indexing covers both and copies nothing.  The
 q-shift wrappers take a view whose batch items are each contiguous
-(``ll[:, 1]`` of the level-1 output) in place.
+(``ll[:, 1]`` of the level-1 output, ``planes[:, :4]`` of a level's 16
+planes) in place.  The f32 level-1 wrappers copy a strided input first (the
+Y channel of ``bgr_to_yuv``: 4 B per pixel).
 
 The plain versions (``*_reference``) are the plain transform's blocks
 (``ops/dtcwt.py``), which fold every sum in the kernels' order: each channel
@@ -129,26 +136,47 @@ def dtcwt_level1_analysis_reference(x: torch.Tensor) -> torch.Tensor:
     return Transform2d("torch").analysis_level1(x)[0]
 
 
+def _launch_level1(fn, name: str, x: torch.Tensor, planes: int) -> torch.Tensor:
+    x = x.contiguous()
+    b, h, w = x.shape
+    out = torch.empty((b, planes, h // 2, w // 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch(name, x.data_ptr(), out.data_ptr(), b, h, w, _params_host().ctypes.data)
+    fn.launches += 1
+    return out
+
+
 def dtcwt_level1_analysis(x: torch.Tensor) -> torch.Tensor:
     """f32 [B, H, W] (H, W even) -> [B, 16, H/2, W/2]: planes [ll*4, lh*4,
     hl*4, hh*4], tree combos (rt, ct) row-major within each band."""
     _check(x, "dtcwt_level1_analysis", torch.float32, 3)
     if not x.is_cuda:
         return dtcwt_level1_analysis_reference(x)
-    x = x.contiguous()
-    b, h, w = x.shape
-    out = torch.empty((b, 16, h // 2, w // 2), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch("vfp_dtcwt_level1_analysis", x.data_ptr(), out.data_ptr(), b, h, w,
-                      _params_host().ctypes.data)
-    dtcwt_level1_analysis.launches += 1
-    return out
+    return _launch_level1(dtcwt_level1_analysis, "vfp_dtcwt_level1_analysis", x, 16)
 
 
 dtcwt_level1_analysis.launches = 0
 
 
-# -- dtcwt_qshift_ll, dtcwt_qshift_hp ------------------------------------------------
+# -- dtcwt_level1_analysis_ll ------------------------------------------------------
+
+def dtcwt_level1_analysis_ll_reference(x: torch.Tensor) -> torch.Tensor:
+    return Transform2d("torch").analysis_level1(x, lowpass_only=True)[0]
+
+
+def dtcwt_level1_analysis_ll(x: torch.Tensor) -> torch.Tensor:
+    """f32 [B, H, W] (H, W even) -> [B, 4, H/2, W/2]: the 4 level-1 tree
+    lowpasses, combos (rt, ct) row-major."""
+    _check(x, "dtcwt_level1_analysis_ll", torch.float32, 3)
+    if not x.is_cuda:
+        return dtcwt_level1_analysis_ll_reference(x)
+    return _launch_level1(dtcwt_level1_analysis_ll, "vfp_dtcwt_level1_analysis_ll", x, 4)
+
+
+dtcwt_level1_analysis_ll.launches = 0
+
+
+# -- dtcwt_qshift_ll, dtcwt_qshift_hp, dtcwt_qshift_analysis --------------------------
 
 def _check_ll4(ll4: torch.Tensor, name: str) -> None:
     if ll4.dtype != torch.float32 or ll4.dim() != 4 or ll4.shape[1] != 4:
@@ -199,3 +227,19 @@ def dtcwt_qshift_hp(ll4: torch.Tensor) -> torch.Tensor:
 
 
 dtcwt_qshift_hp.launches = 0
+
+
+def dtcwt_qshift_analysis_reference(ll4: torch.Tensor) -> torch.Tensor:
+    return Transform2d("torch").analysis_qshift(ll4)[0]
+
+
+def dtcwt_qshift_analysis(ll4: torch.Tensor) -> torch.Tensor:
+    """f32 tree lowpasses [B, 4, h, w] (h, w even) -> one full q-shift level,
+    [B, 16, h/2, w/2] planes [ll*4, lh*4, hl*4, hh*4]."""
+    _check_ll4(ll4, "dtcwt_qshift_analysis")
+    if not ll4.is_cuda:
+        return dtcwt_qshift_analysis_reference(ll4)
+    return _launch_qshift(dtcwt_qshift_analysis, "vfp_dtcwt_qshift_analysis", ll4, 16)
+
+
+dtcwt_qshift_analysis.launches = 0

@@ -10,17 +10,18 @@ mixes, ordered [LH+, LH-, HL+, HL-, HH+, HH-].  Everything is batched over
 leading axes.
 
 ``Transform2d(backend=...)``: ``"torch"`` runs the plain tensor code below;
-``"kernel"`` (and ``"auto"`` for CUDA tensors) takes the CUDA kernels of the
-blocks ported so far, as the JAX package routes them to Pallas: the full
-level-1 analysis (``kernels/dtcwt_level1.py:dtcwt_level1_analysis``), the
-q-shift analysis with lowpasses only (``dtcwt_qshift_ll``) and with
-highpasses only (``analysis_qshift_hp``: ``dtcwt_qshift_hp``), and the
-highpass-only LeGall synthesis (``synthesis_legall_hp``:
-``kernels/dtcwt_synthesis.py:dtcwt_legall_synthesis_hp``).  It raises
-NotImplementedError where the JAX package would reach a kernel that is not
-ported yet: the lowpass-only level 1, the full q-shift analysis, the other
-three syntheses, ``inverse``, and ``forward`` with nlevels > 1.  The plain
-single-level blocks are the plain versions of those kernels.
+``"kernel"`` (and ``"auto"`` for CUDA tensors) takes a CUDA kernel for every
+block, as the JAX package routes them to Pallas: level 1 full and
+lowpass-only (``kernels/dtcwt_level1.py``: ``dtcwt_level1_analysis``,
+``dtcwt_level1_analysis_ll``), the q-shift levels full, lowpass-only and
+highpass-only (``dtcwt_qshift_analysis``, ``dtcwt_qshift_ll``,
+``dtcwt_qshift_hp``), and the syntheses (``kernels/dtcwt_synthesis.py``:
+``dtcwt_qshift_synthesis``, ``dtcwt_qshift_synthesis_ll``,
+``dtcwt_legall_synthesis``, ``dtcwt_legall_synthesis_ll``,
+``dtcwt_legall_synthesis_hp``).  ``forward``/``inverse`` at any depth and
+the raw-plane ``forward_raw``/``inverse_raw`` are built from those blocks.
+The plain single-level blocks are the kernels' plain versions; the
+replicate pads of odd levels and the inter-level crops stay tensor code.
 """
 
 from __future__ import annotations
@@ -145,23 +146,8 @@ def _unpack_planes(planes):
     return ll, subs
 
 
-def _combine(subs):
-    out = []
-    for i in range(3):  # LH, HL, HH
-        out += list(_q2c(subs[(0, 0)][i], subs[(0, 1)][i], subs[(1, 0)][i], subs[(1, 1)][i]))
-    return torch.stack(out, dim=-1)
-
-
-def _split(high):
-    subs = {tc: [] for tc in _TREES}
-    for i in range(3):
-        for tc, v in zip(_TREES, _c2q(high[..., 2 * i], high[..., 2 * i + 1])):
-            subs[tc].append(v)
-    return {k: tuple(v) for k, v in subs.items()}
-
-
 class Transform2d:
-    """forward/inverse and the single-level blocks the codecs use."""
+    """forward/inverse, their raw-plane forms and the single-level blocks."""
 
     def __init__(self, backend: str = "auto"):
         if backend not in BACKENDS:
@@ -178,77 +164,77 @@ class Transform2d:
         out = fn(x.reshape(-1, planes, h, w))
         return out.reshape(*lead, *out.shape[1:])
 
-    def _plain(self, x: torch.Tensor, what: str) -> None:
-        """Raise where the JAX package runs a kernel this port has not yet."""
-        if self._kernel_mode(x):
-            raise NotImplementedError(
-                f"Transform2d.{what}: its CUDA kernel is not ported yet (ROADMAP.md queue 1); "
-                "use backend='torch' for the plain version")
-
     # -- whole transform ---------------------------------------------------------------
     def forward(self, x: torch.Tensor, nlevels: int = 3) -> Pyramid:
         x = x.to(torch.float32)
         squeeze = x.dim() == 2
         if squeeze:
             x = x[None]
-        highs, sizes = [], []
-        planes, orig = self.analysis_level1(x)
-        sizes.append(orig)
-        ll, subs = _unpack_planes(planes)
-        highs.append(_combine(subs))
-        if nlevels > 1:
-            self._plain(x, "forward(nlevels > 1)")
-        for _ in range(1, nlevels):
-            planes, lvl = self.analysis_qshift(torch.stack([ll[tc] for tc in _TREES], dim=-3))
-            sizes.append(lvl)
-            ll, subs = _unpack_planes(planes)
-            highs.append(_combine(subs))
-        h2, w2 = ll[(0, 0)].shape[-2:]
-        low = x.new_zeros((*ll[(0, 0)].shape[:-2], 2 * h2, 2 * w2))
-        for (rt, ct), l in ll.items():
-            low[..., rt::2, ct::2] = l
+        planes, sizes = self.forward_raw(x, nlevels)
+        highs = [q2c_planes(p) for p in planes]
+        ll = planes[-1]
+        h2, w2 = ll.shape[-2:]
+        low = x.new_zeros((*ll.shape[:-3], 2 * h2, 2 * w2))
+        for ci, (rt, ct) in enumerate(_TREES):
+            low[..., rt::2, ct::2] = ll[..., ci, :, :]
         if squeeze:
             low, highs = low[0], [h[0] for h in highs]
         return Pyramid(lowpass=low, highpasses=tuple(highs), sizes=sizes)
 
     def inverse(self, pyr: Pyramid) -> torch.Tensor:
         low = pyr.lowpass.to(torch.float32)
-        self._plain(low, "inverse")
         highs = pyr.highpasses
         squeeze = low.dim() == 2
         if squeeze:
             low, highs = low[None], tuple(h[None] for h in highs)
-        sizes = pyr.sizes
-        ll = {(rt, ct): low[..., rt::2, ct::2] for rt, ct in _TREES}
-        for lev in range(len(highs) - 1, 0, -1):
-            subs = _split(highs[lev])
-            for rt, ct in _TREES:
-                x = _qshift_synthesis_tree(ll[(rt, ct)], *subs[(rt, ct)], rt, ct)
-                if sizes is not None:
-                    x = x[..., : sizes[lev][0], : sizes[lev][1]]
-                ll[(rt, ct)] = x
-        subs = _split(highs[0])
-        out = 0.0
-        for rt, ct in _TREES:
-            out = out + _synthesis2d(ll[(rt, ct)], *subs[(rt, ct)], C.LEGALL_G0, C.LEGALL_G1,
-                                     rt, ct, C.LEGALL_ROLL, C.LEGALL_ROLL)
-        out = out * 0.25
-        if sizes is not None:
-            out = out[..., : sizes[0][0], : sizes[0][1]]
+        ll4 = torch.stack([low[..., rt::2, ct::2] for rt, ct in _TREES], dim=-3)
+        out = self._synthesize(ll4, [c2q_subs(h) for h in highs], pyr.sizes)
         return out[0] if squeeze else out
 
-    # -- single-level blocks (the codecs' hot path) ------------------------------------
+    def forward_raw(self, x: torch.Tensor, nlevels: int = 3):
+        """[..., H, W] -> (planes, sizes): planes[lev] is [..., 16, h, w], the
+        level's raw tree planes [ll*4, lh*4, hl*4, hh*4] (its ll planes fed
+        the next level; the deepest level's are the final lowpasses, not
+        interleaved); sizes[lev] the pre-pad size of the level's input."""
+        p, s = self.analysis_level1(x)
+        planes, sizes = [p], [s]
+        for _ in range(1, nlevels):
+            p, s = self.analysis_qshift(p[..., :4, :, :])
+            planes.append(p)
+            sizes.append(s)
+        return planes, sizes
+
+    def inverse_raw(self, planes, sizes=None) -> torch.Tensor:
+        """The inverse of ``forward_raw``: the ll planes of every level but
+        the deepest are ignored (the reconstruction recomputes them)."""
+        return self._synthesize(planes[-1][..., :4, :, :], [p[..., 4:, :, :] for p in planes],
+                                sizes)
+
+    def _synthesize(self, ll4, subs, sizes):
+        """Deepest tree lowpasses [..., 4, h, w] and each level's highpass
+        planes [..., 12, h, w] -> [..., H, W], cropping each level to
+        ``sizes`` (if given)."""
+        for lev in range(len(subs) - 1, 0, -1):
+            ll4 = self.synthesis_qshift(torch.cat([ll4, subs[lev]], dim=-3))
+            if sizes is not None:
+                ll4 = ll4[..., : sizes[lev][0], : sizes[lev][1]]
+        out = self.synthesis_legall(torch.cat([ll4, subs[0]], dim=-3))
+        if sizes is not None:
+            out = out[..., : sizes[0][0], : sizes[0][1]]
+        return out
+
+    # -- single-level blocks ------------------------------------------------------------
     def analysis_level1(self, x: torch.Tensor, lowpass_only: bool = False):
         """[..., H, W] -> ([..., 16, h, w] raw planes, or [..., 4, h, w] tree
         lowpasses when ``lowpass_only``; pre-pad size)."""
         x, orig = _pad_even(x.to(torch.float32))
-        if self._kernel_mode(x) and not lowpass_only:
-            from ..kernels.dtcwt_level1 import dtcwt_level1_analysis
+        if self._kernel_mode(x):
+            from ..kernels.dtcwt_level1 import dtcwt_level1_analysis, dtcwt_level1_analysis_ll
 
+            fn = dtcwt_level1_analysis_ll if lowpass_only else dtcwt_level1_analysis
             lead, (h, w) = x.shape[:-2], x.shape[-2:]
-            planes = dtcwt_level1_analysis(x.reshape(-1, h, w).contiguous())
-            return planes.reshape(*lead, 16, h // 2, w // 2), orig
-        self._plain(x, "analysis_level1(lowpass_only=True)")
+            planes = fn(x.reshape(-1, h, w))
+            return planes.reshape(*lead, *planes.shape[1:]), orig
         ll, subs = {}, {}
         for rt, ct in _TREES:
             l, lh, hl, hh = _analysis2d(x, C.LEGALL_H0, C.LEGALL_H1, rt, ct)
@@ -261,11 +247,11 @@ class Transform2d:
         """[..., 4, h, w] tree lowpasses -> one q-shift analysis level
         ([..., 16 or 4, h/2, w/2], pre-pad size)."""
         stack, lvl = _pad_even(ll4.to(torch.float32))
-        if self._kernel_mode(stack) and lowpass_only:
-            from ..kernels.dtcwt_level1 import dtcwt_qshift_ll
+        if self._kernel_mode(stack):
+            from ..kernels.dtcwt_level1 import dtcwt_qshift_analysis, dtcwt_qshift_ll
 
-            return self._on_kernel(dtcwt_qshift_ll, stack, 4), lvl
-        self._plain(stack, "analysis_qshift(lowpass_only=False)")
+            fn = dtcwt_qshift_ll if lowpass_only else dtcwt_qshift_analysis
+            return self._on_kernel(fn, stack, 4), lvl
         ll, subs = {}, {}
         for ci, (rt, ct) in enumerate(_TREES):
             xi = stack[..., ci, :, :]
@@ -294,14 +280,22 @@ class Transform2d:
     def synthesis_qshift(self, planes16: torch.Tensor) -> torch.Tensor:
         """[..., 16, h, w] raw planes -> [..., 4, 2h, 2w] tree lowpasses of
         the level below (before cropping)."""
-        self._plain(planes16, "synthesis_qshift")
+        planes16 = planes16.to(torch.float32)
+        if self._kernel_mode(planes16):
+            from ..kernels.dtcwt_synthesis import dtcwt_qshift_synthesis
+
+            return self._on_kernel(dtcwt_qshift_synthesis, planes16, 16)
         ll, subs = _unpack_planes(planes16)
         return torch.stack([_qshift_synthesis_tree(ll[tc], *subs[tc], *tc) for tc in _TREES],
                            dim=-3)
 
     def synthesis_qshift_ll(self, ll4: torch.Tensor) -> torch.Tensor:
         """Lowpass-only q-shift synthesis: [..., 4, h, w] -> [..., 4, 2h, 2w]."""
-        self._plain(ll4, "synthesis_qshift_ll")
+        ll4 = ll4.to(torch.float32)
+        if self._kernel_mode(ll4):
+            from ..kernels.dtcwt_synthesis import dtcwt_qshift_synthesis_ll
+
+            return self._on_kernel(dtcwt_qshift_synthesis_ll, ll4, 4)
         outs = []
         for ci, (rt, ct) in enumerate(_TREES):
             _, _, g0r, _, rr = _qshift(rt)
@@ -310,13 +304,29 @@ class Transform2d:
             outs.append(torch.roll(_along_rows(up2, lo, g0r, 0), rr, -2))
         return torch.stack(outs, dim=-3)
 
+    def synthesis_legall(self, planes16: torch.Tensor) -> torch.Tensor:
+        """LeGall level-1 synthesis: [..., 16, h, w] raw planes -> [..., 2h,
+        2w] (the 4-tree average, before cropping)."""
+        planes16 = planes16.to(torch.float32)
+        if self._kernel_mode(planes16):
+            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis
+
+            return self._on_kernel(dtcwt_legall_synthesis, planes16, 16)
+        ll, subs = _unpack_planes(planes16)
+        out = 0.0
+        for rt, ct in _TREES:
+            out = out + _synthesis2d(ll[(rt, ct)], *subs[(rt, ct)], C.LEGALL_G0, C.LEGALL_G1,
+                                     rt, ct, C.LEGALL_ROLL, C.LEGALL_ROLL)
+        return out * 0.25
+
     def synthesis_legall_hp(self, subs12: torch.Tensor) -> torch.Tensor:
         """Highpass-only LeGall level-1 synthesis: [..., 12, h, w] planes
         [lh*4, hl*4, hh*4] with a zero lowpass -> [..., 2h, 2w]."""
+        subs12 = subs12.to(torch.float32)
         if self._kernel_mode(subs12):
             from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_hp
 
-            return self._on_kernel(dtcwt_legall_synthesis_hp, subs12.to(torch.float32), 12)
+            return self._on_kernel(dtcwt_legall_synthesis_hp, subs12, 12)
         out = 0.0
         for ci, (rt, ct) in enumerate(_TREES):
             lh, hl, hh = (subs12[..., band * 4 + ci, :, :] for band in range(3))
@@ -327,7 +337,11 @@ class Transform2d:
     def synthesis_legall_ll(self, ll4: torch.Tensor) -> torch.Tensor:
         """Lowpass-only LeGall level-1 synthesis: [..., 4, h, w] -> [..., 2h, 2w]
         (the 4-tree average)."""
-        self._plain(ll4, "synthesis_legall_ll")
+        ll4 = ll4.to(torch.float32)
+        if self._kernel_mode(ll4):
+            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_ll
+
+            return self._on_kernel(dtcwt_legall_synthesis_ll, ll4, 4)
         out = 0.0
         for ci, (rt, ct) in enumerate(_TREES):
             li = ll4[..., ci, :, :]

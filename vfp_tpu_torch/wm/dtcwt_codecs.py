@@ -11,24 +11,31 @@ delta alone: the U channel is never analysed.  Detection divides the
 level-3 U highpasses by ``mask * alpha``, folds the 4 corner replicas, and
 inverts a 1-level pyramid with a zero lowpass.
 
-``backend``: ``"kernel"`` (and ``"auto"`` for CUDA tensors) runs both
-directions on the CUDA kernels (their plain versions for CPU tensors).
-Marking: ``dtcwt_level1_ll_y`` (u8 frames -> Y tree lowpasses),
-``dtcwt_qshift_masks`` (-> quantized masks), ``dtcwt_delta_synthesis``
-(delta planes -> pixel delta), and ``dtcwt_level1_analysis`` for the
-watermark plane's spectrum (through ``Transform2d.forward``, every batch, as
-the JAX package's traced path does).  Detection, as the JAX package's
-chained path (``_decode_from_ll1_chain``): ``dtcwt_level1_ll_color`` (u8
-frames -> Y and U tree lowpasses), ``dtcwt_qshift_ll`` then
-``dtcwt_qshift_hp`` on the U half (-> level-3 highpasses),
-``dtcwt_qshift_masks`` on the Y half (both halves read in place), and
-``dtcwt_legall_synthesis_hp`` after the glue (q2c, divide by mask and alpha,
-fold the corners, c2q).  The kernels take H, W % 8 == 0, the geometry where
-every level halves exactly and the JAX codec takes its fused kernels; other
-shapes raise there.  ``"torch"`` (and ``"auto"`` for CPU tensors) runs the
-tensor path below, the JAX package's XLA path.  The codec has 3 levels, as
-the JAX package's default; other depths and the image variant (mask
-normalisation) are not ported yet.
+Frame dtype and shape pick the path, as in the JAX package.  uint8 frames
+with even H and W at 3 levels take the color-fused level-1 kernels
+(``dtcwt_level1_ll_y`` to mark, ``dtcwt_level1_ll_color`` to detect: Y and U
+tree lowpasses straight from the bytes); everything else (float frames, odd
+H or W, other depths) converts with ``bgr_to_yuv`` and takes the channel
+path through ``Transform2d``.  From the level-1 tree lowpasses on, one
+geometric test picks the rest: where the level-1 grid is a multiple of 4 on
+both axes (H, W % 8 == 0 for even frames), every level halves exactly and
+the fused kernels run, ``dtcwt_qshift_masks`` and ``dtcwt_delta_synthesis``;
+elsewhere the masks are tensor glue on the level-2 highpasses
+(``q2c_magnitudes``, the 2x2 mean filter, ``rebin_mean`` with its odd-H zero
+row) and the delta takes the three synthesis stages with the inter-level
+crops.  Detection runs the U channel's levels 2 (lowpass-only) and 3
+(highpass-only), the masks the same way, the glue on the level-3 grid (q2c,
+division by mask and alpha, the fold of the corner replicas, c2q) and the
+highpass-only LeGall synthesis.  At ``nlevels != 3`` both directions take
+the full raw pyramid of Y and U (``Transform2d.forward_raw`` /
+``inverse_raw``); the JAX codec detects its own mark only at 3 levels, and
+so does this one.
+
+``backend``: ``"kernel"`` (and ``"auto"`` for CUDA tensors) runs every
+transform block and fused stage on the CUDA kernels (their plain versions
+for CPU tensors); ``"torch"`` (and ``"auto"`` for CPU tensors) runs the
+plain transform and the glue path everywhere, the JAX package's XLA path.
+The image variant (mask normalisation) is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,10 +45,8 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.dtcwt_delta import dtcwt_delta_synthesis
-from ..kernels.dtcwt_level1 import (dtcwt_level1_ll_color, dtcwt_level1_ll_y, dtcwt_qshift_hp,
-                                    dtcwt_qshift_ll)
+from ..kernels.dtcwt_level1 import dtcwt_level1_ll_color, dtcwt_level1_ll_y
 from ..kernels.dtcwt_masks import dtcwt_qshift_masks
-from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_hp
 from ..kernels.fused_dct_qim import true_div
 from ..ops.color import M_BWD, bgr_to_yuv
 from ..ops.dtcwt import Transform2d, c2q_subs, q2c_magnitudes, q2c_planes
@@ -80,37 +85,46 @@ def _fold_corners(coeff: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class _DtcwtBase:
     alpha: float = 10.0
     step: float = 5.0
+    nlevels: int = 3
     backend: str = "auto"
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        if int(self.nlevels) < 2:
+            raise ValueError(f"nlevels must be >= 2 (the masks read level 2), got "
+                             f"{self.nlevels}")
         object.__setattr__(self, "alpha", float(self.alpha))
         object.__setattr__(self, "step", float(self.step))
+        object.__setattr__(self, "nlevels", int(self.nlevels))
 
     @classmethod
     def from_reference(cls, obj):
         """This codec configured as a ``vfp_tpu`` DT-CWT codec (read by
         attribute).  Its ``fast_dots`` is ignored: the port computes in
         float32."""
-        if int(obj.nlevels) != 3 or bool(obj.normalize_masks):
-            raise NotImplementedError("only 3 levels without mask normalisation are ported "
+        if bool(obj.normalize_masks):
+            raise NotImplementedError("mask normalisation (DtcwtImg) is not ported yet "
                                       "(ROADMAP.md queue 1)")
-        return cls(alpha=float(obj.alpha), step=float(obj.step))
+        return cls(alpha=float(obj.alpha), step=float(obj.step), nlevels=int(obj.nlevels))
 
     def wm_capacity(self, frame_shape):
         return infer_wm_shape(frame_shape)
 
-    def _use_kernel(self, frames: torch.Tensor) -> bool:
-        if self.backend == "torch" or (self.backend == "auto" and not frames.is_cuda):
-            return False
-        h, w = frames.shape[1], frames.shape[2]
-        if h % 8 or w % 8:
-            raise NotImplementedError(
-                f"the DT-CWT kernels take H, W % 8 == 0, got {h}x{w}; the 3-stage "
-                "synthesis kernels that other shapes need are not ported yet (ROADMAP.md "
-                "queue 1); pass backend='torch' for the tensor path")
-        return True
+    def _kernel_mode(self, x: torch.Tensor) -> bool:
+        return self.backend == "kernel" or (self.backend == "auto" and x.is_cuda)
+
+    def _u8_kernel_path(self, frames: torch.Tensor) -> bool:
+        """uint8 frames with even H and W at 3 levels: the color-fused level-1
+        kernels."""
+        return (self.nlevels == 3 and frames.dtype == torch.uint8 and self._kernel_mode(frames)
+                and frames.shape[1] % 2 == 0 and frames.shape[2] % 2 == 0)
+
+    def _fused(self, y_ll1: torch.Tensor) -> bool:
+        """Exact level geometry above level 1 (h1, w1 % 4 == 0) on the kernel
+        path: the fused masks and delta kernels."""
+        return (self._kernel_mode(y_ll1) and y_ll1.shape[-2] % 4 == 0
+                and y_ll1.shape[-1] % 4 == 0)
 
     # -- watermark spectrum ------------------------------------------------------------
     def wm_highpass(self, wm: torch.Tensor) -> torch.Tensor:
@@ -130,65 +144,106 @@ class _DtcwtBase:
         delta6 = (self.alpha * masks) * wm_plane[None]  # [B, 6, h3, w3] complex
         return c2q_subs(delta6.permute(0, 2, 3, 1))
 
-    def _embed_delta_torch(self, y: torch.Tensor, wm_hp: torch.Tensor) -> torch.Tensor:
-        """Y channel [B, H, W] -> pixel-space U delta [B, H, W] on the tensor
-        path: level 1 lowpass-only, level 2 highpass-only (the masks), then
-        the delta synthesis with the inter-level crops of odd shapes."""
-        t = Transform2d("torch")
-        y_ll1, s0 = t.analysis_level1(y, lowpass_only=True)
+    def _embed_delta_from_ll1(self, y_ll1: torch.Tensor, wm_hp: torch.Tensor, s0):
+        """Y tree lowpasses [B, 4, h1, w1] -> pixel-space U delta [B, H, W]
+        cropped to ``s0``: the fused masks and delta kernels, or level 2
+        highpass-only, the mask glue and the three synthesis stages with the
+        inter-level crops of odd shapes."""
+        if self._fused(y_ll1):
+            masks = dtcwt_qshift_masks(y_ll1, self.step)
+            du = dtcwt_delta_synthesis(self._delta_subs(masks, wm_hp))
+            return du[..., : s0[0], : s0[1]]
+        t = Transform2d(self.backend)
         y_hp2, s1 = t.analysis_qshift_hp(y_ll1)
         h2, w2 = y_hp2.shape[-2], y_hp2.shape[-1]
-        shape3 = ((h2 + 1) // 2, (w2 + 1) // 2)
+        shape3 = ((h2 + 1) // 2, (w2 + 1) // 2)  # the level-3 grid, level 3 not run
         dsubs = self._delta_subs(self._masks3_from_mags(q2c_magnitudes(y_hp2), shape3), wm_hp)
         d3 = torch.cat([dsubs.new_zeros((*dsubs.shape[:-3], 4, *shape3)), dsubs], dim=-3)
         dll2 = t.synthesis_qshift(d3)[..., :h2, :w2]
         dll1 = t.synthesis_qshift_ll(dll2)[..., : s1[0], : s1[1]]
         return t.synthesis_legall_ll(dll1)[..., : s0[0], : s0[1]]
 
-    # -- uint8 frame API -------------------------------------------------------------------
+    def _embed_channel_raw(self, y: torch.Tensor, u: torch.Tensor, wm_hp: torch.Tensor):
+        """Y and U channels [B, H, W] -> the marked U channel.  At 3 levels the
+        delta is synthesized alone and added (the transform is linear and
+        the delta lives in the level-3 highpasses): U is never analysed."""
+        if self.nlevels != 3:
+            return self._embed_channel_raw_generic(y, u, wm_hp)
+        y_ll1, s0 = Transform2d(self.backend).analysis_level1(y, lowpass_only=True)
+        return u + self._embed_delta_from_ll1(y_ll1, wm_hp, s0)
+
+    def _embed_channel_raw_generic(self, y, u, wm_hp):
+        """nlevels != 3: the full raw pyramid of [Y; U], the delta added to
+        U's deepest highpasses, and U's inverse."""
+        b = y.shape[0]
+        t = Transform2d(self.backend)
+        planes, sizes = t.forward_raw(torch.cat([y, u], dim=0), self.nlevels)
+        top = planes[-1]
+        masks = self._masks3_from_mags(q2c_magnitudes(planes[1][:b]), top.shape[-2:])
+        u_planes = [p[b:] for p in planes]
+        u_planes[-1] = torch.cat([top[b:, :4], top[b:, 4:] + self._delta_subs(masks, wm_hp)],
+                                 dim=-3)
+        return t.inverse_raw(u_planes, sizes)
+
+    # -- frame API ---------------------------------------------------------------------
     def mark_frames(self, frames: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] uint8 + watermark plane [h, w] (or flattened) -> marked
-        uint8: round(clip(x + du * M_BWD[:, 1], 0, 255)), half to even."""
+        """[B, H, W, 3] uint8 (or float) + watermark plane [h, w] (or
+        flattened) -> marked uint8: round(clip(x + du * M_BWD[:, 1], 0, 255)),
+        half to even."""
         h, w = frames.shape[1], frames.shape[2]
         wm_hp = self.wm_highpass(wm.reshape(self.wm_capacity((h, w, 3))))
         bwd = torch.as_tensor(M_BWD[:, 1], device=frames.device)
         f32 = frames.to(torch.float32)
-        if self._use_kernel(frames):
-            masks = dtcwt_qshift_masks(dtcwt_level1_ll_y(frames), self.step)
-            du = dtcwt_delta_synthesis(self._delta_subs(masks, wm_hp))[..., :h, :w]
+        if self._u8_kernel_path(frames):
+            du = self._embed_delta_from_ll1(dtcwt_level1_ll_y(frames), wm_hp, (h, w))
             marked = f32 + du[..., None] * bwd
         else:
             yuv = bgr_to_yuv(f32)
             u = yuv[..., 1]
-            u_new = u + self._embed_delta_torch(yuv[..., 0], wm_hp)
+            u_new = self._embed_channel_raw(yuv[..., 0], u, wm_hp)
             marked = f32 + (u_new - u)[..., None] * bwd
         return torch.round(torch.clamp(marked, 0.0, 255.0)).to(torch.uint8)
 
     def extract_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] uint8 -> recovered watermark planes [B, h, w]."""
-        if self._use_kernel(frames):
-            ll = dtcwt_level1_ll_color(frames)  # [B, 2, 4, H/2, W/2]
-            u_hp3 = dtcwt_qshift_hp(dtcwt_qshift_ll(ll[:, 1]))  # [B, 12, H/8, W/8]
-            masks = dtcwt_qshift_masks(ll[:, 0], self.step)
-            return self._decode_coeffs(u_hp3, masks, dtcwt_legall_synthesis_hp)
+        """[B, H, W, 3] uint8 (or float) -> recovered watermark planes [B, h, w]."""
+        if self._u8_kernel_path(frames):
+            ll = dtcwt_level1_ll_color(frames)  # [B, 2, 4, H/2, W/2], both halves read in place
+            return self._decode_from_ll1(ll[:, 0], ll[:, 1])
         yuv = bgr_to_yuv(frames.to(torch.float32))
-        return self._decode_channel(yuv[..., 0], yuv[..., 1])
+        return self._decode_channel_raw(yuv[..., 0], yuv[..., 1])
 
-    def _decode_channel(self, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    def _decode_channel_raw(self, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Y level-2 subbands (masks) and U level-3 subbands (coefficients);
         every other analysis level runs lowpass-only."""
+        if self.nlevels != 3:
+            return self._decode_channel_raw_generic(y, u)
         b = y.shape[0]
-        t = Transform2d("torch")
-        ll1, _ = t.analysis_level1(torch.cat([y, u], dim=0), lowpass_only=True)
-        u_ll2, _ = t.analysis_qshift(ll1[b:], lowpass_only=True)
+        ll1, _ = Transform2d(self.backend).analysis_level1(torch.cat([y, u], dim=0),
+                                                           lowpass_only=True)
+        return self._decode_from_ll1(ll1[:b], ll1[b:])
+
+    def _decode_from_ll1(self, y_ll1: torch.Tensor, u_ll1: torch.Tensor) -> torch.Tensor:
+        t = Transform2d(self.backend)
+        u_ll2, _ = t.analysis_qshift(u_ll1, lowpass_only=True)
         u_hp3, _ = t.analysis_qshift_hp(u_ll2)
-        y_hp2, _ = t.analysis_qshift_hp(ll1[:b])
-        masks = self._masks3_from_mags(q2c_magnitudes(y_hp2), u_hp3.shape[-2:])
+        if self._fused(y_ll1):
+            masks = dtcwt_qshift_masks(y_ll1, self.step)
+        else:
+            y_hp2, _ = t.analysis_qshift_hp(y_ll1)  # masks never read the ll band
+            masks = self._masks3_from_mags(q2c_magnitudes(y_hp2), u_hp3.shape[-2:])
         return self._decode_coeffs(u_hp3, masks, t.synthesis_legall_hp)
 
+    def _decode_channel_raw_generic(self, y, u):
+        b = y.shape[0]
+        t = Transform2d(self.backend)
+        planes, _ = t.forward_raw(torch.cat([y, u], dim=0), self.nlevels)
+        top = planes[-1]
+        masks = self._masks3_from_mags(q2c_magnitudes(planes[1][:b]), top.shape[-2:])
+        return self._decode_coeffs(top[b:], masks, t.synthesis_legall_hp)
+
     def _decode_coeffs(self, u_hp3: torch.Tensor, masks: torch.Tensor, synthesis):
-        """U level-3 highpasses [B, 12, h3, w3] and masks [B, 6, h3, w3] ->
-        the recovered planes: the decoder's 0 -> 0.01 mask guard, q2c,
+        """U's deepest highpasses [B, 12 (or 16), h3, w3] and masks [B, 6, h3,
+        w3] -> the recovered planes: the decoder's 0 -> 0.01 mask guard, q2c,
         division by mask and alpha, the fold of the 4 corner replicas, c2q,
         and ``synthesis`` (the highpass-only LeGall level-1 synthesis)."""
         masks = torch.where(masks == 0, torch.full_like(masks, 0.01), masks)
