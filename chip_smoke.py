@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``vfp_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --sweep [--package-root DIR]
+                                   # only the build and the sweep of phase 5
+                                   # (DIR: another checkout's package, e.g.
+                                   # the parent commit from git archive)
 
 Phases, each printing its lines:
 
@@ -18,8 +22,8 @@ Phases, each printing its lines:
    and 2048x858 pyramids, an odd 33x65 grid), within the stated tolerances
    (the DT-CWT kernels equal); the masks and the q-shift level also on the
    in-place halves of the detect path's level-1 output;
-4. main paths, each with the launch counts set to 0 just before it and read
-   just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
+4. main paths, each with the launch counts set to 0 and the watermark-spectrum
+   cache emptied just before it, the counts read just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
    then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
    the same at 1918x1080 (W % 4 != 0: the SoA kernels), and a two-channel
    codec through the pipeline API (``qim_embed_soa``); then ``mark --codec
@@ -37,13 +41,20 @@ Phases, each printing its lines:
    round trip of a 1080p batch (the full q-shift
    analysis and the full syntheses), each equal to the plain kernel path on
    the card.  The counts must show every kernel ran and no plain version may
-   see a CUDA tensor;
+   see a CUDA tensor, and the watermark plane's spectrum
+   (``dtcwt_level1_analysis`` on it) must run once per path: 11 launches of
+   that kernel over all paths;
 5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
-   with CUDA events after warm-up, beside the bound the card's HBM rate and
-   float32 peak set for the same work; then one batch of each codec's
-   pipeline work (and ``dtcwtKey`` at 1920x804) split into upload, device
-   and download on the host clock.
+   with CUDA events after warm-up, on two clocks: host-inclusive (events
+   around back-to-back wrapper calls) and device-only (the same calls
+   captured in one CUDA graph and replayed), beside the bound the card's
+   HBM rate and float32 peak set for the same work; the sweep: the two
+   kernels redesigned for Hopper (level-1 and q-shift analysis) at every
+   shape the paths give them, each against its plain version, with its
+   launch geometry beside ptxas's registers and shared bytes; then one
+   batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
+   split into upload, device and download on the host clock.
 
 Then one JSON line per the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits nonzero.
@@ -173,10 +184,10 @@ def smooth_frames(rng, b, h, w):
     return np.clip(f * 235 + rng.rand(b, h, w, 3) * 12, 0, 255).astype(np.uint8)
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """'<source> <kernel><template arguments>: N registers, S bytes spilled'
-    per kernel, from the build's ``-Xptxas=-v`` report."""
-    out, name = [], None
+def ptxas_report(log: str) -> dict:
+    """{'<source> <kernel><template arguments>': {registers, spill, stack,
+    smem}} per kernel, from the build's ``-Xptxas=-v`` report (bytes)."""
+    out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -188,14 +199,62 @@ def ptxas_summary(log: str) -> list[str]:
             targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end:])
             if targs:  # bool and int template arguments, e.g. ILb1ELi2EE -> <1, 2>
                 name += f"<{', '.join(re.findall(r'L[a-z](\d+)E', targs.group(1)))}>"
-            spill = 0
+            spill = stack = 0
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            stack = int(re.search(r"(\d+) bytes stack frame", line).group(1))
         elif name and "Used" in line and "registers" in line:
-            regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            out.append(f"{name}: {regs} registers, {spill} bytes spilled")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = {"registers": int(re.search(r"Used (\d+) registers", line).group(1)),
+                         "spill": spill, "stack": stack, "smem": int(smem.group(1)) if smem else 0}
             name = None
-    return out or ["report not available (library loaded from disk)"]
+    return out
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'<source> <kernel><template arguments>: N registers, S bytes spilled'
+    per kernel."""
+    return [f"{name}: {r['registers']} registers, {r['spill']} bytes spilled, {r['stack']} bytes "
+            f"stack, {r['smem']} bytes shared" for name, r in ptxas_report(log).items()
+            ] or ["report not available (library loaded from disk)"]
+
+
+# The launch geometry of the two kernels redesigned for Hopper, as their
+# launchers in csrc/ set it: f(input shape) -> (ptxas name, blocks, threads).
+def _level1_geometry(shape):
+    b, h, w = shape
+    tiles8 = b * -(-(h // 2) // 8) * -(-(w // 2) // 32)
+    th = 8 if tiles8 >= 2 * 132 else 2
+    return (f"dtcwt_level1.cu analysis_tile_kernel<{th}>", b * -(-(h // 2) // th) * -(-(w // 2) // 32),
+            256 if th == 8 else 96)
+
+
+def _qshift_geometry(shape):
+    b, _, h, w = shape
+    return ("dtcwt_qshift.cu qshift_kernel<2>", 4 * b * -(-(h // 2) // 16) * -(-(w // 2) // 32),
+            160)
+
+
+GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": _qshift_geometry}
+
+
+def occupancy_line(name, shape, report) -> str:
+    """Blocks, threads, shared bytes, registers and spills of one launch,
+    and the blocks one H100 SM can hold at once (2048 threads, 32 blocks,
+    65,536 registers allocated per warp in units of 256, 233,472 bytes of
+    shared memory with 1 KB reserved per block)."""
+    kernel, blocks, threads = GEOMETRY[name](tuple(shape))
+    r = report.get(kernel)
+    if r is None:
+        return f"occupancy {name} @ {tuple(shape)}: {blocks} blocks x {threads} threads " \
+               f"({kernel}: no ptxas report)"
+    warps = -(-threads // 32)
+    per_warp = -(-r["registers"] * 32 // 256) * 256
+    resident = min(32, 64 // warps, 65536 // per_warp // warps, 233472 // (r["smem"] + 1024))
+    return (f"occupancy {name} @ {tuple(shape)}: {kernel}, {blocks} blocks x {threads} threads, "
+            f"{r['smem']} bytes shared, {r['registers']} registers, {r['spill']} bytes spilled, "
+            f"{r['stack']} bytes stack; at most {resident} blocks ({resident * warps} warps) "
+            f"resident per SM, {blocks / (132 * resident):.2f} waves on 132 SMs")
 
 
 def nvidia_smi_line() -> str:
@@ -622,7 +681,7 @@ def run_main_path(device, cfg, workdir: Path) -> dict:
         _write_rawv(sources[w], rng, n, h, w)
     frames_mc = natural_frames(rng, cfg["b"], h, cfg["w"])
 
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         for w, names in ((cfg["w"], ("fused_mark_planar", "fused_extract_planar")),
                          (cfg["narrow_w"], ("qim_triplet_soa", "qim_decode_soa"))):
@@ -683,7 +742,7 @@ def run_dct_path(device, cfg, workdir: Path, source: Path) -> dict:
     batches = -(-n // cfg["b"])
     out = workdir / f"marked_dct_{w}x{h}.rawv"
     flags = ["--codec", "dct", "--batch-size", str(cfg["b"]), "--device", str(device)]
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         cli(["mark", str(source), str(out), *flags])
         cli(["detect", str(out), "--payload", PAYLOAD, *flags])  # exits 1 on a wrong payload
@@ -714,7 +773,9 @@ def run_dct_path(device, cfg, workdir: Path, source: Path) -> dict:
 def plain_kernels():
     """Within the block, every DT-CWT kernel wrapper is replaced by its plain
     version (on the card too), wherever the port looks it up: the codec's
-    kernel path then runs with the plain versions."""
+    kernel path then runs with the plain versions.  The watermark-spectrum
+    cache is emptied on the way in and out, so neither side reuses a
+    spectrum the other computed."""
     from vfp_tpu_torch import kernels
     from vfp_tpu_torch.kernels import dtcwt_delta, dtcwt_level1, dtcwt_masks, dtcwt_synthesis
     from vfp_tpu_torch.wm import dtcwt_codecs
@@ -726,11 +787,24 @@ def plain_kernels():
             if getattr(mod, fn.__name__, None) is fn:
                 saved.append((mod, fn.__name__, fn))
                 setattr(mod, fn.__name__, getattr(home, fn.__name__ + "_reference"))
+    dtcwt_codecs.clear_wm_cache()
     try:
         yield
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        dtcwt_codecs.clear_wm_cache()
+
+
+def fresh_counts() -> None:
+    """Every launch count to 0 and the watermark-spectrum cache emptied, just
+    before a path: each path then computes its spectrum once, whatever ran
+    before it."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.wm import clear_wm_cache
+
+    clear_wm_cache()
+    kernels.reset_launch_counts()
 
 
 def assert_counts(counts, want, label):
@@ -766,11 +840,13 @@ def run_dtcwt_path(device, cfg, workdir: Path):
         for i in range(0, n, cfg["b"]):
             writer.write_batch(smooth_frames(rng, min(cfg["b"], n - i), h, w))
     flags = ["--codec", "dtcwtKey", "--batch-size", str(cfg["b"]), "--device", str(device)]
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         cli(["mark", str(source), str(out), *flags])
     counts = kernels.launch_counts()
-    assert_counts(counts, {k: batches for k in DTCWT}, "dtcwtKey mark")
+    # the watermark plane's spectrum once per run, the rest once per batch
+    assert_counts(counts, {**{k: batches for k in DTCWT}, "dtcwt_level1_analysis": 1},
+                  "dtcwtKey mark")
     mark_counts = {k: counts[k] for k in DTCWT}
     print(f"main path dtcwtKey {w}x{h}: {n} frames marked, launches {mark_counts}")
 
@@ -780,7 +856,7 @@ def run_dtcwt_path(device, cfg, workdir: Path):
         text = _cli_lines(cli, ["detect", str(out), "--key", str(key), *flags])
         return text, time.perf_counter() - t0
 
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         lines, seconds = detect(0)
     counts = kernels.launch_counts()
@@ -856,13 +932,13 @@ def run_dtcwt_scope_path(device, cfg, workdir: Path) -> dict:
         for i in range(0, n, b):
             writer.write_batch(smooth_frames(rng, min(b, n - i), h, w))
     flags = ["--codec", "dtcwtKey", "--batch-size", str(b), "--device", str(device)]
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         mark_lines = _cli_lines(cli, ["mark", str(source), str(out), *flags])
     mark_counts = kernels.launch_counts()
-    assert_counts(mark_counts, {k: batches for k in (
-        "dtcwt_level1_ll_y", "dtcwt_level1_analysis", "dtcwt_qshift_hp", "dtcwt_qshift_synthesis",
-        "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis_ll")}, "scope mark")
+    assert_counts(mark_counts, {"dtcwt_level1_analysis": 1, **{k: batches for k in (
+        "dtcwt_level1_ll_y", "dtcwt_qshift_hp", "dtcwt_qshift_synthesis",
+        "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis_ll")}}, "scope mark")
 
     def detect(key):
         torch.cuda.synchronize()
@@ -870,7 +946,7 @@ def run_dtcwt_scope_path(device, cfg, workdir: Path) -> dict:
         text = _cli_lines(cli, ["detect", str(out), "--key", str(key), *flags])
         return text, time.perf_counter() - t0
 
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         lines, seconds = detect(0)
     detect_counts = kernels.launch_counts()
@@ -918,7 +994,7 @@ def run_dtcwt_float_path(device, cfg) -> dict:
     src = smooth_frames(rng, b, h, w)
     frames = torch.as_tensor(src, device=device).to(torch.float32)
     wm = key_wm(codec, h, w, device)
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         marked = codec.mark_frames(frames, wm)
         planes = codec.extract_frames(marked.to(torch.float32))
@@ -976,13 +1052,14 @@ def run_dtcwt_depth_path(device, cfg, workdir: Path, source_1080p: Path) -> dict
     codec = DtcwtKey(nlevels=4)
     marker = FrameMarker(codec, CorrShuffler(0).generate_wm(None, codec.wm_capacity((h, w, 3))),
                          b, device=device)
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         marked = np.concatenate([marker.mark(frames[i:i + b]) for i in range(0, n, b)])
         planes = torch.cat([codec.extract_frames(torch.as_tensor(marked[i:i + b], device=device))
                             for i in range(0, n, b)])
     counts = kernels.launch_counts()
-    assert_counts(counts, {"dtcwt_level1_analysis": 3 * batches,
+    # level 1 of [Y; U] per mark and extract batch, the spectrum once per run
+    assert_counts(counts, {"dtcwt_level1_analysis": 2 * batches + 1,
                            "dtcwt_qshift_analysis": 6 * batches,
                            "dtcwt_qshift_synthesis": 3 * batches,
                            "dtcwt_legall_synthesis": batches,
@@ -999,7 +1076,7 @@ def run_dtcwt_depth_path(device, cfg, workdir: Path, source_1080p: Path) -> dict
     x = torch.as_tensor(np.array(_read_rawv(source_1080p)[:b, ..., 0]), device=device).to(
         torch.float32)
     t = Transform2d()
-    kernels.reset_launch_counts()
+    fresh_counts()
     with NoPlainOnDevice():
         rec = t.inverse(t.forward(x, nlevels=4))
     transform_counts = kernels.launch_counts()
@@ -1034,6 +1111,33 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int) -> float:
+    """Device-only ms per call: ``iters`` calls captured in one CUDA graph
+    and replayed between two events, so no host work (Python, the
+    wrapper's checks, the launch) stands between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, flops: float):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     mem, ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
@@ -1041,7 +1145,7 @@ def bound(nbytes: float, flops: float):
 
 
 def time_kernels(device, cfg) -> dict:
-    """{name: (kernel ms, plain ms, library ms or None, bound ms, bound_by)}."""
+    """{name: ``timing_entry``} at the main paths' shapes."""
     from vfp_tpu_torch.kernels import fused_dct_qim as dq
     from vfp_tpu_torch.kernels import fused_embed as fe
     from vfp_tpu_torch.kernels import qim
@@ -1117,17 +1221,45 @@ def time_kernels(device, cfg) -> dict:
         k1 = _time_ms(kernel, cfg["iters"])
         k2 = _time_ms(kernel, cfg["iters"])
         p2 = _time_ms(plain, max(2, cfg["iters"] // 4))
-        lib = _time_ms(library[name], 2) if name in library else None
+        lib = library.get(name)
         nbytes, units = work[name]
-        bound_ms, bound_by = bound(nbytes, units * FLOPS_PER_UNIT[name])
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, bound_ms, bound_by)
-        print(f"timing {name} @ {tuple(shapes[name])}: kernel {times[name][0]:.4f} ms/batch "
-              f"({b / times[name][0] * 1e3:.1f} frames/s), plain {times[name][1]:.4f} ms/batch "
-              f"({b / times[name][1] * 1e3:.1f} frames/s), library "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes / 1e6:.1f} MB, {units * FLOPS_PER_UNIT[name] / 1e9:.3f} "
-              f"GFLOP), kernel at {bound_ms / times[name][0]:.1%} of the bound")
+        times[name] = timing_entry((k1 + k2) / 2, (p1 + p2) / 2, lib, kernel, nbytes,
+                                   units * FLOPS_PER_UNIT[name], cfg["iters"],
+                                   capturable=name not in HOST_SYNCED_LIBRARY)
+        print(timing_line(name, shapes[name], times[name], b))
     return times
+
+
+# library yardsticks that wait on the host (the solver checks its status),
+# so no CUDA graph can capture them: their device-only time is not measured
+HOST_SYNCED_LIBRARY = {"qim_triplet_soa"}
+
+
+def timing_entry(ms, plain_ms, library, kernel, nbytes, flops, iters, capturable=True) -> dict:
+    """One kernel's numbers: host-inclusive ms (events around back-to-back
+    wrapper calls), device-only ms (a CUDA graph), the library yardstick's
+    two times, and the bound."""
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": _graph_ms(kernel, iters),
+            "library_ms": None if library is None else _time_ms(library, 2),
+            "library_device_ms": (_graph_ms(library, iters)
+                                  if library is not None and capturable else None),
+            "bound_ms": bound_ms, "bound_by": bound_by, "mb": nbytes / 1e6, "gflop": flops / 1e9}
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def timing_line(name, shape, t, b) -> str:
+    plain = "" if t["plain_ms"] is None else (
+        f", plain {t['plain_ms']:.4f} ms/batch ({b / t['plain_ms'] * 1e3:.1f} frames/s)")
+    return (f"timing {name} @ {tuple(shape)}: kernel {t['ms']:.4f} ms/batch "
+            f"({b / t['ms'] * 1e3:.1f} frames/s; device only {t['device_ms']:.4f} ms){plain}, "
+            f"library {_ms(t['library_ms'])} (device only {_ms(t['library_device_ms'])}), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['mb']:.1f} MB, "
+            f"{t['gflop']:.3f} GFLOP), kernel at {t['bound_ms'] / t['ms']:.1%} of the bound "
+            f"({t['bound_ms'] / t['device_ms']:.1%} device only)")
 
 
 def _tree_weights(filters_r, filters_c) -> torch.Tensor:
@@ -1397,6 +1529,79 @@ def full_dtcwt_timing_cases(device, cfg, rng):
     return cases, library, work, shapes
 
 
+def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
+    """The two kernels redesigned for Hopper at every shape the paths give
+    them, each input made as the path makes it: ``dtcwt_level1_analysis`` on
+    the watermark plane [1, 136, 240], on [Y; U] of 16 720p frames [32, 720,
+    1280] (path 3's level 1) and on a 1080p batch [16, 1080, 1920] (the round
+    trip); ``dtcwt_qshift_analysis`` on [32, 4, 540, 960] (level 2 of path
+    2's [Y; U], contiguous), on path 3's three levels [32, 4, 360, 640],
+    [32, 4, 180, 320] and [32, 4, 90, 160] and on the round trip's [16, 4,
+    540, 960], each ``planes[:, :4]`` of the level before, a batch-strided
+    view read in place.  At each shape: the kernel against its plain version
+    (equal), its host-inclusive and device-only times, the library call's
+    (a stride-2 ``F.conv2d`` over the input padded circularly beforehand, as
+    in ``dtcwt_timing_cases``), the bound, and with ``occupancy`` the launch
+    geometry beside ptxas's report.  Only the wrappers' public functions are
+    called, so ``--package-root`` can point this at another checkout's
+    package.  Returns ({name: [entry per shape]}, {name: max abs error})."""
+    from vfp_tpu_torch.kernels import _build, dtcwt_level1 as dl
+    from vfp_tpu_torch.ops import dtcwt_coeffs as C
+    from vfp_tpu_torch.ops.dtcwt import _qshift
+    from vfp_tpu_torch.wm import DtcwtKey
+
+    F = torch.nn.functional
+    b, h, w = cfg["b"], cfg["h"], cfg["w"]
+    codec = DtcwtKey()
+    wm = key_wm(codec, h, w, device).reshape(1, *codec.wm_capacity((h, w, 3)))
+    w16 = _tree_weights([C.LEGALL_H0, C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H1],
+                        [C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H0, C.LEGALL_H1]).to(device)
+    wq16 = _qshift_weights([(_qshift(rt)[band >> 1], _qshift(ct)[band & 1])
+                            for rt in range(2) for ct in range(2) for band in range(4)]).to(device)
+    report = ptxas_report(_build.build_log) if occupancy else {}
+    gen = torch.Generator(device=device).manual_seed(29)
+    x720 = torch.rand((2 * b, cfg["depth_h"], cfg["depth_w"]), generator=gen, device=device) * 255
+    x1080 = torch.rand((b, h, w), generator=gen, device=device) * 255
+    l1_720 = dl.dtcwt_level1_analysis(x720)
+    l2_720 = dl.dtcwt_qshift_analysis(l1_720[:, :4])
+    l3_720 = dl.dtcwt_qshift_analysis(l2_720[:, :4])
+    l1_1080 = dl.dtcwt_level1_analysis(x1080)
+    ll_1080 = dl.dtcwt_level1_analysis_ll(torch.cat([x1080, x1080.flip(-1)]))
+    cases = [("dtcwt_level1_analysis", wm), ("dtcwt_level1_analysis", x720),
+             ("dtcwt_level1_analysis", x1080), ("dtcwt_qshift_analysis", ll_1080),
+             ("dtcwt_qshift_analysis", l1_720[:, :4]), ("dtcwt_qshift_analysis", l2_720[:, :4]),
+             ("dtcwt_qshift_analysis", l3_720[:, :4]), ("dtcwt_qshift_analysis", l1_1080[:, :4])]
+    entries, errs = collections.defaultdict(list), collections.defaultdict(float)
+    for name, x in cases:
+        kernel, plain = getattr(dl, name), getattr(dl, name + "_reference")
+        got = kernel(x)
+        torch.cuda.synchronize()
+        want = plain(x)
+        err = float((got - want).abs().max())
+        assert torch.equal(got, want), f"{name} {tuple(x.shape)}: max err {err}"
+        errs[name] = max(errs[name], err)
+        if name == "dtcwt_level1_analysis":
+            xpad = F.pad(x[:, None], (4, 1, 4, 1), mode="circular")
+            library = lambda xpad=xpad: F.conv2d(xpad, w16, stride=2)  # noqa: E731
+        else:
+            xpad = F.pad(x, (13, 0, 13, 0), mode="circular")
+            library = lambda xpad=xpad: F.conv2d(xpad, wq16, stride=2, groups=4)  # noqa: E731
+        run = lambda kernel=kernel, x=x: kernel(x)  # noqa: E731
+        ms = (_time_ms(run, cfg["iters"]) + _time_ms(run, cfg["iters"])) / 2
+        # units: output positions of all 16 planes (level-1 or q-shift)
+        t = timing_entry(ms, None, library, run, 4 * x.numel() + 4 * got.numel(),
+                         got.numel() // 16 * FLOPS_PER_UNIT[name], cfg["iters"])
+        del xpad, library, got, want
+        print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):]
+              + ("" if x.is_contiguous() else " (batch-strided view)"))
+        if occupancy:
+            print(occupancy_line(name, x.shape, report))
+        entries[name].append({"shape": list(x.shape), "max_abs_err": err,
+                              **{k: t[k] for k in ("ms", "device_ms", "library_ms",
+                                                   "library_device_ms", "bound_ms", "bound_by")}})
+    return dict(entries), dict(errs)
+
+
 def time_batch_stages(device, cfg, reps: int = 5) -> None:
     """Host clock around one 16-frame batch of FrameMarker/FrameExtractor's
     work, split at its synchronising boundaries: upload (pinned staging +
@@ -1441,7 +1646,21 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
               f"device {dev:.3f} ms, download {down:.3f} ms (host clock, median of {reps})")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="only the build and redesign_sweep (the two redesigned kernels at "
+                         "every shape the paths give them)")
+    ap.add_argument("--package-root", type=Path, default=None,
+                    help="with --sweep: import vfp_tpu_torch from this checkout (e.g. the "
+                         "parent commit unpacked with git archive) instead of this one")
+    args = ap.parse_args(argv)
+    if args.package_root is not None:
+        if not args.sweep:
+            ap.error("--package-root needs --sweep")
+        sys.path.insert(0, str(args.package_root.resolve()))
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1465,6 +1684,11 @@ def main() -> int:
           f"in {_build.BUILD_ROOT}")
     for line in ptxas_summary(_build.build_log):
         print(f"build: ptxas {line}")
+    if args.sweep:
+        sweep, _ = redesign_sweep(device, cfg, occupancy=args.package_root is None)
+        print(f"sweep above on {card}, package {Path(_build.__file__).parents[1]}")
+        print(json.dumps({"sweep": sweep}))
+        return 0
 
     errs = check_kernels(device, cfg)
     workroot = ROOT / "build" / "chip_smoke"
@@ -1480,15 +1704,22 @@ def main() -> int:
         counts.update(run_dtcwt_float_path(device, cfg))
         counts.update(run_dtcwt_depth_path(device, cfg, Path(tmp), smooth_1080p))
     assert all(counts[k] > 0 for k in REPLACES), counts
+    # the spectrum once per distinct plane: 1080p and 1920x804 CLI mark 1 each,
+    # the float path 1, path 3 two per batch and 1, the round trip 1
+    assert counts["dtcwt_level1_analysis"] == 11, counts
     times = time_kernels(device, cfg)
+    sweep, sweep_errs = redesign_sweep(device, cfg)
+    for name, err in sweep_errs.items():
+        errs[name] = max(errs[name], err)
     time_batch_stages(device, cfg)
     print(f"timings above on {card}")
 
+    keys = ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"vfp_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": counts[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][3],
-         "bound_by": times[name][4], "library_ms": times[name][2]}
+         **{k: times[name][k] for k in keys}, **({"shapes": sweep[name]} if name in sweep else {})}
         for name, (src, replaces) in REPLACES.items()]}
     print(json.dumps(line))
     print(smi)

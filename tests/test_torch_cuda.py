@@ -25,7 +25,7 @@ from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt
 from vfp_tpu_torch.kernels import dtcwt_synthesis as tds
 from vfp_tpu_torch.kernels import fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
 from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeCorrShuffler, DeShuffler, DtcwtKey,
-                              DwtDctSvd, Shuffler, block_grid)
+                              DwtDctSvd, Shuffler, block_grid, clear_wm_cache)
 
 from torch_parity import PAYLOAD, cuda_device, natural_frames  # noqa: F401
 
@@ -215,6 +215,7 @@ def test_dtcwt_key_mark_on_the_card_takes_the_kernels(cuda_device, h, w):
     codec = DtcwtKey()  # auto: kernels for CUDA tensors
     wm = torch.as_tensor(CorrShuffler(0).generate_wm(None, codec.wm_capacity((h, w, 3))),
                          device=cuda_device)
+    clear_wm_cache()  # the spectrum is computed once per distinct plane
     kernels.reset_launch_counts()
     marked = codec.mark_frames(frames, wm)
     counts = kernels.launch_counts()
@@ -249,6 +250,7 @@ def test_dtcwt_key_off_the_fused_geometry_takes_the_kernels(cuda_device, h, w):
     codec = DtcwtKey()
     wm = torch.as_tensor(CorrShuffler(0).generate_wm(None, codec.wm_capacity((h, w, 3))),
                          device=cuda_device)
+    clear_wm_cache()
     kernels.reset_launch_counts()
     marked = codec.mark_frames(frames, wm)
     planes = codec.extract_frames(marked.to(frames.dtype))
@@ -293,3 +295,61 @@ def test_transform_at_four_levels_on_the_card(cuda_device):
     torch.testing.assert_close(rec, x, rtol=0, atol=2e-3)
     planes, sizes = t.forward_raw(x, nlevels=4)
     torch.testing.assert_close(t.inverse_raw(planes, sizes), x, rtol=0, atol=2e-3)
+
+
+# The kernels redesigned for Hopper (tiled level 1; the q-shift template that
+# all three q-shift modes share) at the shapes their edge paths take: planes
+# smaller than one tile, q-shift levels smaller than the 13-sample halo
+# (the circular index wraps more than once), output widths not a multiple of
+# 4 (no vector stores), B = 1 and B = 32, and both level-1 tile heights.
+LEVEL1_SHAPES = [(1, 2, 2), (1, 6, 10), (2, 18, 22), (1, 136, 238), (1, 136, 240),
+                 (32, 24, 40), (32, 72, 136), (4, 720, 1280)]
+QSHIFT_SHAPES = [(1, 4, 2, 4), (1, 4, 8, 8), (2, 4, 10, 10), (2, 4, 30, 118), (32, 4, 24, 40),
+                 (3, 4, 90, 160), (1, 4, 540, 960)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEVEL1_SHAPES)
+def test_level1_analysis_equals_plain_version_at_edge_shapes(cuda_device, shape):
+    x = torch.as_tensor(np.random.RandomState(sum(shape)).rand(*shape).astype(np.float32) * 255,
+                        device=cuda_device)
+    got = tdl.dtcwt_level1_analysis(x)
+    torch.cuda.synchronize()
+    want = tdl.dtcwt_level1_analysis_reference(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("shape", QSHIFT_SHAPES)
+@pytest.mark.parametrize("name", ["dtcwt_qshift_analysis", "dtcwt_qshift_ll", "dtcwt_qshift_hp"])
+def test_qshift_kernels_equal_plain_versions_at_edge_shapes(cuda_device, name, shape, strided):
+    """``strided``: the input is ``planes[:, :4]`` of a [B, 16, h, w] level,
+    read in place by its batch stride (for B = 1 that view is contiguous)."""
+    b, _, h, w = shape
+    rng = np.random.RandomState(b * h + w)
+    planes = torch.as_tensor(rng.randn(b, 16 if strided else 4, h, w).astype(np.float32) * 50,
+                             device=cuda_device)
+    x = planes[:, :4]
+    assert x.is_contiguous() == (not strided or b == 1)
+    got = getattr(tdl, name)(x)
+    torch.cuda.synchronize()
+    want = getattr(tdl, name + "_reference")(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_two_mark_calls_with_one_plane_compute_its_spectrum_once(cuda_device):
+    rng = np.random.RandomState(8)
+    codec = DtcwtKey()
+    wm = torch.as_tensor(CorrShuffler(0).generate_wm(None, codec.wm_capacity((72, 128, 3))),
+                         device=cuda_device)
+    clear_wm_cache()
+    kernels.reset_launch_counts()
+    first = codec.mark_frames(torch.as_tensor(natural_frames(rng, 2, 72, 128), device=cuda_device),
+                              wm)
+    second = codec.mark_frames(torch.as_tensor(natural_frames(rng, 2, 72, 128),
+                                               device=cuda_device), wm)
+    counts = kernels.launch_counts()
+    assert counts["dtcwt_level1_analysis"] == 1 and counts["dtcwt_level1_ll_y"] == 2, counts
+    assert first.shape == second.shape == (2, 72, 128, 3)

@@ -155,6 +155,7 @@ def _mark_and_extract_as_jax(rng, monkeypatch, h, w, *, nlevels=3, dtype=np.uint
     want = _np(jax_codec.mark_frames(jnp.asarray(f), jnp.asarray(wm)))
     codec = DtcwtKey(nlevels=nlevels, backend="kernel")
     calls = _spy_wrappers(monkeypatch)
+    tcodecs.clear_wm_cache()  # the spectrum is computed once per distinct plane
     kernels.reset_launch_counts()
     got = codec.mark_frames(torch.from_numpy(f), torch.from_numpy(wm)).numpy()
     assert got.dtype == np.uint8 and got.shape == f.shape
@@ -215,7 +216,7 @@ def test_other_depths_as_jax(rng, monkeypatch, nlevels):
     it is held, not detection; at 4 levels it takes only frames whose level
     2 rebins onto level 4 (H, W % 16 == 0 for even frames, not 1080 rows)."""
     calls = _mark_and_extract_as_jax(rng, monkeypatch, 128, 256, nlevels=nlevels)
-    # mark: the watermark plane and [Y; U]; detect: [Y; U]
+    # mark: the watermark plane (the cache was cleared) and [Y; U]; detect: [Y; U]
     assert calls["dtcwt_level1_analysis"] == 3, calls
     assert calls["dtcwt_qshift_analysis"] == 2 * (nlevels - 1), calls
     assert calls["dtcwt_qshift_synthesis"] == nlevels - 1, calls

@@ -7,10 +7,10 @@
 //   ll_color_kernel<2> <- dtcwt_level1_analysis_ll_color (:428) and its chained
 //                         twin dtcwt_level1_ll_color_chain (:888): u8 frames
 //                         -> the Y and U tree lowpasses [B, 2, 4, H/2, W/2];
-//   analysis_kernel<true>  <- dtcwt_level1_analysis (:276): f32 [B, H, W] -> the
-//                         16 planes [ll*4, lh*4, hl*4, hh*4], combos (rt, ct)
-//                         row-major;
-//   analysis_kernel<false> <- dtcwt_level1_analysis_ll (:347): f32 [B, H, W] ->
+//   analysis_tile_kernel<8>, <2> <- dtcwt_level1_analysis (:276): f32 [B, H, W]
+//                         -> the 16 planes [ll*4, lh*4, hl*4, hh*4], combos
+//                         (rt, ct) row-major;
+//   analysis_ll_kernel <- dtcwt_level1_analysis_ll (:347): f32 [B, H, W] ->
 //                         the 4 tree lowpasses [B, 4, H/2, W/2] (the codecs'
 //                         float-frame and odd-shape path), ll_y's row pass.
 //
@@ -19,21 +19,26 @@
 // then a column pass
 //   out[m][n] = sum_k g[k] * lo_rt[(2n + ct - k) mod W].
 // With the 5-tap h0 and both phases, every output position reads rows
-// 2m-4 .. 2m+1 and columns 2n-4 .. 2n+1: one thread loads that 6x6 patch
-// (for u8 input it reads each pixel's 3 bytes once and forms each channel as
-// ((M_FWD[ch,0] b + M_FWD[ch,1] g) + M_FWD[ch,2] r) + OFF_FWD[ch]) and writes
-// all 4 (8, or 16) planes of its position.  Modular
-// indexing covers the chained and unchained Pallas twins alike: there is no
-// pad copy, no selection matmul, no strip or chunk width, and no
-// u8->i32->f32 hop.  The plain versions in kernels/dtcwt_level1.py fold in
-// the same order; the build has --fmad=false and no fast-math.
+// 2m-4 .. 2m+1 and columns 2n-4 .. 2n+1.  The lowpass kernels give one
+// thread that 6x6 patch (for u8 input it reads each pixel's 3 bytes once and
+// forms each channel as ((M_FWD[ch,0] b + M_FWD[ch,1] g) + M_FWD[ch,2] r) +
+// OFF_FWD[ch]) and it writes the 4 (or 8) planes of its position.  The full
+// analysis is tiled instead (analysis_tile_kernel): each input is loaded
+// once per tile, and each row-pass value computed once and shared through
+// shared memory by the three positions that read it.  Modular indexing
+// covers the chained and unchained Pallas twins alike: there is no pad
+// copy, no selection matmul, no strip or chunk width, and no u8->i32->f32
+// hop.  The plain versions in kernels/dtcwt_level1.py fold in the same
+// order (each sum from k = 0 upward, rows before columns, rounded to float32
+// between the passes); the build has --fmad=false and no fast-math.
 //
 // Bound on the card: memory (3 B/pixel read for the u8 kernels and 4 B
 // (Y) or 8 B (Y and U) per pixel written; 4 B/pixel read and 16 B/pixel
 // written for the full analysis, 4 B/pixel for its lowpass-only twin)
 // against about 100 (190, 170, 72) FLOPs per output position.  A patch
-// overlaps its neighbours' 9-fold; the overlap is served by L1/L2, not HBM.
-// Neighbouring threads take neighbouring n, so the plane stores coalesce.
+// overlaps its neighbours' 9-fold, a tile's window its neighbours' by 4
+// rows and columns; the overlap is served by L1/L2, not HBM.  Neighbouring
+// threads take neighbouring n, so the plane stores coalesce.
 
 #include <cstdint>
 
@@ -113,12 +118,10 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// kFull: all 16 planes; else the 4 lowpasses [B, 4, H/2, W/2].
-template <bool kFull>
+// The 4 lowpasses [B, 4, H/2, W/2], one thread per output position.
 __global__ void __launch_bounds__(kThreads)
-    analysis_kernel(const float* __restrict__ x, float* __restrict__ out, int batch, int h, int w,
-                    L1Params k) {
-  constexpr int kPlanes = kFull ? 16 : 4;
+    analysis_ll_kernel(const float* __restrict__ x, float* __restrict__ out, int batch, int h,
+                       int w, L1Params k) {
   const int h1 = h / 2, w1 = w / 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)batch * h1 * w1) return;
@@ -134,23 +137,98 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 6; ++c) p[r][c] = row[wrap(2 * n - 4 + c, w)];
   }
   const long long plane = (long long)h1 * w1;
-  float* ob = out + b * kPlanes * plane + (long long)m * w1 + n;
+  float* ob = out + b * 4 * plane + (long long)m * w1 + n;
 #pragma unroll
   for (int rt = 0; rt < 2; ++rt) {
     float lo[6];
     row_pass<5>(p, k.h0, rt, lo);
 #pragma unroll
-    for (int ct = 0; ct < 2; ++ct) ob[(rt * 2 + ct) * plane] = col_pass<5>(lo, k.h0, ct);  // ll
-    if constexpr (kFull) {
-      float hi[6];
-      row_pass<3>(p, k.h1, rt, hi);
+    for (int ct = 0; ct < 2; ++ct) ob[(rt * 2 + ct) * plane] = col_pass<5>(lo, k.h0, ct);
+  }
+}
+
+// The geometry of analysis_tile_kernel<kTh>: a tile of kTh x 32 output
+// positions of one frame reads the (2 kTh + 4) x 68 input window at rows
+// 2 i0 - 4 ... and columns 2 j0 - 4 ...
+template <int kTh>
+struct Tile {
+  static constexpr int kTw = 32;             // output columns: one warp per output row
+  static constexpr int kWc = 2 * kTw + 4;    // window columns
+  static constexpr int kR = kTh < 4 ? kTh : 4;  // output rows per row-pass item
+  static constexpr int kItems = kWc * (kTh / kR);
+  static constexpr int kThreads =
+      32 * kTh > (kItems + 31) / 32 * 32 ? 32 * kTh : (kItems + 31) / 32 * 32;
+  // Row-pass values sit at [parity of the window column][its half]: the
+  // column pass then reads at unit stride across a warp, and kPar = 16 mod
+  // 32 puts the row pass's even and odd lanes on disjoint banks.
+  static constexpr int kPar = 48;
+};
+
+// All 16 planes [B, 16, H/2, W/2].  Row pass: each item is one window
+// column and kR output rows; it reads its 2 kR + 4 inputs once (a warp reads
+// 32 neighbouring columns: coalesced), wraps the row index by a compare
+// (no modulo), and writes lo and hi at both phases to shared memory.  Column
+// pass: one thread per output position reads its 6 row-pass columns per
+// phase from shared memory and writes the 16 planes, each store coalescing
+// along n.
+template <int kTh>
+__global__ void __launch_bounds__(Tile<kTh>::kThreads)
+    analysis_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, int w,
+                         L1Params k) {
+  using T = Tile<kTh>;
+  __shared__ float s_lo[2][kTh][2][T::kPar];  // [rt][output row][column parity][column / 2]
+  __shared__ float s_hi[2][kTh][2][T::kPar];
+  const int h1 = h / 2, w1 = w / 2;
+  const int j0 = blockIdx.x * T::kTw, i0 = blockIdx.y * kTh;
+  const long long b = blockIdx.z;
+  const float* xb = x + b * h * w;
+  for (int it = threadIdx.x; it < T::kItems; it += T::kThreads) {
+    const int c = it % T::kWc, g = it / T::kWc;
+    const int col = wrap(2 * j0 - 4 + c, w);
+    int row = wrap(2 * i0 - 4 + 2 * T::kR * g, h);
+    float v[2 * T::kR + 4];
 #pragma unroll
-      for (int ct = 0; ct < 2; ++ct) {
-        const int combo = rt * 2 + ct;
-        ob[(1 * 4 + combo) * plane] = col_pass<3>(lo, k.h1, ct);  // lh
-        ob[(2 * 4 + combo) * plane] = col_pass<5>(hi, k.h0, ct);  // hl
-        ob[(3 * 4 + combo) * plane] = col_pass<3>(hi, k.h1, ct);  // hh
+    for (int r = 0; r < 2 * T::kR + 4; ++r) {
+      v[r] = xb[(long long)row * w + col];
+      row = row + 1 == h ? 0 : row + 1;
+    }
+#pragma unroll
+    for (int i = 0; i < T::kR; ++i)
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt) {
+        // window row 2 (g kR + i) + rt - kk + 4 is input row 2 m + rt - kk
+        float lo = k.h0[0] * v[2 * i + rt + 4];
+#pragma unroll
+        for (int kk = 1; kk < 5; ++kk) lo = lo + k.h0[kk] * v[2 * i + rt - kk + 4];
+        float hi = k.h1[0] * v[2 * i + rt + 4];
+#pragma unroll
+        for (int kk = 1; kk < 3; ++kk) hi = hi + k.h1[kk] * v[2 * i + rt - kk + 4];
+        s_lo[rt][g * T::kR + i][c & 1][c >> 1] = lo;
+        s_hi[rt][g * T::kR + i][c & 1][c >> 1] = hi;
       }
+  }
+  __syncthreads();
+
+  const int ii = threadIdx.x / T::kTw, jj = threadIdx.x % T::kTw;
+  const int m = i0 + ii, n = j0 + jj;
+  if (ii >= kTh || m >= h1 || n >= w1) return;
+  const long long plane = (long long)h1 * w1;
+  float* ob = out + b * 16 * plane + (long long)m * w1 + n;
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt) {
+    float lo[6], hi[6];  // row-pass columns 2 n - 4 + d
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      lo[d] = s_lo[rt][ii][d & 1][jj + (d >> 1)];
+      hi[d] = s_hi[rt][ii][d & 1][jj + (d >> 1)];
+    }
+#pragma unroll
+    for (int ct = 0; ct < 2; ++ct) {
+      const int combo = rt * 2 + ct;
+      ob[(0 * 4 + combo) * plane] = col_pass<5>(lo, k.h0, ct);  // ll
+      ob[(1 * 4 + combo) * plane] = col_pass<3>(lo, k.h1, ct);  // lh
+      ob[(2 * 4 + combo) * plane] = col_pass<5>(hi, k.h0, ct);  // hl
+      ob[(3 * 4 + combo) * plane] = col_pass<3>(hi, k.h1, ct);  // hh
     }
   }
 }
@@ -198,22 +276,31 @@ extern "C" int vfp_dtcwt_level1_ll_color(const void* x, void* out, int batch, in
   return launch_ll<2>(x, out, batch, h, w, params, stream);
 }
 
-template <bool kFull>
-static int launch_analysis(const void* x, void* out, int batch, int h, int w, const void* params,
-                           void* stream) {
-  const long long total = (long long)batch * (h / 2) * (w / 2);
-  if (total == 0) return 0;
-  vfp::analysis_kernel<kFull><<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, batch, h, w, vfp::params(params));
+template <int kTh>
+static int launch_tile(const void* x, void* out, int batch, int h, int w, const void* params,
+                       void* stream) {
+  using T = vfp::Tile<kTh>;
+  const dim3 grid((w / 2 + T::kTw - 1) / T::kTw, (h / 2 + kTh - 1) / kTh, batch);
+  vfp::analysis_tile_kernel<kTh><<<grid, T::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, h, w, vfp::params(params));
   return (int)cudaGetLastError();
 }
 
+// 8-row tiles where they give at least two blocks per SM of the H100's 132,
+// else 2-row tiles (the 136x240 watermark plane: 136 blocks, not 36).
 extern "C" int vfp_dtcwt_level1_analysis(const void* x, void* out, int batch, int h, int w,
                                          const void* params, void* stream) {
-  return launch_analysis<true>(x, out, batch, h, w, params, stream);
+  if (batch == 0 || h == 0 || w == 0) return 0;
+  const long long tiles8 = (long long)batch * ((h / 2 + 7) / 8) * ((w / 2 + 31) / 32);
+  return tiles8 >= 2 * 132 ? launch_tile<8>(x, out, batch, h, w, params, stream)
+                           : launch_tile<2>(x, out, batch, h, w, params, stream);
 }
 
 extern "C" int vfp_dtcwt_level1_analysis_ll(const void* x, void* out, int batch, int h, int w,
                                             const void* params, void* stream) {
-  return launch_analysis<false>(x, out, batch, h, w, params, stream);
+  const long long total = (long long)batch * (h / 2) * (w / 2);
+  if (total == 0) return 0;
+  vfp::analysis_ll_kernel<<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, batch, h, w, vfp::params(params));
+  return (int)cudaGetLastError();
 }

@@ -24,29 +24,56 @@
 // chained and unchained Pallas twins: no pad copy, no selection matmul, no
 // strip or chunk width.
 //
-// One block makes a 16x16 output tile of one tree of one frame.  It loads the
-// (2 * 16 + 13)^2 input window once into shared memory (circular reads), runs
-// the row pass over the window's columns into shared memory, then the column
-// pass.  The filters sit in shared memory: a kernel parameter indexed by a
-// runtime tree would go to local memory.  The batch stride is an argument, so
-// the U half of the level-1 output [B, 2, 4, h, w] is read in place.
+// One block of 160 threads makes a 16 x 32 output tile of one tree of one
+// frame; its input window is (2 * 16 + 12) x (2 * 32 + 12).
+// - Row pass: two threads per window column (152 items), each loading 28
+//   inputs of its column straight into registers (a warp reads 32
+//   neighbouring columns: coalesced) and computing 8 output rows' lo (and
+//   hi) from them, with no shared-memory round trip.  Two items per column
+//   rather than one halve each thread's serial chain of taps, which measured
+//   faster on an H100 (PERF.md).  Only tiles whose window crosses the top or
+//   bottom edge wrap the row index, by a compare, never a modulo; the column
+//   index wraps once per thread.
+// - The row pass writes even and odd window columns to separate shared
+//   arrays (kPar apart, 16 mod 32: a warp's even and odd lanes hit disjoint
+//   banks), so the column pass reads at unit stride with 16-byte loads.
+// - Column pass: 128 threads each make 4 neighbouring outputs of one row for
+//   every plane from 20 row-pass values per array held in registers, and
+//   store each plane's 4 as one 16-byte store where w/2 % 4 == 0.
+// - The tree (rt, ct) is uniform per block: the tile body is a template on
+//   it, so every tap is a compile-time operand of the kernel's parameter
+//   block (a broadcast constant), not a shared or local array.
+// Loads of one block overlap the arithmetic of the other blocks on the SM;
+// there is no persistent loop and no asynchronous copy: the loads go
+// straight to registers, which a copy to shared memory would only delay.
 //
 // Bound on the card: memory (16 B read per input position; 4 B (ll), 12 B
 // (highpasses) or 16 B (all) written per output position, 1/4 as many)
-// against 14 FLOP x 2 per row-pass value and per column-pass value.  The
-// window overlaps its neighbours by 13 rows and columns, about 2x of the
-// input, served by L2.
+// against 14 FLOP x 2 per row-pass value and per column-pass value; built
+// without multiply-add contraction, the all-planes mode issues about 59
+// float32 instructions per input pixel, close to the bytes bound.  The
+// window overlaps its neighbours by 13 rows and columns (1.37 x 1.19 of the
+// input), served by L2.
 
 #include <cstdint>
 
 namespace vfp {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 16;                    // output positions per tile side
 constexpr int kTaps = 14;
-constexpr int kWin = 2 * kTile + kTaps - 1;  // input rows/cols of the window (45)
+constexpr int kTh = 16;                      // output rows per tile
+constexpr int kTw = 32;                      // output columns per tile
+constexpr int kWc = 2 * kTw + kTaps - 2;     // window columns (76)
+constexpr int kSplit = 2;                    // row-pass items per window column
+constexpr int kPer = kTh / kSplit;           // output rows per row-pass item (8)
+constexpr int kWin = 2 * kPer + kTaps - 2;   // input rows an item loads (28)
+constexpr int kItems = kSplit * kWc;         // row-pass items (152)
+constexpr int kCol = kTh * kTw / 4;          // column pass: 4 outputs a thread (128)
+constexpr int kThreads = 160;                // >= kItems and kCol, whole warps
+constexpr int kPar = 48;                     // floats per column parity: >= kWc / 2
+constexpr int kRowStride = 2 * kPar;
 constexpr int kLl = 0, kHp = 1, kAll = 2;    // the planes a level writes
+static_assert(kItems <= kThreads && kCol <= kThreads && kThreads % 32 == 0, "block size");
 
 // q-shift analysis filters from Python (kernels/dtcwt_masks.py:_params_host).
 struct QParams {
@@ -58,69 +85,140 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
-// sum_k f[k] * v[(x0 - k) * stride], k from 0 upward
-__device__ __forceinline__ float taps(const float* f, const float* v, int x0, int stride) {
-  float acc = f[0] * v[x0 * stride];
+// sum_k f[k] * r(d0 - k), k from 0 upward, where r(d) is row-pass column
+// 8 q + d: even d at e[d / 2], odd d at o[d / 2].
+__device__ __forceinline__ float col_taps(const float* f, const float* e, const float* o,
+                                          int d0) {
+  float acc = f[0] * ((d0 & 1) ? o[d0 >> 1] : e[d0 >> 1]);
 #pragma unroll
-  for (int k = 1; k < kTaps; ++k) acc = acc + f[k] * v[(x0 - k) * stride];
+  for (int k = 1; k < kTaps; ++k) {
+    const int d = d0 - k;
+    acc = acc + f[k] * ((d & 1) ? o[d >> 1] : e[d >> 1]);
+  }
   return acc;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4], int room, bool vec) {
+  if (vec && room >= 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (t < room) p[t] = v[t];
+  }
+}
+
+template <int kMode, int kRt, int kCt, bool kEdge>
+__device__ __forceinline__ void tile(const float* __restrict__ xp, float* __restrict__ out,
+                                     int h, int w, int i0, int j0, long long b, int ci,
+                                     const QParams& k, float (*rows)[kTh][kRowStride]) {
+  constexpr int kRows = kMode == kLl ? 1 : 2;  // row-pass outputs: lo (and hi)
+  // row pass: item (c, s) takes window column c, input column (2 j0 - 13 +
+  // c) mod w, and output rows r0 = s kPer ... r0 + kPer - 1, from input rows
+  // 2 (i0 + r0) - 13 ... (mod h on an edge tile)
+  if (threadIdx.x < kItems) {
+    const int c = threadIdx.x % kWc, r0 = threadIdx.x / kWc * kPer;
+    const float* col = xp + wrap(2 * j0 - (kTaps - 1) + c, w);
+    float v[kWin];
+    if constexpr (kEdge) {
+      int row = wrap(2 * (i0 + r0) - (kTaps - 1), h);
+#pragma unroll
+      for (int r = 0; r < kWin; ++r) {
+        v[r] = col[(long long)row * w];
+        row = row + 1 == h ? 0 : row + 1;
+      }
+    } else {
+      const float* p = col + (long long)(2 * (i0 + r0) - (kTaps - 1)) * w;
+#pragma unroll
+      for (int r = 0; r < kWin; ++r) v[r] = p[(long long)r * w];
+    }
+#pragma unroll
+    for (int fi = 0; fi < kRows; ++fi)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float* f = k.h[kRt][fi];
+        float acc = f[0] * v[2 * i + kTaps - 1];
+#pragma unroll
+        for (int kk = 1; kk < kTaps; ++kk) acc = acc + f[kk] * v[2 * i + kTaps - 1 - kk];
+        rows[fi][r0 + i][(c & 1) * kPar + (c >> 1)] = acc;
+      }
+  }
+  __syncthreads();
+
+  // column pass: thread (ii, q) makes outputs (i0 + ii, j0 + 4 q + t), t < 4,
+  // from row-pass columns 8 q .. 8 q + 19
+  const int ii = threadIdx.x >> 3, q = threadIdx.x & 7;
+  const int ho = h / 2, wo = w / 2;
+  const int i = i0 + ii, j = j0 + 4 * q;
+  if (threadIdx.x >= kCol || i >= ho || j >= wo) return;
+  float e[kRows][10], o[kRows][10];
+#pragma unroll
+  for (int fi = 0; fi < kRows; ++fi) {
+    const float* src = &rows[fi][ii][4 * q];
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+      float* dst = par ? o[fi] : e[fi];
+      const float4 a = *reinterpret_cast<const float4*>(src + par * kPar);
+      const float4 c4 = *reinterpret_cast<const float4*>(src + par * kPar + 4);
+      const float2 d2 = *reinterpret_cast<const float2*>(src + par * kPar + 8);
+      dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w;
+      dst[4] = c4.x, dst[5] = c4.y, dst[6] = c4.z, dst[7] = c4.w;
+      dst[8] = d2.x, dst[9] = d2.y;
+    }
+  }
+  const float* h0c = k.h[kCt][0];
+  const float* h1c = k.h[kCt][1];
+  const long long plane = (long long)ho * wo;
+  const long long o_ij = (long long)i * wo + j;
+  const int room = wo - j;
+  const bool vec = (wo & 3) == 0;
+  float v4[4];
+  if constexpr (kMode == kLl) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) v4[t] = col_taps(h0c, e[0], o[0], 2 * t + kTaps - 1);
+    store4(out + (b * 4 + ci) * plane + o_ij, v4, room, vec);  // ll
+  } else {
+    constexpr int kPlanes = kMode == kAll ? 16 : 12, kOff = kMode == kAll ? 4 : 0;
+    float* ob = out + b * kPlanes * plane + o_ij;
+    if constexpr (kMode == kAll) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v4[t] = col_taps(h0c, e[0], o[0], 2 * t + kTaps - 1);
+      store4(ob + ci * plane, v4, room, vec);  // ll
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) v4[t] = col_taps(h1c, e[0], o[0], 2 * t + kTaps - 1);
+    store4(ob + (kOff + 0 * 4 + ci) * plane, v4, room, vec);  // lh
+#pragma unroll
+    for (int t = 0; t < 4; ++t) v4[t] = col_taps(h0c, e[1], o[1], 2 * t + kTaps - 1);
+    store4(ob + (kOff + 1 * 4 + ci) * plane, v4, room, vec);  // hl
+#pragma unroll
+    for (int t = 0; t < 4; ++t) v4[t] = col_taps(h1c, e[1], o[1], 2 * t + kTaps - 1);
+    store4(ob + (kOff + 2 * 4 + ci) * plane, v4, room, vec);  // hh
+  }
 }
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     qshift_kernel(const float* __restrict__ x, float* __restrict__ out, int h, int w,
                   int bstride, QParams k) {
-  constexpr int kRows = kMode == kLl ? 1 : 2;  // row-pass outputs: lo (and hi)
-  __shared__ float win[kWin][kWin];
-  __shared__ float rows[kRows][kTile][kWin];
-  __shared__ float filt[2][2][kTaps];
-  const int ho = h / 2, wo = w / 2;
-  const int j0 = blockIdx.x * kTile, i0 = blockIdx.y * kTile;
-  const int ci = blockIdx.z % 4, rt = ci >> 1, ct = ci & 1;
+  __shared__ __align__(16) float rows[kMode == kLl ? 1 : 2][kTh][kRowStride];
+  const int j0 = blockIdx.x * kTw, i0 = blockIdx.y * kTh;
+  const int ci = blockIdx.z % 4;
   const long long b = blockIdx.z / 4;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int f = 0; f < 2; ++f)
-#pragma unroll
-        for (int i = 0; i < kTaps; ++i) filt[t][f][i] = k.h[t][f][i];
+  const float* xp = x + b * bstride + (long long)ci * h * w;
+  const bool edge = 2 * i0 - (kTaps - 1) < 0 || 2 * (i0 + kTh) - 1 > h;
+#define VFP_TILE(RT, CT, EDGE) tile<kMode, RT, CT, EDGE>(xp, out, h, w, i0, j0, b, ci, k, rows)
+  switch (ci * 2 + (edge ? 1 : 0)) {
+    case 0: VFP_TILE(0, 0, false); break;
+    case 1: VFP_TILE(0, 0, true); break;
+    case 2: VFP_TILE(0, 1, false); break;
+    case 3: VFP_TILE(0, 1, true); break;
+    case 4: VFP_TILE(1, 0, false); break;
+    case 5: VFP_TILE(1, 0, true); break;
+    case 6: VFP_TILE(1, 1, false); break;
+    default: VFP_TILE(1, 1, true); break;
   }
-  // window slot (r, c) holds input (2 i0 - 13 + r, 2 j0 - 13 + c), circularly
-  const float* xb = x + b * bstride + (long long)ci * h * w;
-  for (int it = threadIdx.x; it < kWin * kWin; it += kThreads) {
-    const int c = it % kWin, r = it / kWin;
-    win[r][c] = xb[(long long)wrap(2 * i0 - (kTaps - 1) + r, h) * w +
-                   wrap(2 * j0 - (kTaps - 1) + c, w)];
-  }
-  __syncthreads();
-
-  // row pass: rows[fi][i][c] = sum_k f[k] * win[2 i + 13 - k][c]
-  for (int it = threadIdx.x; it < kRows * kTile * kWin; it += kThreads) {
-    const int c = it % kWin, i = (it / kWin) % kTile, fi = it / (kWin * kTile);
-    rows[fi][i][c] = taps(filt[rt][fi], &win[0][c], 2 * i + kTaps - 1, kWin);
-  }
-  __syncthreads();
-
-  // column pass
-  for (int it = threadIdx.x; it < kTile * kTile; it += kThreads) {
-    const int jj = it % kTile, ii = it / kTile;
-    const int i = i0 + ii, j = j0 + jj;
-    if (i >= ho || j >= wo) continue;
-    const int c0 = 2 * jj + kTaps - 1;
-    const long long plane = (long long)ho * wo;
-    const long long o = (long long)i * wo + j;
-    if constexpr (kMode == kLl) {
-      out[(b * 4 + ci) * plane + o] = taps(filt[ct][0], rows[0][ii], c0, 1);  // ll
-    } else {
-      constexpr int kPlanes = kMode == kAll ? 16 : 12, kOff = kMode == kAll ? 4 : 0;
-      float* ob = out + b * kPlanes * plane + o;
-      if constexpr (kMode == kAll) ob[ci * plane] = taps(filt[ct][0], rows[0][ii], c0, 1);  // ll
-      ob[(kOff + 0 * 4 + ci) * plane] = taps(filt[ct][1], rows[0][ii], c0, 1);  // lh
-      ob[(kOff + 1 * 4 + ci) * plane] = taps(filt[ct][0], rows[kRows - 1][ii], c0, 1);  // hl
-      ob[(kOff + 2 * 4 + ci) * plane] = taps(filt[ct][1], rows[kRows - 1][ii], c0, 1);  // hh
-    }
-  }
+#undef VFP_TILE
 }
 
 QParams qparams(const void* host_params) {
@@ -137,7 +235,7 @@ int launch(const void* x, void* out, int batch, int h, int w, int bstride, const
            void* stream) {
   const int ho = h / 2, wo = w / 2;
   if (batch == 0 || ho == 0 || wo == 0) return 0;
-  const dim3 grid((wo + kTile - 1) / kTile, (ho + kTile - 1) / kTile, 4 * batch);
+  const dim3 grid((wo + kTw - 1) / kTw, (ho + kTh - 1) / kTh, 4 * batch);
   qshift_kernel<kMode><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, h, w, bstride, qparams(params));
   return (int)cudaGetLastError();
@@ -150,8 +248,8 @@ int launch(const void* x, void* out, int batch, int h, int w, int bstride, const
 // pointer to f32 [B, 4, h, w] (batch stride ``bstride`` floats, the rest
 // contiguous; h and w even), out to a contiguous f32 [B, 4, h/2, w/2]
 // (qshift_ll), [B, 12, h/2, w/2] (qshift_hp) or [B, 16, h/2, w/2]
-// (qshift_analysis); params is host memory (56 floats: h0a, h1a, h0b, h1b).
-// Returns the launch's cudaError_t.
+// (qshift_analysis) at a 16-byte-aligned address; params is host memory (56
+// floats: h0a, h1a, h0b, h1b).  Returns the launch's cudaError_t.
 
 extern "C" int vfp_dtcwt_qshift_ll(const void* x, void* out, int batch, int h, int w,
                                    int bstride, const void* params, void* stream) {

@@ -65,6 +65,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_fns: dict = {}  # launcher name -> its ctypes function, resolved once when the library loads
 build_seconds: float | None = None  # wall time of the nvcc runs, None if loaded from disk
 build_log = ""  # nvcc's and ptxas's reports of the last build in this process
 
@@ -133,25 +134,43 @@ def _compile(path: Path) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has none."""
     global _lib
+    if _lib is not None:  # loaded: no lock
+        return _lib
     with _lock:
         if _lib is None:
             path = BUILD_ROOT / source_hash() / LIB_NAME
             if not path.exists():
                 _compile(path)
             lib = ctypes.CDLL(str(path))
+            fns = {}
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                fns[name] = fn
             lib.vfp_error_string.argtypes = [ctypes.c_int]
             lib.vfp_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = lib  # before the launchers: a thread that finds one finds the library
+            _fns.update(fns)
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call launcher ``name`` on the current CUDA stream; raise on a launch error."""
-    lib = library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call launcher ``name`` on the current stream of CUDA ``device``;
+    raise on a launch error.  The per-call host path is short: each
+    launcher is resolved once, the loaded library takes no lock, and the
+    device context is entered only when ``device`` is not the current
+    one."""
+    fn = _fns.get(name)
+    if fn is None:
+        library()
+        fn = _fns[name]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}: {lib.vfp_error_string(err).decode()}")
+        raise RuntimeError(f"{name}: CUDA error {err}: {_lib.vfp_error_string(err).decode()}")

@@ -61,9 +61,8 @@ def dtcwt_delta_synthesis(dsubs: torch.Tensor) -> torch.Tensor:
     dsubs = dsubs.contiguous()
     b, _, h3, w3 = dsubs.shape
     out = torch.empty((b, 8 * h3, 8 * w3), dtype=torch.float32, device=dsubs.device)
-    with torch.cuda.device(dsubs.device):
-        _build.launch("vfp_dtcwt_delta_synthesis", dsubs.data_ptr(), out.data_ptr(), b, h3, w3,
-                      _params_host().ctypes.data)
+    _build.launch("vfp_dtcwt_delta_synthesis", dsubs.device, dsubs.data_ptr(), out.data_ptr(),
+                  b, h3, w3, _params_host().ctypes.data)
     dtcwt_delta_synthesis.launches += 1
     return out
 

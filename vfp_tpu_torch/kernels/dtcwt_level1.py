@@ -68,6 +68,17 @@ def _params_host() -> np.ndarray:
     ).astype(np.float32))
 
 
+@lru_cache(maxsize=None)
+def _params_ptr() -> int:
+    """Host address of ``_params_host()`` (the cached array keeps it valid)."""
+    return _params_host().ctypes.data
+
+
+@lru_cache(maxsize=None)
+def _qshift_params_ptr() -> int:
+    return _qshift_params_host().ctypes.data
+
+
 def _check(x: torch.Tensor, name: str, dtype, ndim: int) -> None:
     if x.dtype != dtype or x.dim() != ndim or (ndim == 4 and x.shape[-1] != 3):
         want = "uint8 [B, H, W, 3]" if ndim == 4 else "float32 [B, H, W]"
@@ -92,9 +103,8 @@ def dtcwt_level1_ll_y(frames: torch.Tensor) -> torch.Tensor:
     frames = frames.contiguous()
     b, h, w, _ = frames.shape
     out = torch.empty((b, 4, h // 2, w // 2), dtype=torch.float32, device=frames.device)
-    with torch.cuda.device(frames.device):
-        _build.launch("vfp_dtcwt_level1_ll_y", frames.data_ptr(), out.data_ptr(), b, h, w,
-                      _params_host().ctypes.data)
+    _build.launch("vfp_dtcwt_level1_ll_y", frames.device, frames.data_ptr(), out.data_ptr(), b,
+                  h, w, _params_ptr())
     dtcwt_level1_ll_y.launches += 1
     return out
 
@@ -120,9 +130,8 @@ def dtcwt_level1_ll_color(frames: torch.Tensor) -> torch.Tensor:
     frames = frames.contiguous()
     b, h, w, _ = frames.shape
     out = torch.empty((b, 2, 4, h // 2, w // 2), dtype=torch.float32, device=frames.device)
-    with torch.cuda.device(frames.device):
-        _build.launch("vfp_dtcwt_level1_ll_color", frames.data_ptr(), out.data_ptr(), b, h, w,
-                      _params_host().ctypes.data)
+    _build.launch("vfp_dtcwt_level1_ll_color", frames.device, frames.data_ptr(), out.data_ptr(),
+                  b, h, w, _params_ptr())
     dtcwt_level1_ll_color.launches += 1
     return out
 
@@ -140,8 +149,7 @@ def _launch_level1(fn, name: str, x: torch.Tensor, planes: int) -> torch.Tensor:
     x = x.contiguous()
     b, h, w = x.shape
     out = torch.empty((b, planes, h // 2, w // 2), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch(name, x.data_ptr(), out.data_ptr(), b, h, w, _params_host().ctypes.data)
+    _build.launch(name, x.device, x.data_ptr(), out.data_ptr(), b, h, w, _params_ptr())
     fn.launches += 1
     return out
 
@@ -190,9 +198,8 @@ def _launch_qshift(fn, name: str, ll4: torch.Tensor, planes: int) -> torch.Tenso
     ll4, bstride = batch_strided(ll4)
     b, _, h, w = ll4.shape
     out = torch.empty((b, planes, h // 2, w // 2), dtype=torch.float32, device=ll4.device)
-    with torch.cuda.device(ll4.device):
-        _build.launch(name, ll4.data_ptr(), out.data_ptr(), b, h, w, bstride,
-                      _qshift_params_host().ctypes.data)
+    _build.launch(name, ll4.device, ll4.data_ptr(), out.data_ptr(), b, h, w, bstride,
+                  _qshift_params_ptr())
     fn.launches += 1
     return out
 

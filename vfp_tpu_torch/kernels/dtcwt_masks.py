@@ -83,9 +83,8 @@ def dtcwt_qshift_masks(ll4: torch.Tensor, step: float = 5.0) -> torch.Tensor:
     ll4, bstride = batch_strided(ll4)
     b, _, h1, w1 = ll4.shape
     out = torch.empty((b, 6, h1 // 4, w1 // 4), dtype=torch.float32, device=ll4.device)
-    with torch.cuda.device(ll4.device):
-        _build.launch("vfp_dtcwt_qshift_masks", ll4.data_ptr(), out.data_ptr(), b, h1, w1,
-                      bstride, float(step), _params_host().ctypes.data)
+    _build.launch("vfp_dtcwt_qshift_masks", ll4.device, ll4.data_ptr(), out.data_ptr(), b, h1, w1,
+                  bstride, float(step), _params_host().ctypes.data)
     dtcwt_qshift_masks.launches += 1
     return out
 

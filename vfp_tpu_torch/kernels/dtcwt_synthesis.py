@@ -75,8 +75,7 @@ def _launch(fn, name: str, x: torch.Tensor, out_planes: int, params: np.ndarray)
     b, _, h, w = x.shape
     shape = (b, 2 * h, 2 * w) if out_planes == 1 else (b, out_planes, 2 * h, 2 * w)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch(name, x.data_ptr(), out.data_ptr(), b, h, w, params.ctypes.data)
+    _build.launch(name, x.device, x.data_ptr(), out.data_ptr(), b, h, w, params.ctypes.data)
     fn.launches += 1
     return out
 

@@ -185,10 +185,9 @@ def y_dc_mean(planes: torch.Tensor) -> torch.Tensor:
     means = torch.empty(b, dtype=torch.float32, device=planes.device)
     partial = torch.empty((b, MEAN_SLOTS), dtype=torch.float64, device=planes.device)
     xs = _strides_host(planes)
-    with torch.cuda.device(planes.device):
-        _build.launch("vfp_y_dc_mean", planes.data_ptr(), xs.ctypes.data, partial.data_ptr(),
-                      means.data_ptr(), b, h // 8 * 8, w // 8 * 8, MEAN_SLOTS,
-                      _params_host().ctypes.data)
+    _build.launch("vfp_y_dc_mean", planes.device, planes.data_ptr(), xs.ctypes.data,
+                  partial.data_ptr(), means.data_ptr(), b, h // 8 * 8, w // 8 * 8, MEAN_SLOTS,
+                  _params_host().ctypes.data)
     y_dc_mean.launches += 1
     return means
 
@@ -250,11 +249,10 @@ def fused_dct_qim_mark(planes: torch.Tensor, wm2d: torch.Tensor, alpha: float = 
     out = torch.empty_like(planes)
     # host arrays the launcher reads: held in locals for the call's duration
     xs, os_ = _strides_host(planes), _strides_host(out)
-    with torch.cuda.device(planes.device):
-        _build.launch("vfp_fused_dct_qim_mark", planes.data_ptr(), xs.ctypes.data,
-                      out.data_ptr(), os_.ctypes.data, wm2d.data_ptr(), means.data_ptr(), b, nbh,
-                      nbw, float(alpha), int(_packed(planes) and _packed(out)),
-                      _params_host().ctypes.data)
+    _build.launch("vfp_fused_dct_qim_mark", planes.device, planes.data_ptr(), xs.ctypes.data,
+                  out.data_ptr(), os_.ctypes.data, wm2d.data_ptr(), means.data_ptr(), b, nbh,
+                  nbw, float(alpha), int(_packed(planes) and _packed(out)),
+                  _params_host().ctypes.data)
     fused_dct_qim_mark.launches += 1
     return out
 
@@ -285,10 +283,9 @@ def fused_dct_qim_extract(planes: torch.Tensor, alpha: float = 20.0,
         return fused_dct_qim_extract_reference(planes, alpha, means)
     bits = torch.empty((b, nbh, nbw), dtype=torch.float32, device=planes.device)
     xs = _strides_host(planes)
-    with torch.cuda.device(planes.device):
-        _build.launch("vfp_fused_dct_qim_extract", planes.data_ptr(), xs.ctypes.data,
-                      bits.data_ptr(), means.data_ptr(), b, nbh, nbw, float(alpha),
-                      int(_packed(planes)), _params_host().ctypes.data)
+    _build.launch("vfp_fused_dct_qim_extract", planes.device, planes.data_ptr(), xs.ctypes.data,
+                  bits.data_ptr(), means.data_ptr(), b, nbh, nbw, float(alpha),
+                  int(_packed(planes)), _params_host().ctypes.data)
     fused_dct_qim_extract.launches += 1
     return bits
 

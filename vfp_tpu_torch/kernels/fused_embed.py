@@ -112,10 +112,9 @@ def fused_mark_planar(planes: torch.Tensor, wm2d: torch.Tensor, scale: float = 1
     out = torch.empty_like(planes)
     # host arrays the launcher reads: held in locals for the call's duration
     xs, os_, color = _strides_host(planes), _strides_host(out), _color_host(chan)
-    with torch.cuda.device(planes.device):
-        _build.launch("vfp_fused_mark_planar", planes.data_ptr(), xs.ctypes.data,
-                      out.data_ptr(), os_.ctypes.data, wm2d.data_ptr(), b, h, w, nbh, nbw,
-                      float(scale), color.ctypes.data, _V0_HOST.ctypes.data)
+    _build.launch("vfp_fused_mark_planar", planes.device, planes.data_ptr(), xs.ctypes.data,
+                  out.data_ptr(), os_.ctypes.data, wm2d.data_ptr(), b, h, w, nbh, nbw,
+                  float(scale), color.ctypes.data, _V0_HOST.ctypes.data)
     fused_mark_planar.launches += 1
     return out
 
@@ -142,10 +141,9 @@ def fused_extract_planar(planes: torch.Tensor, scale: float = 15.0, chan: int = 
         return fused_extract_planar_reference(planes, scale, chan)
     bits = torch.empty((b, nbh, nbw), dtype=torch.float32, device=planes.device)
     xs, color = _strides_host(planes), _color_host(chan)
-    with torch.cuda.device(planes.device):
-        _build.launch("vfp_fused_extract_planar", planes.data_ptr(), xs.ctypes.data,
-                      bits.data_ptr(), b, nbh, nbw, float(scale), color.ctypes.data,
-                      _V0_HOST.ctypes.data)
+    _build.launch("vfp_fused_extract_planar", planes.device, planes.data_ptr(), xs.ctypes.data,
+                  bits.data_ptr(), b, nbh, nbw, float(scale), color.ctypes.data,
+                  _V0_HOST.ctypes.data)
     fused_extract_planar.launches += 1
     return bits
 

@@ -126,9 +126,8 @@ def qim_triplet_soa(m: torch.Tensor):
         return qim_triplet_soa_reference(m)
     b, _, n = m.shape
     out = torch.empty((b, 9, n), dtype=torch.float32, device=m.device)
-    with torch.cuda.device(m.device):
-        _build.launch("vfp_qim_triplet_soa", m.data_ptr(), out.data_ptr(), b, n,
-                      _V0_HOST.ctypes.data)
+    _build.launch("vfp_qim_triplet_soa", m.device, m.data_ptr(), out.data_ptr(), b, n,
+                  _V0_HOST.ctypes.data)
     qim_triplet_soa.launches += 1
     return out[:, 0], out[:, 1:5], out[:, 5:9]
 
@@ -150,9 +149,8 @@ def qim_decode_soa(m: torch.Tensor, scale: float) -> torch.Tensor:
         return qim_decode_soa_reference(m, scale)
     b, _, n = m.shape
     out = torch.empty((b, n), dtype=torch.float32, device=m.device)
-    with torch.cuda.device(m.device):
-        _build.launch("vfp_qim_decode_soa", m.data_ptr(), out.data_ptr(), b, n, float(scale),
-                      _V0_HOST.ctypes.data)
+    _build.launch("vfp_qim_decode_soa", m.device, m.data_ptr(), out.data_ptr(), b, n, float(scale),
+                  _V0_HOST.ctypes.data)
     qim_decode_soa.launches += 1
     return out
 
@@ -181,9 +179,8 @@ def qim_embed_soa(m: torch.Tensor, wm: torch.Tensor, scale: float) -> torch.Tens
         raise ValueError("qim_embed_soa: bits must be contiguous float32 on the blocks' device")
     b, _, n = m.shape
     out = torch.empty_like(m)
-    with torch.cuda.device(m.device):
-        _build.launch("vfp_qim_embed_soa", m.data_ptr(), wm.data_ptr(), out.data_ptr(), b, n,
-                      float(scale), _V0_HOST.ctypes.data)
+    _build.launch("vfp_qim_embed_soa", m.device, m.data_ptr(), wm.data_ptr(), out.data_ptr(), b, n,
+                  float(scale), _V0_HOST.ctypes.data)
     qim_embed_soa.launches += 1
     return out
 

@@ -54,6 +54,26 @@ from ..ops.filters import filter2d_mean2x2, rebin_mean
 
 BACKENDS = ("auto", "kernel", "torch")
 
+# The watermark plane's level-1 spectrum, computed once per distinct plane
+# (``_DtcwtBase.wm_hp_device``): an identity cache in front, keyed by the
+# tensor object, its version counter and its device, and a content cache
+# behind it, keyed by the plane's bytes.  At most 8 entries each.
+_WM_CACHE_SIZE = 8
+_WM_ID_CACHE: dict = {}
+_WM_HP_CACHE: dict = {}
+
+
+def clear_wm_cache() -> None:
+    """Forget every cached watermark spectrum (both caches)."""
+    _WM_ID_CACHE.clear()
+    _WM_HP_CACHE.clear()
+
+
+def _cache_put(cache: dict, key, value) -> None:
+    if len(cache) >= _WM_CACHE_SIZE:
+        cache.clear()
+    cache[key] = value
+
 
 def infer_wm_shape(img_shape):
     """Watermark plane dims for a frame: the level-3 grid, rounded up to even."""
@@ -132,6 +152,33 @@ class _DtcwtBase:
         [h/2, w/2, 6]."""
         return Transform2d(self.backend).forward(wm.to(torch.float32), nlevels=1).highpasses[0]
 
+    def wm_hp_device(self, hw, wm: torch.Tensor) -> torch.Tensor:
+        """``wm_highpass`` of the plane for frames of size ``hw``, cached: the
+        watermark is fixed across a run, so its spectrum is computed once per
+        distinct plane (the JAX codec's ``wm_hp_device``).  The identity key
+        carries ``wm._version``, so an in-place edit misses; an inference
+        tensor has no version counter and goes to the content cache, as does
+        an equal plane in another tensor (``MultiMarker`` passes a fresh view
+        per variant)."""
+        mode = self._kernel_mode(wm)
+        hw = (int(hw[0]), int(hw[1]))
+        idk = None
+        if not wm.is_inference():
+            idk = (mode, hw, id(wm), wm._version, wm.device)
+            hit = _WM_ID_CACHE.get(idk)
+            if hit is not None and hit[0] is wm:
+                return hit[1]
+        # the frame size fixes the plane's shape, so its bytes alone name it
+        plane = wm.detach().to("cpu", torch.float32).contiguous()
+        ck = (mode, hw, wm.device, plane.numpy().tobytes())
+        spectrum = _WM_HP_CACHE.get(ck)
+        if spectrum is None:
+            spectrum = self.wm_highpass(wm.reshape(self.wm_capacity((*hw, 3))))
+            _cache_put(_WM_HP_CACHE, ck, spectrum)
+        if idk is not None:
+            _cache_put(_WM_ID_CACHE, idk, (wm, spectrum))
+        return spectrum
+
     # -- masks and delta ---------------------------------------------------------------
     def _masks3_from_mags(self, mags: torch.Tensor, shape3):
         """[B, 6, h2, w2] subband magnitudes -> [B, 6, h3, w3] masks."""
@@ -191,7 +238,7 @@ class _DtcwtBase:
         flattened) -> marked uint8: round(clip(x + du * M_BWD[:, 1], 0, 255)),
         half to even."""
         h, w = frames.shape[1], frames.shape[2]
-        wm_hp = self.wm_highpass(wm.reshape(self.wm_capacity((h, w, 3))))
+        wm_hp = self.wm_hp_device((h, w), wm)
         bwd = torch.as_tensor(M_BWD[:, 1], device=frames.device)
         f32 = frames.to(torch.float32)
         if self._u8_kernel_path(frames):
