@@ -49,9 +49,10 @@ Phases, each printing its lines:
    with CUDA events after warm-up, on two clocks: host-inclusive (events
    around back-to-back wrapper calls) and device-only (the same calls
    captured in one CUDA graph and replayed), beside the bound the card's
-   HBM rate and float32 peak set for the same work; the sweep: the two
-   kernels redesigned for Hopper (level-1 and q-shift analysis) at every
-   shape the paths give them, each against its plain version, with its
+   HBM rate and float32 peak set for the same work; the sweep: the four
+   kernels redesigned for Hopper (level-1 and q-shift analysis, the LeGall
+   synthesis with its lowpass-only and highpass-only twins, and the masks)
+   at every shape the paths give them, each against its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
    split into upload, device and download on the host clock.
@@ -219,23 +220,48 @@ def ptxas_summary(log: str) -> list[str]:
             ] or ["report not available (library loaded from disk)"]
 
 
-# The launch geometry of the two kernels redesigned for Hopper, as their
-# launchers in csrc/ set it: f(input shape) -> (ptxas name, blocks, threads).
+# The launch geometry of the kernels redesigned for Hopper, as their
+# launchers in csrc/ set it: f(input shape) -> (ptxas name, blocks, threads,
+# dynamic shared bytes).
 def _level1_geometry(shape):
     b, h, w = shape
     tiles8 = b * -(-(h // 2) // 8) * -(-(w // 2) // 32)
     th = 8 if tiles8 >= 2 * 132 else 2
     return (f"dtcwt_level1.cu analysis_tile_kernel<{th}>", b * -(-(h // 2) // th) * -(-(w // 2) // 32),
-            256 if th == 8 else 96)
+            256 if th == 8 else 96, 0)
 
 
 def _qshift_geometry(shape):
     b, _, h, w = shape
     return ("dtcwt_qshift.cu qshift_kernel<2>", 4 * b * -(-(h // 2) // 16) * -(-(w // 2) // 32),
-            160)
+            160, 0)
 
 
-GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": _qshift_geometry}
+def _legall_geometry(mode, bands):
+    """legall_kernel<mode, 0> (LEGALL_ROLL is odd): a 32 x 64 output tile;
+    its 19 x 35 input window of 4 x ``bands`` planes and the lo (and hi)
+    rows in dynamic shared memory."""
+    def geometry(shape):
+        b, _, h, w = shape
+        smem = 4 * (4 * bands * 19 * 35 + (1 if bands == 1 else 2) * 19 * 64)
+        return (f"dtcwt_synthesis.cu legall_kernel<{mode}, 0>",
+                b * -(-(2 * h) // 32) * -(-(2 * w) // 64), 256, smem)
+    return geometry
+
+
+def _masks_geometry(shape):
+    """an 8 x 24 tile of mask outputs; the row-pass values of its 17 x 116
+    window (4 trees, lo and hi, 120 floats a row) in dynamic shared memory"""
+    b, _, h1, w1 = shape
+    return ("dtcwt_masks.cu masks_kernel", b * -(-(h1 // 4) // 8) * -(-(w1 // 4) // 24), 256,
+            4 * 2 * 17 * 120 * 4)
+
+
+GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": _qshift_geometry,
+            "dtcwt_legall_synthesis": _legall_geometry(0, 4),
+            "dtcwt_legall_synthesis_ll": _legall_geometry(1, 1),
+            "dtcwt_legall_synthesis_hp": _legall_geometry(2, 3),
+            "dtcwt_qshift_masks": _masks_geometry}
 
 
 def occupancy_line(name, shape, report) -> str:
@@ -243,16 +269,17 @@ def occupancy_line(name, shape, report) -> str:
     and the blocks one H100 SM can hold at once (2048 threads, 32 blocks,
     65,536 registers allocated per warp in units of 256, 233,472 bytes of
     shared memory with 1 KB reserved per block)."""
-    kernel, blocks, threads = GEOMETRY[name](tuple(shape))
+    kernel, blocks, threads, dynamic = GEOMETRY[name](tuple(shape))
     r = report.get(kernel)
     if r is None:
         return f"occupancy {name} @ {tuple(shape)}: {blocks} blocks x {threads} threads " \
                f"({kernel}: no ptxas report)"
     warps = -(-threads // 32)
     per_warp = -(-r["registers"] * 32 // 256) * 256
-    resident = min(32, 64 // warps, 65536 // per_warp // warps, 233472 // (r["smem"] + 1024))
+    smem = r["smem"] + dynamic
+    resident = min(32, 64 // warps, 65536 // per_warp // warps, 233472 // (smem + 1024))
     return (f"occupancy {name} @ {tuple(shape)}: {kernel}, {blocks} blocks x {threads} threads, "
-            f"{r['smem']} bytes shared, {r['registers']} registers, {r['spill']} bytes spilled, "
+            f"{smem} bytes shared, {r['registers']} registers, {r['spill']} bytes spilled, "
             f"{r['stack']} bytes stack; at most {resident} blocks ({resident * warps} warps) "
             f"resident per SM, {blocks / (132 * resident):.2f} waves on 132 SMs")
 
@@ -1530,22 +1557,38 @@ def full_dtcwt_timing_cases(device, cfg, rng):
 
 
 def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
-    """The two kernels redesigned for Hopper at every shape the paths give
-    them, each input made as the path makes it: ``dtcwt_level1_analysis`` on
-    the watermark plane [1, 136, 240], on [Y; U] of 16 720p frames [32, 720,
-    1280] (path 3's level 1) and on a 1080p batch [16, 1080, 1920] (the round
-    trip); ``dtcwt_qshift_analysis`` on [32, 4, 540, 960] (level 2 of path
-    2's [Y; U], contiguous), on path 3's three levels [32, 4, 360, 640],
-    [32, 4, 180, 320] and [32, 4, 90, 160] and on the round trip's [16, 4,
-    540, 960], each ``planes[:, :4]`` of the level before, a batch-strided
-    view read in place.  At each shape: the kernel against its plain version
-    (equal), its host-inclusive and device-only times, the library call's
-    (a stride-2 ``F.conv2d`` over the input padded circularly beforehand, as
-    in ``dtcwt_timing_cases``), the bound, and with ``occupancy`` the launch
-    geometry beside ptxas's report.  Only the wrappers' public functions are
-    called, so ``--package-root`` can point this at another checkout's
-    package.  Returns ({name: [entry per shape]}, {name: max abs error})."""
-    from vfp_tpu_torch.kernels import _build, dtcwt_level1 as dl
+    """The kernels redesigned for Hopper at every shape the paths give them,
+    each input made as the path makes it:
+
+    - ``dtcwt_level1_analysis`` on the watermark plane [1, 136, 240], on
+      [Y; U] of 16 720p frames [32, 720, 1280] (path 3's level 1) and on a
+      1080p batch [16, 1080, 1920] (the round trip);
+    - ``dtcwt_qshift_analysis`` on [32, 4, 540, 960] (level 2 of path 2's
+      [Y; U], contiguous), on path 3's three levels [32, 4, 360, 640],
+      [32, 4, 180, 320] and [32, 4, 90, 160] and on the round trip's
+      [16, 4, 540, 960], each ``planes[:, :4]`` of the level before, a
+      batch-strided view read in place;
+    - ``dtcwt_legall_synthesis`` on the round trip's [16, 16, 540, 960] and
+      on 16 720p frames' level-1 planes [16, 16, 360, 640] (path 3's U
+      inverse); ``dtcwt_legall_synthesis_ll`` on path 1's level-1 lowpasses
+      [16, 4, 402, 960]; ``dtcwt_legall_synthesis_hp`` on the 1080p detect
+      path's folded planes [16, 12, 68, 120];
+    - ``dtcwt_qshift_masks`` on the mark path's contiguous Y lowpasses
+      [16, 4, 540, 960] and on the detect path's ``ll[:, 0]`` of the
+      [16, 2, 4, 540, 960] level-1 output, read in place.
+
+    At each shape: the kernel against its plain version (equal), its
+    host-inclusive and device-only times, the library call's where one
+    computes the same function (a stride-2 ``F.conv2d`` for the analyses, a
+    stride-2 ``F.conv_transpose2d`` for the LeGall syntheses, over the input
+    padded circularly beforehand, as in ``dtcwt_timing_cases``; none for the
+    masks), the bound, and with ``occupancy`` the launch geometry beside
+    ptxas's report.  Only the wrappers' public functions (and the codec's,
+    to make the detect path's inputs) are called, so ``--package-root`` can
+    point this at another checkout's package.  Returns ({name: [entry per
+    shape]}, {name: max abs error})."""
+    from vfp_tpu_torch.kernels import _build, dtcwt_level1 as dl, dtcwt_masks as dm
+    from vfp_tpu_torch.kernels import dtcwt_synthesis as ds
     from vfp_tpu_torch.ops import dtcwt_coeffs as C
     from vfp_tpu_torch.ops.dtcwt import _qshift
     from vfp_tpu_torch.wm import DtcwtKey
@@ -1553,11 +1596,15 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     F = torch.nn.functional
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
     codec = DtcwtKey()
+    rng = np.random.RandomState(31)
     wm = key_wm(codec, h, w, device).reshape(1, *codec.wm_capacity((h, w, 3)))
     w16 = _tree_weights([C.LEGALL_H0, C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H1],
                         [C.LEGALL_H0, C.LEGALL_H1, C.LEGALL_H0, C.LEGALL_H1]).to(device)
     wq16 = _qshift_weights([(_qshift(rt)[band >> 1], _qshift(ct)[band & 1])
                             for rt in range(2) for ct in range(2) for band in range(4)]).to(device)
+    wsyn = {"dtcwt_legall_synthesis": _legall_weights(range(4)).to(device),
+            "dtcwt_legall_synthesis_ll": _legall_weights((0,)).to(device),
+            "dtcwt_legall_synthesis_hp": _legall_weights((1, 2, 3)).to(device)}
     report = ptxas_report(_build.build_log) if occupancy else {}
     gen = torch.Generator(device=device).manual_seed(29)
     x720 = torch.rand((2 * b, cfg["depth_h"], cfg["depth_w"]), generator=gen, device=device) * 255
@@ -1567,36 +1614,61 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     l3_720 = dl.dtcwt_qshift_analysis(l2_720[:, :4])
     l1_1080 = dl.dtcwt_level1_analysis(x1080)
     ll_1080 = dl.dtcwt_level1_analysis_ll(torch.cat([x1080, x1080.flip(-1)]))
+    # the DT-CWT key codec's 1080p inputs: the mark path's Y lowpasses, the
+    # detect path's level-1 output of the marked batch and its folded planes
+    frames = torch.as_tensor(smooth_frames(rng, b, h, w), device=device)
+    ll_y = dl.dtcwt_level1_ll_y(frames)
+    llc = dl.dtcwt_level1_ll_color(codec.mark_frames(frames, key_wm(codec, h, w, device)))
+    u_hp3 = dl.dtcwt_qshift_hp(dl.dtcwt_qshift_ll(llc[:, 1]))
+    folded = codec._decode_coeffs(u_hp3, dm.dtcwt_qshift_masks(llc[:, 0], codec.step),
+                                  lambda subs: subs)
+    _, _, dll1 = scope_delta_stages(device, cfg, rng)
+    del frames, u_hp3
     cases = [("dtcwt_level1_analysis", wm), ("dtcwt_level1_analysis", x720),
              ("dtcwt_level1_analysis", x1080), ("dtcwt_qshift_analysis", ll_1080),
              ("dtcwt_qshift_analysis", l1_720[:, :4]), ("dtcwt_qshift_analysis", l2_720[:, :4]),
-             ("dtcwt_qshift_analysis", l3_720[:, :4]), ("dtcwt_qshift_analysis", l1_1080[:, :4])]
+             ("dtcwt_qshift_analysis", l3_720[:, :4]), ("dtcwt_qshift_analysis", l1_1080[:, :4]),
+             ("dtcwt_legall_synthesis", l1_1080), ("dtcwt_legall_synthesis", l1_720[:b]),
+             ("dtcwt_legall_synthesis_ll", dll1), ("dtcwt_legall_synthesis_hp", folded),
+             ("dtcwt_qshift_masks", ll_y), ("dtcwt_qshift_masks", llc[:, 0])]
     entries, errs = collections.defaultdict(list), collections.defaultdict(float)
     for name, x in cases:
-        kernel, plain = getattr(dl, name), getattr(dl, name + "_reference")
-        got = kernel(x)
+        module = dl if hasattr(dl, name) else ds if hasattr(ds, name) else dm
+        args = (x, codec.step) if name == "dtcwt_qshift_masks" else (x,)
+        kernel, plain = getattr(module, name), getattr(module, name + "_reference")
+        got = kernel(*args)
         torch.cuda.synchronize()
-        want = plain(x)
+        want = plain(*args)
         err = float((got - want).abs().max())
         assert torch.equal(got, want), f"{name} {tuple(x.shape)}: max err {err}"
         errs[name] = max(errs[name], err)
         if name == "dtcwt_level1_analysis":
             xpad = F.pad(x[:, None], (4, 1, 4, 1), mode="circular")
             library = lambda xpad=xpad: F.conv2d(xpad, w16, stride=2)  # noqa: E731
-        else:
+        elif name == "dtcwt_qshift_analysis":
             xpad = F.pad(x, (13, 0, 13, 0), mode="circular")
             library = lambda xpad=xpad: F.conv2d(xpad, wq16, stride=2, groups=4)  # noqa: E731
-        run = lambda kernel=kernel, x=x: kernel(x)  # noqa: E731
+        elif name.startswith("dtcwt_legall_synthesis"):  # the roll as a window of the output
+            xpad = F.pad(x, (1, 2, 1, 2), mode="circular")
+            library = lambda xpad=xpad, wt=wsyn[name], hh=x.shape[-2], ww=x.shape[-1]: (  # noqa: E731
+                F.conv_transpose2d(xpad, wt, stride=2)[:, 0, 5:5 + 2 * hh, 5:5 + 2 * ww])
+        else:
+            xpad, library = None, None
+        run = lambda kernel=kernel, args=args: kernel(*args)  # noqa: E731
         ms = (_time_ms(run, cfg["iters"]) + _time_ms(run, cfg["iters"])) / 2
-        # units: output positions of all 16 planes (level-1 or q-shift)
+        # units: output positions of all 16 planes (level-1 or q-shift), output
+        # pixels (LeGall), mask positions of all 6 bands (masks)
+        units = got.numel() // {"dtcwt_qshift_masks": 6}.get(
+            name, 1 if name.startswith("dtcwt_legall") else 16)
         t = timing_entry(ms, None, library, run, 4 * x.numel() + 4 * got.numel(),
-                         got.numel() // 16 * FLOPS_PER_UNIT[name], cfg["iters"])
+                         units * FLOPS_PER_UNIT[name], cfg["iters"])
         del xpad, library, got, want
         print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):]
               + ("" if x.is_contiguous() else " (batch-strided view)"))
         if occupancy:
             print(occupancy_line(name, x.shape, report))
         entries[name].append({"shape": list(x.shape), "max_abs_err": err,
+                              "strided": not x.is_contiguous(),
                               **{k: t[k] for k in ("ms", "device_ms", "library_ms",
                                                    "library_device_ms", "bound_ms", "bound_by")}})
     return dict(entries), dict(errs)
@@ -1651,7 +1723,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="only the build and redesign_sweep (the two redesigned kernels at "
+                    help="only the build and redesign_sweep (the four redesigned kernels at "
                          "every shape the paths give them)")
     ap.add_argument("--package-root", type=Path, default=None,
                     help="with --sweep: import vfp_tpu_torch from this checkout (e.g. the "

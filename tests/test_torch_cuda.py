@@ -5,8 +5,9 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: the DT-CWT masks and the six full-transform DT-CWT kernels equal
-(max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and their plain
+Tolerances: the DT-CWT masks, the six full-transform DT-CWT kernels and, at
+the tile edges, the highpass-only LeGall synthesis equal (max_abs_err 0);
+other float outputs rtol/atol 2e-5 (the kernels and their plain
 versions share one op order, IEEE division and no FMA; the detect kernels at 480x856
 atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on the card against the
 CPU's kernel path atol 1e-4 (PyTorch's complex division may round otherwise);
@@ -335,6 +336,53 @@ def test_qshift_kernels_equal_plain_versions_at_edge_shapes(cuda_device, name, s
     got = getattr(tdl, name)(x)
     torch.cuda.synchronize()
     want = getattr(tdl, name + "_reference")(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+# The LeGall synthesis tile (32 x 64 outputs from a 19 x 35 input window;
+# the full, lowpass-only and highpass-only modes share its template) and the
+# masks tile (8 x 24 mask outputs from a 46 x 116 level-1 window) at their
+# edges: planes smaller than one tile and than the halo (the circular index
+# wraps more than once; the masks of a 4 x 4 plane are one output), odd h
+# and w (2w % 4 != 0: no vector store), grids that are not a multiple of the
+# tile, B = 1 and B = 32, and the masks' batch-strided input.
+LEGALL_SHAPES = [(1, 1, 1), (1, 1, 2), (2, 3, 5), (1, 17, 33), (2, 16, 32), (32, 20, 40),
+                 (3, 33, 65), (1, 360, 640)]
+LEGALL_PLANES = {"dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4,
+                 "dtcwt_legall_synthesis_hp": 12}
+MASKS_SHAPES = [(1, 4, 4), (2, 36, 100), (32, 68, 104), (1, 132, 196), (3, 540, 960)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEGALL_SHAPES)
+@pytest.mark.parametrize("name", list(LEGALL_PLANES))
+def test_legall_kernels_equal_plain_versions_at_edge_shapes(cuda_device, name, shape):
+    b, h, w = shape
+    rng = np.random.RandomState(b * h + w)
+    x = torch.as_tensor(rng.randn(b, LEGALL_PLANES[name], h, w).astype(np.float32) * 50,
+                        device=cuda_device)
+    got = getattr(tds, name)(x)
+    torch.cuda.synchronize()
+    want = getattr(tds, name + "_reference")(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("shape", MASKS_SHAPES)
+def test_masks_kernel_equals_plain_version_at_edge_shapes(cuda_device, shape, strided):
+    """``strided``: the input is ``ll[:, 0]`` of a [B, 2, 4, h1, w1] level-1
+    output, read in place by its batch stride (for B = 1 that view is
+    contiguous)."""
+    b, h1, w1 = shape
+    rng = np.random.RandomState(b * h1 + w1)
+    ll = torch.as_tensor(rng.rand(b, 2 if strided else 1, 4, h1, w1).astype(np.float32) * 200,
+                         device=cuda_device)
+    x = ll[:, 0]
+    assert x.is_contiguous() == (not strided or b == 1)
+    got = tdm.dtcwt_qshift_masks(x, 5.0)
+    torch.cuda.synchronize()
+    want = tdm.dtcwt_qshift_masks_reference(x, 5.0)
     assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
 
 

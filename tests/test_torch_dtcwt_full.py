@@ -1,7 +1,8 @@
 """The whole DT-CWT of vfp_tpu_torch against vfp_tpu, on the CPU: the plain
-versions of the six full-transform kernels, ``Transform2d`` at 1-4 levels,
-and the ``DtcwtKey`` codec off the fused geometry (H or W not a multiple of
-8, odd frames, float frames, other depths).
+versions of the six full-transform kernels and of the highpass-only LeGall
+synthesis, ``Transform2d`` at 1-4 levels, and the ``DtcwtKey`` codec off the
+fused geometry (H or W not a multiple of 8, odd frames, float frames, other
+depths).
 
 The same numpy inputs go through the JAX function and its port.  The JAX
 Pallas kernels run in interpret mode with ``fast=False``; the JAX codec is
@@ -9,8 +10,9 @@ built with ``fast_dots=False`` (its default bf16 passes move masks).  The
 port's wrappers take their plain versions here (CPU tensors), so the routing
 tests spy on which wrappers a path calls.  Stated tolerances:
 
-- each plain version against its Pallas kernel: atol 2e-5 on [0, 1) data
-  (float32 sums in another order);
+- each plain version against its Pallas kernel (or, for LeGall planes the
+  Pallas kernel does not take, smaller than 32 x 64, the JAX XLA chain):
+  atol 2e-5 on [0, 1) data (float32 sums in another order);
 - ``Transform2d("kernel")`` against ``Transform2d(backend="xla")``: atol 2e-5
   on [0, 1) data;
 - the codec against the JAX codec: >= 99.9% of marked pixels identical and
@@ -55,7 +57,7 @@ def _np(x):
     return np.asarray(x)
 
 
-# -- the six plain versions against the Pallas kernels ----------------------------------
+# -- the plain versions against the Pallas kernels ----------------------------------------
 
 PALLAS = {
     "dtcwt_level1_analysis_ll": (tl1, jl1.dtcwt_level1_analysis_ll),
@@ -64,7 +66,17 @@ PALLAS = {
     "dtcwt_qshift_synthesis_ll": (tsyn, jsyn.dtcwt_qshift_synthesis_ll),
     "dtcwt_legall_synthesis": (tsyn, jsyn.dtcwt_legall_synthesis),
     "dtcwt_legall_synthesis_ll": (tsyn, jsyn.dtcwt_legall_synthesis_ll),
+    "dtcwt_legall_synthesis_hp": (tsyn, jsyn.dtcwt_legall_synthesis_hp),
 }
+# the JAX XLA chain of each LeGall synthesis, for planes the Pallas kernel
+# does not take (synthesis_eligible: h >= 32 and w >= 64)
+XLA_LEGALL = {
+    "dtcwt_legall_synthesis": lambda x: jdt.Transform2d(backend="xla").inverse_raw([x]),
+    "dtcwt_legall_synthesis_ll": lambda x: jdt.Transform2d(backend="xla").synthesis_legall_ll(x),
+    "dtcwt_legall_synthesis_hp": lambda x: jdt.Transform2d(backend="xla").synthesis_legall_hp(x),
+}
+LEGALL_PLANES = {"dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4,
+                 "dtcwt_legall_synthesis_hp": 12}
 PALLAS_CASES = [
     ("dtcwt_level1_analysis_ll", (2, 64, 128)), ("dtcwt_level1_analysis_ll", (2, 136, 240)),
     ("dtcwt_qshift_analysis", (2, 4, 32, 64)), ("dtcwt_qshift_analysis", (2, 4, 34, 96)),
@@ -72,18 +84,28 @@ PALLAS_CASES = [
     ("dtcwt_qshift_synthesis_ll", (2, 4, 32, 64)), ("dtcwt_qshift_synthesis_ll", (2, 4, 68, 120)),
     ("dtcwt_legall_synthesis", (2, 16, 32, 64)), ("dtcwt_legall_synthesis", (2, 16, 68, 120)),
     ("dtcwt_legall_synthesis_ll", (2, 4, 32, 64)), ("dtcwt_legall_synthesis_ll", (2, 4, 68, 120)),
+] + [  # the LeGall tile's edges (32 x 64 outputs, a 19 x 35 input window): planes
+    # smaller than the window (1x1, 1x2, 3x5), odd h and w (2w % 4 != 0), B = 1
+    # and 32, one tile exactly, and a ragged last tile
+    (name, (b, LEGALL_PLANES[name], h, w)) for name in LEGALL_PLANES
+    for b, h, w in ((2, 1, 1), (1, 1, 2), (2, 3, 5), (1, 17, 33), (32, 16, 32), (1, 33, 65))
 ]
 
 
 @pytest.mark.parametrize("name,shape", PALLAS_CASES,
                          ids=[f"{n[6:]}-{'x'.join(map(str, s))}" for n, s in PALLAS_CASES])
 def test_plain_version_matches_pallas(rng, name, shape):
+    """Against the Pallas kernel in interpret mode where it takes the shape,
+    else against the JAX XLA chain."""
     module, pallas = PALLAS[name]
     x = rng.rand(*shape).astype(np.float32)
     kernels.reset_launch_counts()
     got = getattr(module, name)(torch.from_numpy(x)).numpy()
     assert not any(kernels.launch_counts().values())
-    want = _np(pallas(jnp.asarray(x), interpret=True, fast=False))
+    if name in XLA_LEGALL and not jsyn.synthesis_eligible(*shape[-2:]):
+        want = _np(XLA_LEGALL[name](jnp.asarray(x)))
+    else:
+        want = _np(pallas(jnp.asarray(x), interpret=True, fast=False))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-5)
 

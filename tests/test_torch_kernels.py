@@ -201,7 +201,8 @@ def test_build_flags_keep_ieee_float():
     assert {p.name for p in _build.sources()} == {"qim.cu", "fused_embed.cu", "fused_dct_qim.cu",
                                                   "dtcwt_level1.cu", "dtcwt_masks.cu",
                                                   "dtcwt_delta.cu", "dtcwt_qshift.cu",
-                                                  "dtcwt_synthesis.cu", "triplet.cuh"}
+                                                  "dtcwt_synthesis.cu", "triplet.cuh",
+                                                  "qshift_passes.cuh"}
 
 
 def test_build_compiles_each_source_in_its_own_nvcc(monkeypatch):

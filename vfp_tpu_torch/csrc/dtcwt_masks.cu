@@ -10,161 +10,216 @@
 // output: [B, 6, h3, w3] with h3 = h1 / 4, w3 = w1 / 4, bands [LH+, LH-, HL+,
 // HL-, HH+, HH-].
 //
-// One block makes an 8x8 tile of mask outputs in three phases over shared
-// memory, so no intermediate touches device memory:
-//   1. row pass: for each tree (rt, ct) the q-shift lowpass and highpass of
-//      tree rt along H, lo/hi[i][x] = sum_k f[k] * ll[(2i - k) mod h1][x], at
-//      the 17 level-2 rows the tile's mean filter reads (2 r0 - 1 ..
-//      2 r0 + 15, row -1 reflected to row 1) and the 46 level-1 columns that
-//      its column pass reads;
-//   2. column pass and magnitudes at the 17 x 17 level-2 positions:
-//      lh = sum_k h1c[k] lo[2j - k], hl = sum_k h0c[k] hi[..], hh = sum_k
-//      h1c[k] hi[..]; then |zp| = 0.5 sqrt((aa - bb)^2 + (ab + ba)^2), |zm| =
-//      0.5 sqrt((aa + bb)^2 + (ab - ba)^2) over the 4 trees of each band;
-//   3. per mask output and band: the mean filter at the 4 level-2 positions
-//      it rebins, 0.25 (((x[i-1,j-1] + x[i-1,j]) + x[i,j-1]) + x[i,j]), the
-//      rebin 0.25 (((m00 + m01) + m10) + m11), and ceilf(v / step).
+// One block of 256 threads makes a kTh3 x kTw3 (8 x 24) tile of mask outputs
+// of one frame, with nothing in between touching device memory.  Its window
+// is 17 x 49 level-2 positions (rows 2 r0 - 1 .. 2 r0 + 15, columns 2 c0 - 1
+// ..; the extra row and column feed the mean filter) and 46 x 110 level-1
+// inputs per tree, 1.65 times the tile's own 32 x 96.
+//   1. Row pass (qshift_passes.cuh, as dtcwt_qshift.cu's): thread (rt, x)
+//      loads window column x of tree (rt, 0), then of tree (rt, 1), straight
+//      into registers, 46 rows (a warp's lanes take neighbouring columns:
+//      coalesced), and makes the tree's 17 lo and 17 hi values from those
+//      registers: each input is loaded once per tile, never once for lo and
+//      again for hi.  The row tree rt is uniform per warp, so the taps are
+//      compile-time operands.  Even and odd columns go to separate shared
+//      arrays.  Only tiles whose window crosses the top or bottom edge wrap
+//      the row index, by a compare; the column index wraps once per thread.
+//   2. Column pass: thread (s, q) makes level-2 positions 4q .. 4q + 3 of
+//      window row s (221 threads, one round): lh = sum_k h1c[k] lo[2j - k]
+//      of the 4 trees, then hl = sum_k h0c[k] hi[..] and hh = sum_k h1c[k]
+//      hi[..], each tree's 10 even and 10 odd lo (hi) values read as 16-byte
+//      loads at unit stride and its column taps constants; then the 6
+//      magnitudes |zp| = 0.5 sqrt((aa - bb)^2 + (ab + ba)^2), |zm| = 0.5
+//      sqrt((aa + bb)^2 + (ab - ba)^2) in registers.  After a barrier they go
+//      to shared memory over the row-pass values, which are no longer read.
+//   3. Epilogue: per mask output and band, the mean filter at the 4 level-2
+//      positions it rebins, 0.25 (((x[i-1,j-1] + x[i-1,j]) + x[i,j-1]) +
+//      x[i,j]), the rebin 0.25 (((m00 + m01) + m10) + m11), and ceilf(v /
+//      step); stores are coalesced along w3.
 // The reflect-101 edge of cv2's filter is at the top row and left column of
-// the level-2 grid (row -1 == row 1), never the circular wrap: window row or
-// column -1 is loaded from index 1.  Every other index is circular.  ceil
-// turns a last-bit difference into a whole step, so the plain version in
+// the level-2 grid (row -1 == row 1), never the circular wrap: the window's
+// row (column) 0 of the first tile row (column) is computed circularly and
+// then not read; the epilogue reads window row (column) 2, level-2 row
+// (column) 1, in its place.  Every other index is circular.  ceil turns a
+// last-bit difference into a whole step, so the plain version in
 // kernels/dtcwt_masks.py folds in this order; the build has --fmad=false and
 // no fast-math, so division and sqrt are IEEE.
 //
 // Bound on the card: memory (16 B read per level-1 position, 24 B written
 // per mask output, a 16:1 reduction) against about 3.3 kFLOP per mask
-// output.  The row pass recomputes 1.4x of its columns at the tile edges.
+// output; built without multiply-add contraction its float32 instructions
+// take about as long as the bytes.  The row pass computes 1.28x and the column
+// pass 1.15x the values the tile's own outputs need; the window's input
+// overlap is served by L2.
 
 #include <cstdint>
+
+#include "qshift_passes.cuh"
 
 namespace vfp {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 8;                 // mask outputs per tile side
-constexpr int kWin = 2 * kTile + 1;      // level-2 rows/cols of the window (17)
-constexpr int kXWin = 4 * kTile + 14;    // level-1 columns the column pass reads (46)
-constexpr int kTaps = 14;
+using qshift::col_taps;
+using qshift::kTaps;
+using qshift::QParams;
 
-// q-shift analysis filters from Python (kernels/dtcwt_masks.py:_params_host).
-struct MaskParams {
-  float h[2][2][kTaps];  // [tree a/b][h0/h1][k]
-};
+constexpr int kTh3 = 8;                      // mask rows per tile
+constexpr int kTw3 = 24;                     // mask columns per tile
+constexpr int kWin = 2 * kTh3 + 1;           // level-2 rows of the window (17)
+constexpr int kWc2 = 2 * kTw3 + 1;           // level-2 columns of the window (49)
+constexpr int kQuads = (kWc2 + 3) / 4;       // column pass: 4 positions a thread (13)
+constexpr int kXWin = 8 * kQuads + 12;       // level-1 columns it reads (116 >= 4 kTw3 + 14)
+constexpr int kYWin = 2 * kWin + kTaps - 2;  // level-1 rows a row-pass thread loads (46)
+constexpr int kPar = 60;                     // floats per column parity: >= kXWin / 2, % 4 == 0
+constexpr int kRowStride = 2 * kPar;
+constexpr int kThreads = 256;
+constexpr int kPerRt = kThreads / 2;         // row-pass threads per row tree (whole warps)
+constexpr int kCol = kWin * kQuads;          // column-pass threads (221)
+constexpr int kMagStride = 4 * kQuads;       // magnitudes: [6][kWin][kMagStride]
+constexpr int kLohiFloats = 4 * 2 * kWin * kRowStride;
+constexpr int kSmemBytes = kLohiFloats * 4;  // 65,280: above 48 KB, so dynamic
+static_assert(kXWin <= kPerRt && kCol <= kThreads && 6 * kWin * kMagStride <= kLohiFloats,
+              "tile geometry");
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
+// lohi[ci][fi][s][column]: the row pass of tree ci (fi 0 lo, 1 hi) at window
+// row s, even window columns at [0, kPar), odd ones at [kPar, 2 kPar)
+__device__ __forceinline__ float* lohi_row(float* lohi, int ci, int fi, int s) {
+  return lohi + ((ci * 2 + fi) * kWin + s) * kRowStride;
 }
 
-// Level-2 index of window slot s of a tile starting at level-2 index 2 t0 - 1;
-// -1 reflects to 1.  Indices past the grid are left unwrapped: the level-1
-// reads wrap, and the grid is exactly half the level-1 grid.
-__device__ __forceinline__ int level2_index(int t0, int s) {
-  const int g = 2 * t0 - 1 + s;
-  return g < 0 ? 1 : g;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    masks_kernel(const float* __restrict__ ll4, float* __restrict__ out, int h1, int w1,
-                 int bstride, float step, MaskParams k) {
-  __shared__ float lohi[4][2][kWin][kXWin];
-  __shared__ float mags[6][kWin][kWin];
-  const int h3 = h1 / 4, w3 = w1 / 4;
-  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
-  const long long b = blockIdx.z;
-  const int xs = 4 * c0 - 15;  // level-1 column of lohi's column 0
-  // the filters in shared memory, copied with constant indices: indexing the
-  // kernel parameter block by a runtime tree would copy it to local memory
-  __shared__ float filt[2][2][kTaps];
-  if (threadIdx.x == 0) {
+template <int kRt, bool kEdge>
+__device__ __forceinline__ void row_pass(const float* __restrict__ xb, int h1, int w1, int r0,
+                                         int c0, int x, const QParams& k, float* lohi) {
+  const long long plane = (long long)h1 * w1;
+  const int col = qshift::wrap_near(4 * c0 - 15 + x, w1);
+  const int slot = (x & 1) * kPar + (x >> 1);
+  // one tree after the other: with their loads interleaved, the kernel
+  // spilled at its 80-register cap and ran slower
+#pragma unroll 1
+  for (int ct = 0; ct < 2; ++ct) {
+    const int ci = 2 * kRt + ct;
+    float v[kYWin];  // level-1 rows 4 r0 - 15 ...: window row s reads v[2s + 13 - k]
+    qshift::load_column<kYWin, kEdge>(xb + ci * plane + col, 4 * r0 - 15, h1, w1, v);
 #pragma unroll
-    for (int t = 0; t < 2; ++t)
+    for (int fi = 0; fi < 2; ++fi)
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
-#pragma unroll
-        for (int i = 0; i < kTaps; ++i) filt[t][f][i] = k.h[t][f][i];
+      for (int s = 0; s < kWin; ++s)
+        lohi_row(lohi, ci, fi, s)[slot] = qshift::row_tap(k.h[kRt][fi], v, 2 * s + kTaps - 1);
   }
-  __syncthreads();
+}
+
+// the highpasses of tree (., kCt) at 4 neighbouring level-2 positions of one
+// window row: lh from its lo values, or hl and hh from its hi values
+template <int kCt>
+__device__ __forceinline__ void lo_highpass(const float* lo, const QParams& k, float (&lh)[4]) {
+  float e[10], o[10];
+  qshift::load_parities<kPar>(lo, e, o);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) lh[t] = col_taps(k.h[kCt][1], e, o, 2 * t + kTaps - 1);
+}
+
+template <int kCt>
+__device__ __forceinline__ void hi_highpasses(const float* hi, const QParams& k, float (&hl)[4],
+                                              float (&hh)[4]) {
+  float e[10], o[10];
+  qshift::load_parities<kPar>(hi, e, o);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    hl[t] = col_taps(k.h[kCt][0], e, o, 2 * t + kTaps - 1);
+    hh[t] = col_taps(k.h[kCt][1], e, o, 2 * t + kTaps - 1);
+  }
+}
+
+__device__ __forceinline__ float magnitude(float d, float e) { return 0.5f * sqrtf(d * d + e * e); }
+
+__global__ void __launch_bounds__(kThreads, 3)
+    masks_kernel(const float* __restrict__ ll4, float* __restrict__ out, int h1, int w1,
+                 int bstride, float step, QParams k) {
+  extern __shared__ __align__(16) float smem[];
+  float* lohi = smem;
+  float* mags = smem;  // after the column pass, over lohi
+  const int h3 = h1 / 4, w3 = w1 / 4;
+  const int c0 = blockIdx.x * kTw3, r0 = blockIdx.y * kTh3;
+  const float* xb = ll4 + (long long)blockIdx.z * bstride;
 
   // 1. row pass
-  for (int it = threadIdx.x; it < 4 * 2 * kWin * kXWin; it += kThreads) {
-    const int xl = it % kXWin;
-    const int wr = (it / kXWin) % kWin;
-    const int fi = (it / (kXWin * kWin)) % 2;
-    const int ci = it / (kXWin * kWin * 2);
-    const float* f = filt[ci >> 1][fi];
-    const float* src = ll4 + b * bstride + (long long)ci * h1 * w1 + wrap(xs + xl, w1);
-    const int row0 = wrap(2 * level2_index(r0, wr), h1);
-    float acc = f[0] * src[(long long)row0 * w1];
-#pragma unroll
-    for (int kk = 1; kk < kTaps; ++kk) {
-      const int row = row0 - kk;
-      acc = acc + f[kk] * src[(long long)(row < 0 ? wrap(row, h1) : row) * w1];
-    }
-    lohi[ci][fi][wr][xl] = acc;
-  }
-  __syncthreads();
-
-  // 2. column pass and magnitudes
-  for (int it = threadIdx.x; it < kWin * kWin; it += kThreads) {
-    const int wc = it % kWin, wr = it / kWin;
-    const int xl = 2 * level2_index(c0, wc) - xs;  // lohi column of tap 0
-    float hp[3][4];
-#pragma unroll
-    for (int ci = 0; ci < 4; ++ci) {
-      const float* h0c = filt[ci & 1][0];
-      const float* h1c = filt[ci & 1][1];
-      const float* lo = lohi[ci][0][wr];
-      const float* hi = lohi[ci][1][wr];
-      float lh = h1c[0] * lo[xl], hl = h0c[0] * hi[xl], hh = h1c[0] * hi[xl];
-#pragma unroll
-      for (int kk = 1; kk < kTaps; ++kk) {
-        lh = lh + h1c[kk] * lo[xl - kk];
-        hl = hl + h0c[kk] * hi[xl - kk];
-        hh = hh + h1c[kk] * hi[xl - kk];
-      }
-      hp[0][ci] = lh;
-      hp[1][ci] = hl;
-      hp[2][ci] = hh;
-    }
-#pragma unroll
-    for (int band = 0; band < 3; ++band) {
-      const float aa = hp[band][0], ab = hp[band][1], ba = hp[band][2], bb = hp[band][3];
-      float d = aa - bb, e = ab + ba;
-      mags[2 * band][wr][wc] = 0.5f * sqrtf(d * d + e * e);
-      d = aa + bb;
-      e = ab - ba;
-      mags[2 * band + 1][wr][wc] = 0.5f * sqrtf(d * d + e * e);
+  const int x = threadIdx.x % kPerRt;
+  if (x < kXWin) {
+    const bool edge = 4 * r0 - 15 < 0 || 4 * r0 - 15 + kYWin > h1;
+    const bool rt = threadIdx.x >= kPerRt;
+    if (rt) {
+      if (edge) row_pass<1, true>(xb, h1, w1, r0, c0, x, k, lohi);
+      else row_pass<1, false>(xb, h1, w1, r0, c0, x, k, lohi);
+    } else {
+      if (edge) row_pass<0, true>(xb, h1, w1, r0, c0, x, k, lohi);
+      else row_pass<0, false>(xb, h1, w1, r0, c0, x, k, lohi);
     }
   }
   __syncthreads();
 
-  // 3. mean filter, rebin, quantize
-  for (int it = threadIdx.x; it < 6 * kTile * kTile; it += kThreads) {
-    const int tc = it % kTile, tr = (it / kTile) % kTile, s = it / (kTile * kTile);
+  // 2. column pass and magnitudes: thread (s, q), positions 4q .. 4q + 3 of
+  // window row s, from row-pass columns 8q .. 8q + 19
+  const int s = threadIdx.x / kQuads, q = threadIdx.x % kQuads;
+  float m[6][4];
+  if (threadIdx.x < kCol) {
+    // band by band, so that at most the 32 hl and hh values of the 4 trees
+    // and one tree's 20 row-pass values are live beside the magnitudes
+    const float* row = lohi_row(lohi, 0, 0, s) + 4 * q;  // tree ci, fi at + (2 ci + fi) kWin rows
+    constexpr int kTree = 2 * kWin * kRowStride, kHi = kWin * kRowStride;
+    float lh[4][4], hl[4][4], hh[4][4];  // [tree][position]
+    lo_highpass<0>(row, k, lh[0]);
+    lo_highpass<1>(row + kTree, k, lh[1]);
+    lo_highpass<0>(row + 2 * kTree, k, lh[2]);
+    lo_highpass<1>(row + 3 * kTree, k, lh[3]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {  // trees aa, ab, ba, bb
+      m[0][t] = magnitude(lh[0][t] - lh[3][t], lh[1][t] + lh[2][t]);
+      m[1][t] = magnitude(lh[0][t] + lh[3][t], lh[1][t] - lh[2][t]);
+    }
+    hi_highpasses<0>(row + kHi, k, hl[0], hh[0]);
+    hi_highpasses<1>(row + kTree + kHi, k, hl[1], hh[1]);
+    hi_highpasses<0>(row + 2 * kTree + kHi, k, hl[2], hh[2]);
+    hi_highpasses<1>(row + 3 * kTree + kHi, k, hl[3], hh[3]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      m[2][t] = magnitude(hl[0][t] - hl[3][t], hl[1][t] + hl[2][t]);
+      m[3][t] = magnitude(hl[0][t] + hl[3][t], hl[1][t] - hl[2][t]);
+      m[4][t] = magnitude(hh[0][t] - hh[3][t], hh[1][t] + hh[2][t]);
+      m[5][t] = magnitude(hh[0][t] + hh[3][t], hh[1][t] - hh[2][t]);
+    }
+  }
+  __syncthreads();  // every row-pass value read: the magnitudes may overwrite them
+  if (threadIdx.x < kCol) {
+#pragma unroll
+    for (int band = 0; band < 6; ++band)
+      *reinterpret_cast<float4*>(mags + (band * kWin + s) * kMagStride + 4 * q) =
+          make_float4(m[band][0], m[band][1], m[band][2], m[band][3]);
+  }
+  __syncthreads();
+
+  // 3. mean filter, rebin, quantize: mask output (r, c) rebins level-2
+  // positions (2r + di, 2c + dj), whose mean filter reads window rows 2 tr +
+  // di, 2 tr + di + 1 and columns 2 tc + dj, 2 tc + dj + 1; level-2 row
+  // (column) -1 reads row (column) 1, window slot 2
+  for (int it = threadIdx.x; it < 6 * kTh3 * kTw3; it += kThreads) {
+    const int tc = it % kTw3, tr = (it / kTw3) % kTh3, band = it / (kTw3 * kTh3);
     const int r = r0 + tr, c = c0 + tc;
     if (r >= h3 || c >= w3) continue;
-    float m[2][2];
+    const float* mb = mags + band * kWin * kMagStride;
+    const int rows[3] = {r == 0 ? 2 : 2 * tr, 2 * tr + 1, 2 * tr + 2};
+    const int cols[3] = {c == 0 ? 2 : 2 * tc, 2 * tc + 1, 2 * tc + 2};
+    float mm[2][2];
 #pragma unroll
     for (int di = 0; di < 2; ++di)
 #pragma unroll
       for (int dj = 0; dj < 2; ++dj) {
-        const int wi = 2 * tr + 1 + di, wj = 2 * tc + 1 + dj;  // window slot of (2r+di, 2c+dj)
-        m[di][dj] = 0.25f * (((mags[s][wi - 1][wj - 1] + mags[s][wi - 1][wj]) +
-                              mags[s][wi][wj - 1]) + mags[s][wi][wj]);
+        const float* up = mb + rows[di] * kMagStride;
+        const float* dn = mb + rows[di + 1] * kMagStride;
+        mm[di][dj] = 0.25f * (((up[cols[dj]] + up[cols[dj + 1]]) + dn[cols[dj]]) + dn[cols[dj + 1]]);
       }
-    const float v = (((m[0][0] + m[0][1]) + m[1][0]) + m[1][1]) * 0.25f;
-    out[((b * 6 + s) * h3 + r) * w3 + c] = ceilf(v / step);
+    const float v = (((mm[0][0] + mm[0][1]) + mm[1][0]) + mm[1][1]) * 0.25f;
+    out[(((long long)blockIdx.z * 6 + band) * h3 + r) * w3 + c] = ceilf(v / step);
   }
-}
-
-MaskParams params(const void* host_params) {
-  MaskParams k;
-  const float* p = static_cast<const float*>(host_params);
-  for (int t = 0; t < 2; ++t)
-    for (int f = 0; f < 2; ++f)
-      for (int i = 0; i < kTaps; ++i) k.h[t][f][i] = p[(t * 2 + f) * kTaps + i];
-  return k;
 }
 
 }  // namespace
@@ -179,8 +234,12 @@ extern "C" int vfp_dtcwt_qshift_masks(const void* ll4, void* out, int batch, int
                                       void* stream) {
   const int h3 = h1 / 4, w3 = w1 / 4;
   if (batch == 0 || h3 == 0 || w3 == 0) return 0;
-  const dim3 grid((w3 + vfp::kTile - 1) / vfp::kTile, (h3 + vfp::kTile - 1) / vfp::kTile, batch);
-  vfp::masks_kernel<<<grid, vfp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)ll4, (float*)out, h1, w1, bstride, step, vfp::params(params));
+  cudaError_t err = cudaFuncSetAttribute(vfp::masks_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         vfp::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((w3 + vfp::kTw3 - 1) / vfp::kTw3, (h3 + vfp::kTh3 - 1) / vfp::kTh3, batch);
+  vfp::masks_kernel<<<grid, vfp::kThreads, vfp::kSmemBytes, (cudaStream_t)stream>>>(
+      (const float*)ll4, (float*)out, h1, w1, bstride, step, vfp::qshift::qparams(params));
   return (int)cudaGetLastError();
 }

@@ -32,8 +32,10 @@
 //   hi) from them, with no shared-memory round trip.  Two items per column
 //   rather than one halve each thread's serial chain of taps, which measured
 //   faster on an H100 (PERF.md).  Only tiles whose window crosses the top or
-//   bottom edge wrap the row index, by a compare, never a modulo; the column
-//   index wraps once per thread.
+//   bottom edge wrap the row index, by a compare (a modulo only on a level
+//   smaller than the window); the column index wraps once per thread.  The
+//   column load, the row and column taps and the parity loads are
+//   qshift_passes.cuh's, which the masks kernel (dtcwt_masks.cu) shares.
 // - The row pass writes even and odd window columns to separate shared
 //   arrays (kPar apart, 16 mod 32: a warp's even and odd lanes hit disjoint
 //   banks), so the column pass reads at unit stride with 16-byte loads.
@@ -57,10 +59,16 @@
 
 #include <cstdint>
 
+#include "qshift_passes.cuh"
+
 namespace vfp {
 namespace {
 
-constexpr int kTaps = 14;
+using qshift::col_taps;
+using qshift::kTaps;
+using qshift::QParams;
+using qshift::wrap_near;
+
 constexpr int kTh = 16;                      // output rows per tile
 constexpr int kTw = 32;                      // output columns per tile
 constexpr int kWc = 2 * kTw + kTaps - 2;     // window columns (76)
@@ -74,29 +82,6 @@ constexpr int kPar = 48;                     // floats per column parity: >= kWc
 constexpr int kRowStride = 2 * kPar;
 constexpr int kLl = 0, kHp = 1, kAll = 2;    // the planes a level writes
 static_assert(kItems <= kThreads && kCol <= kThreads && kThreads % 32 == 0, "block size");
-
-// q-shift analysis filters from Python (kernels/dtcwt_masks.py:_params_host).
-struct QParams {
-  float h[2][2][kTaps];  // [tree a/b][h0/h1][k]
-};
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// sum_k f[k] * r(d0 - k), k from 0 upward, where r(d) is row-pass column
-// 8 q + d: even d at e[d / 2], odd d at o[d / 2].
-__device__ __forceinline__ float col_taps(const float* f, const float* e, const float* o,
-                                          int d0) {
-  float acc = f[0] * ((d0 & 1) ? o[d0 >> 1] : e[d0 >> 1]);
-#pragma unroll
-  for (int k = 1; k < kTaps; ++k) {
-    const int d = d0 - k;
-    acc = acc + f[k] * ((d & 1) ? o[d >> 1] : e[d >> 1]);
-  }
-  return acc;
-}
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4], int room, bool vec) {
   if (vec && room >= 4) {
@@ -118,30 +103,15 @@ __device__ __forceinline__ void tile(const float* __restrict__ xp, float* __rest
   // 2 (i0 + r0) - 13 ... (mod h on an edge tile)
   if (threadIdx.x < kItems) {
     const int c = threadIdx.x % kWc, r0 = threadIdx.x / kWc * kPer;
-    const float* col = xp + wrap(2 * j0 - (kTaps - 1) + c, w);
+    const float* col = xp + wrap_near(2 * j0 - (kTaps - 1) + c, w);
     float v[kWin];
-    if constexpr (kEdge) {
-      int row = wrap(2 * (i0 + r0) - (kTaps - 1), h);
-#pragma unroll
-      for (int r = 0; r < kWin; ++r) {
-        v[r] = col[(long long)row * w];
-        row = row + 1 == h ? 0 : row + 1;
-      }
-    } else {
-      const float* p = col + (long long)(2 * (i0 + r0) - (kTaps - 1)) * w;
-#pragma unroll
-      for (int r = 0; r < kWin; ++r) v[r] = p[(long long)r * w];
-    }
+    qshift::load_column<kWin, kEdge>(col, 2 * (i0 + r0) - (kTaps - 1), h, w, v);
 #pragma unroll
     for (int fi = 0; fi < kRows; ++fi)
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float* f = k.h[kRt][fi];
-        float acc = f[0] * v[2 * i + kTaps - 1];
-#pragma unroll
-        for (int kk = 1; kk < kTaps; ++kk) acc = acc + f[kk] * v[2 * i + kTaps - 1 - kk];
-        rows[fi][r0 + i][(c & 1) * kPar + (c >> 1)] = acc;
-      }
+      for (int i = 0; i < kPer; ++i)
+        rows[fi][r0 + i][(c & 1) * kPar + (c >> 1)] =
+            qshift::row_tap(k.h[kRt][fi], v, 2 * i + kTaps - 1);
   }
   __syncthreads();
 
@@ -153,19 +123,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ xp, float* __rest
   if (threadIdx.x >= kCol || i >= ho || j >= wo) return;
   float e[kRows][10], o[kRows][10];
 #pragma unroll
-  for (int fi = 0; fi < kRows; ++fi) {
-    const float* src = &rows[fi][ii][4 * q];
-#pragma unroll
-    for (int par = 0; par < 2; ++par) {
-      float* dst = par ? o[fi] : e[fi];
-      const float4 a = *reinterpret_cast<const float4*>(src + par * kPar);
-      const float4 c4 = *reinterpret_cast<const float4*>(src + par * kPar + 4);
-      const float2 d2 = *reinterpret_cast<const float2*>(src + par * kPar + 8);
-      dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w;
-      dst[4] = c4.x, dst[5] = c4.y, dst[6] = c4.z, dst[7] = c4.w;
-      dst[8] = d2.x, dst[9] = d2.y;
-    }
-  }
+  for (int fi = 0; fi < kRows; ++fi) qshift::load_parities<kPar>(&rows[fi][ii][4 * q], e[fi], o[fi]);
   const float* h0c = k.h[kCt][0];
   const float* h1c = k.h[kCt][1];
   const long long plane = (long long)ho * wo;
@@ -221,15 +179,6 @@ __global__ void __launch_bounds__(kThreads)
 #undef VFP_TILE
 }
 
-QParams qparams(const void* host_params) {
-  QParams k;
-  const float* p = static_cast<const float*>(host_params);
-  for (int t = 0; t < 2; ++t)
-    for (int f = 0; f < 2; ++f)
-      for (int i = 0; i < kTaps; ++i) k.h[t][f][i] = p[(t * 2 + f) * kTaps + i];
-  return k;
-}
-
 template <int kMode>
 int launch(const void* x, void* out, int batch, int h, int w, int bstride, const void* params,
            void* stream) {
@@ -237,7 +186,7 @@ int launch(const void* x, void* out, int batch, int h, int w, int bstride, const
   if (batch == 0 || ho == 0 || wo == 0) return 0;
   const dim3 grid((wo + kTw - 1) / kTw, (ho + kTh - 1) / kTh, 4 * batch);
   qshift_kernel<kMode><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, h, w, bstride, qparams(params));
+      (const float*)x, (float*)out, h, w, bstride, qshift::qparams(params));
   return (int)cudaGetLastError();
 }
 
