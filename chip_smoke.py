@@ -49,10 +49,12 @@ Phases, each printing its lines:
    with CUDA events after warm-up, on two clocks: host-inclusive (events
    around back-to-back wrapper calls) and device-only (the same calls
    captured in one CUDA graph and replayed), beside the bound the card's
-   HBM rate and float32 peak set for the same work; the sweep: the four
-   kernels redesigned for Hopper (level-1 and q-shift analysis, the LeGall
-   synthesis with its lowpass-only and highpass-only twins, and the masks)
-   at every shape the paths give them, each against its plain version, with its
+   HBM rate and float32 peak set for the same work; the sweep: the kernels
+   redesigned for Hopper (level-1 and q-shift analysis, the LeGall synthesis
+   with its lowpass-only and highpass-only twins, the masks, the q-shift
+   synthesis with its lowpass-only twin, and the delta synthesis, the last
+   timed against the chain of the three synthesis kernels it fuses) at
+   every shape the paths give them, each against its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
    split into upload, device and download on the host clock.
@@ -249,6 +251,27 @@ def _legall_geometry(mode, bands):
     return geometry
 
 
+def _qshift_synthesis_geometry(full):
+    """qshift_kernel<full, 1> (both q-shift rolls are odd): a 32 x 64 output
+    tile of one (frame, tree); its 23 x 39 input window of 4 planes or 1 (rows
+    of 40 floats) and lo (and hi) at 23 x 64 in dynamic shared memory."""
+    def geometry(shape):
+        b, _, h, w = shape
+        bands = 4 if full else 1
+        smem = 4 * (bands * 23 * 40 + (2 if full else 1) * 23 * 64)
+        return (f"dtcwt_synthesis.cu qshift_kernel<{int(full)}, 1>",
+                4 * b * -(-(2 * h) // 32) * -(-(2 * w) // 64), 256, smem)
+    return geometry
+
+
+def _delta_geometry(shape):
+    """delta_kernel<1> (the LeGall roll is odd): a 64 x 128 pixel tile; its
+    static shared memory (the 4 trees' 19 x 28 level-3 windows and two stage
+    buffers) is in ptxas's report."""
+    b, _, h3, w3 = shape
+    return ("dtcwt_delta.cu delta_kernel<1>", b * -(-(8 * h3) // 64) * -(-(8 * w3) // 128), 256, 0)
+
+
 def _masks_geometry(shape):
     """an 8 x 24 tile of mask outputs; the row-pass values of its 17 x 116
     window (4 trees, lo and hi, 120 floats a row) in dynamic shared memory"""
@@ -261,7 +284,10 @@ GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": 
             "dtcwt_legall_synthesis": _legall_geometry(0, 4),
             "dtcwt_legall_synthesis_ll": _legall_geometry(1, 1),
             "dtcwt_legall_synthesis_hp": _legall_geometry(2, 3),
-            "dtcwt_qshift_masks": _masks_geometry}
+            "dtcwt_qshift_masks": _masks_geometry,
+            "dtcwt_qshift_synthesis": _qshift_synthesis_geometry(True),
+            "dtcwt_qshift_synthesis_ll": _qshift_synthesis_geometry(False),
+            "dtcwt_delta_synthesis": _delta_geometry}
 
 
 def occupancy_line(name, shape, report) -> str:
@@ -484,7 +510,7 @@ def check_dtcwt_kernels(device, cfg, rng, record):
         torch.cuda.synchronize()
         want_du = dd.dtcwt_delta_synthesis_reference(dsubs)
         record("dtcwt_delta_synthesis", (du - want_du).abs().max())
-        assert torch.allclose(du, want_du, rtol=1e-5, atol=1e-4), "dtcwt_delta_synthesis"
+        assert torch.equal(du, want_du), "dtcwt_delta_synthesis"
         if flat:
             assert not masks[0].any() and not du[0].any(), "black frame: masks and delta not 0"
         print(f"kernels: DT-CWT level-1/masks/delta {b}x{h}x{w}{' flat' if flat else ''}: "
@@ -1575,22 +1601,34 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
       path's folded planes [16, 12, 68, 120];
     - ``dtcwt_qshift_masks`` on the mark path's contiguous Y lowpasses
       [16, 4, 540, 960] and on the detect path's ``ll[:, 0]`` of the
-      [16, 2, 4, 540, 960] level-1 output, read in place.
+      [16, 2, 4, 540, 960] level-1 output, read in place;
+    - ``dtcwt_qshift_synthesis`` on path 1's level-3 delta planes [16, 16,
+      101, 240], on the planes of path 3's U inverse, levels 4 to 2, [16, 16,
+      45, 80], [16, 16, 90, 160] and [16, 16, 180, 320], and on the 1080p
+      round trip's [16, 16, 68, 120], [16, 16, 135, 240] and [16, 16, 270,
+      480] (the forward's own planes at each level); ``_ll`` on path 1's
+      cropped level-2 lowpasses [16, 4, 201, 480];
+    - ``dtcwt_delta_synthesis`` on the 1080p mark glue's delta planes [16,
+      12, 135, 240].
 
     At each shape: the kernel against its plain version (equal), its
-    host-inclusive and device-only times, the library call's where one
-    computes the same function (a stride-2 ``F.conv2d`` for the analyses, a
-    stride-2 ``F.conv_transpose2d`` for the LeGall syntheses, over the input
-    padded circularly beforehand, as in ``dtcwt_timing_cases``; none for the
-    masks), the bound, and with ``occupancy`` the launch geometry beside
-    ptxas's report.  Only the wrappers' public functions (and the codec's,
+    host-inclusive and device-only times, the yardstick's where there is one
+    (a stride-2 ``F.conv2d`` for the analyses, a stride-2
+    ``F.conv_transpose2d`` for the syntheses, over the input padded
+    circularly beforehand, as in ``dtcwt_timing_cases`` and
+    ``full_dtcwt_timing_cases``; for the delta, which no one PyTorch call
+    computes, the chain of the three synthesis kernels it fuses,
+    ``dtcwt_qshift_synthesis`` -> ``_ll`` -> ``dtcwt_legall_synthesis_ll``,
+    on the same planes with the zero lowpasses concatenated beforehand; none
+    for the masks), the bound, and with ``occupancy`` the launch geometry
+    beside ptxas's report.  Only the wrappers' public functions (and the codec's,
     to make the detect path's inputs) are called, so ``--package-root`` can
     point this at another checkout's package.  Returns ({name: [entry per
     shape]}, {name: max abs error})."""
     from vfp_tpu_torch.kernels import _build, dtcwt_level1 as dl, dtcwt_masks as dm
-    from vfp_tpu_torch.kernels import dtcwt_synthesis as ds
+    from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_synthesis as ds
     from vfp_tpu_torch.ops import dtcwt_coeffs as C
-    from vfp_tpu_torch.ops.dtcwt import _qshift
+    from vfp_tpu_torch.ops.dtcwt import Transform2d, _qshift
     from vfp_tpu_torch.wm import DtcwtKey
 
     F = torch.nn.functional
@@ -1604,7 +1642,10 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
                             for rt in range(2) for ct in range(2) for band in range(4)]).to(device)
     wsyn = {"dtcwt_legall_synthesis": _legall_weights(range(4)).to(device),
             "dtcwt_legall_synthesis_ll": _legall_weights((0,)).to(device),
-            "dtcwt_legall_synthesis_hp": _legall_weights((1, 2, 3)).to(device)}
+            "dtcwt_legall_synthesis_hp": _legall_weights((1, 2, 3)).to(device),
+            "dtcwt_qshift_synthesis": _qshift_synthesis_weights(4).to(device),
+            "dtcwt_qshift_synthesis_ll": _qshift_synthesis_weights(1).to(device)}
+    tree_major = torch.arange(16, device=device).reshape(4, 4).t().reshape(-1)
     report = ptxas_report(_build.build_log) if occupancy else {}
     gen = torch.Generator(device=device).manual_seed(29)
     x720 = torch.rand((2 * b, cfg["depth_h"], cfg["depth_w"]), generator=gen, device=device) * 255
@@ -1622,7 +1663,14 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     u_hp3 = dl.dtcwt_qshift_hp(dl.dtcwt_qshift_ll(llc[:, 1]))
     folded = codec._decode_coeffs(u_hp3, dm.dtcwt_qshift_masks(llc[:, 0], codec.step),
                                   lambda subs: subs)
-    _, _, dll1 = scope_delta_stages(device, cfg, rng)
+    dsubs = codec._delta_subs(dm.dtcwt_qshift_masks(ll_y, codec.step),
+                              codec.wm_highpass(wm[0])).contiguous()
+    d3, dll2, dll1 = scope_delta_stages(device, cfg, rng)
+    # the q-shift levels 2-4 of path 3's U inverse (the U half of [Y; U]) and
+    # of the 1080p round trip, from the forward's raw planes
+    t4 = Transform2d("kernel")
+    u_levels = t4.forward_raw(x720[b:], 4)[0][1:]
+    rt_levels = t4.forward_raw(x1080, 4)[0][1:]
     del frames, u_hp3
     cases = [("dtcwt_level1_analysis", wm), ("dtcwt_level1_analysis", x720),
              ("dtcwt_level1_analysis", x1080), ("dtcwt_qshift_analysis", ll_1080),
@@ -1630,10 +1678,13 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
              ("dtcwt_qshift_analysis", l3_720[:, :4]), ("dtcwt_qshift_analysis", l1_1080[:, :4]),
              ("dtcwt_legall_synthesis", l1_1080), ("dtcwt_legall_synthesis", l1_720[:b]),
              ("dtcwt_legall_synthesis_ll", dll1), ("dtcwt_legall_synthesis_hp", folded),
-             ("dtcwt_qshift_masks", ll_y), ("dtcwt_qshift_masks", llc[:, 0])]
+             ("dtcwt_qshift_masks", ll_y), ("dtcwt_qshift_masks", llc[:, 0]),
+             ("dtcwt_qshift_synthesis", d3),
+             *(("dtcwt_qshift_synthesis", x) for x in u_levels[::-1] + rt_levels[::-1]),
+             ("dtcwt_qshift_synthesis_ll", dll2), ("dtcwt_delta_synthesis", dsubs)]
     entries, errs = collections.defaultdict(list), collections.defaultdict(float)
     for name, x in cases:
-        module = dl if hasattr(dl, name) else ds if hasattr(ds, name) else dm
+        module = next(m for m in (dl, ds, dd, dm) if hasattr(m, name))
         args = (x, codec.step) if name == "dtcwt_qshift_masks" else (x,)
         kernel, plain = getattr(module, name), getattr(module, name + "_reference")
         got = kernel(*args)
@@ -1652,23 +1703,37 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
             xpad = F.pad(x, (1, 2, 1, 2), mode="circular")
             library = lambda xpad=xpad, wt=wsyn[name], hh=x.shape[-2], ww=x.shape[-1]: (  # noqa: E731
                 F.conv_transpose2d(xpad, wt, stride=2)[:, 0, 5:5 + 2 * hh, 5:5 + 2 * ww])
+        elif name.startswith("dtcwt_qshift_synthesis"):  # tree-major planes, the roll in the crop
+            xpad = F.pad(x[:, tree_major] if x.shape[1] == 16 else x, (7, 7, 7, 7),
+                         mode="circular")
+            library = lambda xpad=xpad, wt=wsyn[name], hh=x.shape[-2], ww=x.shape[-1]: (  # noqa: E731
+                F.conv_transpose2d(xpad, wt, stride=2, groups=4)[..., 27:27 + 2 * hh,
+                                                                 27:27 + 2 * ww])
+        elif name == "dtcwt_delta_synthesis":  # the chain of the three kernels it fuses
+            xpad = torch.cat([torch.zeros_like(x[:, :4]), x], dim=1)
+            library = lambda xpad=xpad: ds.dtcwt_legall_synthesis_ll(  # noqa: E731
+                ds.dtcwt_qshift_synthesis_ll(ds.dtcwt_qshift_synthesis(xpad)))
         else:
             xpad, library = None, None
+        yardstick = ("three-kernel chain" if name == "dtcwt_delta_synthesis"
+                     else None if library is None else "library")
+        yard_note = "" if library is None or "synthesis" not in name else (  # same layout
+            f"; the {yardstick} differs by {float((library() - got).abs().max()):.3g}")
         run = lambda kernel=kernel, args=args: kernel(*args)  # noqa: E731
         ms = (_time_ms(run, cfg["iters"]) + _time_ms(run, cfg["iters"])) / 2
-        # units: output positions of all 16 planes (level-1 or q-shift), output
-        # pixels (LeGall), mask positions of all 6 bands (masks)
-        units = got.numel() // {"dtcwt_qshift_masks": 6}.get(
-            name, 1 if name.startswith("dtcwt_legall") else 16)
+        # units: output positions of all 16 planes (the analyses), mask
+        # positions of all 6 bands (masks), output samples (the syntheses)
+        units = got.numel() // {"dtcwt_qshift_masks": 6, "dtcwt_level1_analysis": 16,
+                                "dtcwt_qshift_analysis": 16}.get(name, 1)
         t = timing_entry(ms, None, library, run, 4 * x.numel() + 4 * got.numel(),
                          units * FLOPS_PER_UNIT[name], cfg["iters"])
         del xpad, library, got, want
         print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):]
-              + ("" if x.is_contiguous() else " (batch-strided view)"))
+              + ("" if x.is_contiguous() else " (batch-strided view)") + yard_note)
         if occupancy:
             print(occupancy_line(name, x.shape, report))
         entries[name].append({"shape": list(x.shape), "max_abs_err": err,
-                              "strided": not x.is_contiguous(),
+                              "strided": not x.is_contiguous(), "yardstick": yardstick,
                               **{k: t[k] for k in ("ms", "device_ms", "library_ms",
                                                    "library_device_ms", "bound_ms", "bound_by")}})
     return dict(entries), dict(errs)
@@ -1723,8 +1788,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="only the build and redesign_sweep (the four redesigned kernels at "
-                         "every shape the paths give them)")
+                    help="only the build and redesign_sweep (the kernels redesigned for "
+                         "Hopper: level-1 and q-shift analysis, the LeGall and q-shift "
+                         "syntheses, the masks and the delta, at every shape the paths give "
+                         "them)")
     ap.add_argument("--package-root", type=Path, default=None,
                     help="with --sweep: import vfp_tpu_torch from this checkout (e.g. the "
                          "parent commit unpacked with git archive) instead of this one")

@@ -5,8 +5,9 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: the DT-CWT masks, the six full-transform DT-CWT kernels and, at
-the tile edges, the highpass-only LeGall synthesis equal (max_abs_err 0);
+Tolerances: the DT-CWT masks, the delta synthesis, the six full-transform
+DT-CWT kernels and, at the tile edges, the highpass-only LeGall synthesis
+equal (max_abs_err 0);
 other float outputs rtol/atol 2e-5 (the kernels and their plain
 versions share one op order, IEEE division and no FMA; the detect kernels at 480x856
 atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on the card against the
@@ -111,7 +112,8 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
         assert g.shape == r.shape and g.dtype == r.dtype
         if g.dtype == torch.uint8:
             assert (g == r).float().mean() >= 0.995
-        elif name == "dtcwt_qshift_masks" or name in NEW_DTCWT:  # one op order: equal
+        elif name in ("dtcwt_qshift_masks", "dtcwt_delta_synthesis") or name in NEW_DTCWT:
+            # one op order: equal
             assert torch.equal(g, r)
         elif name == "y_dc_mean":
             torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
@@ -384,6 +386,52 @@ def test_masks_kernel_equals_plain_version_at_edge_shapes(cuda_device, shape, st
     torch.cuda.synchronize()
     want = tdm.dtcwt_qshift_masks_reference(x, 5.0)
     assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+# The q-shift synthesis tile (32 x 64 outputs of one frame and tree from a
+# 23 x 39 input window; the full and lowpass-only modes share its template)
+# and the delta's tile (64 x 128 pixels from 19 x 28 level-3 samples a tree)
+# at their edges: planes smaller than the 7-sample halo (the circular index
+# wraps more than once), odd h and w (2w % 4 != 0: no vector store), one tile
+# exactly and a ragged last tile, grids that are not a multiple of the tile,
+# B = 1 and B = 32, and a black frame's all-zero delta planes.
+QSYN_SHAPES = [(2, 1, 1), (1, 1, 2), (2, 3, 5), (1, 17, 33), (1, 16, 32), (32, 16, 32),
+               (1, 33, 65), (2, 45, 80)]
+QSYN_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4}
+DELTA_SHAPES = [(1, 1, 1), (2, 2, 3), (1, 17, 32), (1, 8, 16), (32, 9, 17), (2, 34, 64),
+                (3, 17, 31)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QSYN_SHAPES)
+@pytest.mark.parametrize("name", list(QSYN_PLANES))
+def test_qshift_synthesis_equals_plain_version_at_edge_shapes(cuda_device, name, shape):
+    b, h, w = shape
+    rng = np.random.RandomState(b * h + w)
+    x = torch.as_tensor(rng.randn(b, QSYN_PLANES[name], h, w).astype(np.float32) * 50,
+                        device=cuda_device)
+    got = getattr(tds, name)(x)
+    torch.cuda.synchronize()
+    want = getattr(tds, name + "_reference")(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", [False, True])
+@pytest.mark.parametrize("shape", DELTA_SHAPES)
+def test_delta_synthesis_equals_plain_version_at_edge_shapes(cuda_device, shape, zero):
+    """``zero``: all-zero planes, a black frame's delta, which must be 0."""
+    b, h3, w3 = shape
+    rng = np.random.RandomState(b * h3 + w3)
+    d = rng.randn(b, 12, h3, w3).astype(np.float32) * 20
+    x = torch.as_tensor(np.zeros_like(d) if zero else d, device=cuda_device)
+    got = tdd.dtcwt_delta_synthesis(x)
+    torch.cuda.synchronize()
+    want = tdd.dtcwt_delta_synthesis_reference(x)
+    assert got.shape == want.shape == (b, 8 * h3, 8 * w3)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if zero:
+        assert not got.any()
 
 
 @pytest.mark.cuda

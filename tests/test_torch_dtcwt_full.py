@@ -68,15 +68,18 @@ PALLAS = {
     "dtcwt_legall_synthesis_ll": (tsyn, jsyn.dtcwt_legall_synthesis_ll),
     "dtcwt_legall_synthesis_hp": (tsyn, jsyn.dtcwt_legall_synthesis_hp),
 }
-# the JAX XLA chain of each LeGall synthesis, for planes the Pallas kernel
-# does not take (synthesis_eligible: h >= 32 and w >= 64)
-XLA_LEGALL = {
+# the JAX XLA chain of each synthesis, for planes the Pallas kernel does not
+# take (synthesis_eligible: h >= 32 and w >= 64)
+XLA_SYNTHESIS = {
     "dtcwt_legall_synthesis": lambda x: jdt.Transform2d(backend="xla").inverse_raw([x]),
     "dtcwt_legall_synthesis_ll": lambda x: jdt.Transform2d(backend="xla").synthesis_legall_ll(x),
     "dtcwt_legall_synthesis_hp": lambda x: jdt.Transform2d(backend="xla").synthesis_legall_hp(x),
+    "dtcwt_qshift_synthesis": lambda x: jdt.Transform2d(backend="xla").synthesis_qshift(x),
+    "dtcwt_qshift_synthesis_ll": lambda x: jdt.Transform2d(backend="xla").synthesis_qshift_ll(x),
 }
 LEGALL_PLANES = {"dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4,
                  "dtcwt_legall_synthesis_hp": 12}
+QSHIFT_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4}
 PALLAS_CASES = [
     ("dtcwt_level1_analysis_ll", (2, 64, 128)), ("dtcwt_level1_analysis_ll", (2, 136, 240)),
     ("dtcwt_qshift_analysis", (2, 4, 32, 64)), ("dtcwt_qshift_analysis", (2, 4, 34, 96)),
@@ -89,6 +92,12 @@ PALLAS_CASES = [
     # and 32, one tile exactly, and a ragged last tile
     (name, (b, LEGALL_PLANES[name], h, w)) for name in LEGALL_PLANES
     for b, h, w in ((2, 1, 1), (1, 1, 2), (2, 3, 5), (1, 17, 33), (32, 16, 32), (1, 33, 65))
+] + [  # the q-shift synthesis tile's edges (32 x 64 outputs, a 23 x 39 input
+    # window): planes smaller than the 7-sample halo, odd h and w, B = 1 and
+    # 32, one tile exactly, a ragged last tile, and a plane the Pallas kernel takes
+    (name, (b, QSHIFT_PLANES[name], h, w)) for name in QSHIFT_PLANES
+    for b, h, w in ((2, 1, 1), (1, 1, 2), (2, 3, 5), (1, 17, 33), (32, 16, 32), (1, 33, 65),
+                    (1, 33, 66))
 ]
 
 
@@ -102,8 +111,8 @@ def test_plain_version_matches_pallas(rng, name, shape):
     kernels.reset_launch_counts()
     got = getattr(module, name)(torch.from_numpy(x)).numpy()
     assert not any(kernels.launch_counts().values())
-    if name in XLA_LEGALL and not jsyn.synthesis_eligible(*shape[-2:]):
-        want = _np(XLA_LEGALL[name](jnp.asarray(x)))
+    if name in XLA_SYNTHESIS and not jsyn.synthesis_eligible(*shape[-2:]):
+        want = _np(XLA_SYNTHESIS[name](jnp.asarray(x)))
     else:
         want = _np(pallas(jnp.asarray(x), interpret=True, fast=False))
     assert got.shape == want.shape

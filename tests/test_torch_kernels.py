@@ -202,7 +202,7 @@ def test_build_flags_keep_ieee_float():
                                                   "dtcwt_level1.cu", "dtcwt_masks.cu",
                                                   "dtcwt_delta.cu", "dtcwt_qshift.cu",
                                                   "dtcwt_synthesis.cu", "triplet.cuh",
-                                                  "qshift_passes.cuh"}
+                                                  "qshift_passes.cuh", "synthesis_tiles.cuh"}
 
 
 def test_build_compiles_each_source_in_its_own_nvcc(monkeypatch):

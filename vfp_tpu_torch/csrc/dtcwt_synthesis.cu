@@ -36,14 +36,25 @@
 // both round alike.  Odd h and w are fine: every index is taken modulo the
 // level's own size, and the caller crops the inter-level sizes.
 //
-// The q-shift kernels: one thread per output sample computes every
-// intermediate it needs in registers (7 rows of lo and hi, each 7 column
-// taps), reading the input circularly; the filters sit in shared memory (a
-// parameter block indexed by a runtime tap parity or tree would go to local
-// memory), and the 7 row and 7 column indices are taken once per output.
-// The rereads of neighbouring inputs are served by L1/L2: the full kernel
-// reads each input 49 times from L1 and does about 400 FLOPs per output, so
-// L1 traffic and the FLOPs, not HBM, set its time.  No tiling yet.
+// The q-shift kernels (both modes share one template): one block of 256
+// threads makes a 32 x 64 output tile of one (frame, tree combo).
+// - The block's tree is uniform, so it dispatches once to a body templated
+//   on (rt, ct) and the rolls' parity (both -13): every tap is a
+//   compile-time operand of the parameter block, every window offset a
+//   constant, and no parity is decided at run time.
+// - Load: the tile's input window, 23 x 39 per band (16 + 7 rows and 32 + 7
+//   columns: the 7 hitting taps and the roll), goes to shared memory once
+//   by cp.async, coalesced along the row; each thread wraps its one column
+//   and its 4 rows once, by a compare.
+// - Column stage: lo and hi at every (window row, output column), 4
+//   columns a thread from the 8 or 9 samples they share, held in registers
+//   (about 2 shared reads per output and band instead of 7).
+// - Row stage: each thread makes 2 rows x 4 columns from 16-byte reads of
+//   lo and hi, 7 or 8 rows of each; float4 stores where 2w % 4 == 0.
+// - The bound is bytes (4 or 16 planes read, 4 written, all of h x w), but
+//   built without multiply-add contraction the column and row stages issue
+//   about 2 x 34 (full) or 2 x 13 (lowpass-only) float instructions per
+//   output: of the order of the bytes' time at these shapes.
 //
 // The LeGall kernels (the three modes share one template): one block of 256
 // threads makes a 32 x 64 output tile of one frame.
@@ -70,18 +81,17 @@
 
 #include <cstdint>
 
-#include "qshift_passes.cuh"  // wrap, wrap_near
+#include "qshift_passes.cuh"    // wrap_near
+#include "synthesis_tiles.cuh"  // the stages' helpers, cp.async
 
 namespace vfp {
 namespace {
 
-using qshift::wrap;
 using qshift::wrap_near;
+using namespace tiles;
 
-constexpr int kThreads = 256;
 constexpr int kG0 = 3, kG1 = 5;  // LeGall synthesis taps
 constexpr int kQTaps = 14;       // q-shift synthesis taps
-constexpr int kQHit = kQTaps / 2;  // taps that hit a sample per output
 constexpr int kAll = 0, kLl = 1, kHp = 2;  // the bands a LeGall synthesis reads
 
 // From Python (kernels/dtcwt_synthesis.py:_params_host).
@@ -96,65 +106,149 @@ struct QSynParams {
   int roll[2];            // QSHIFT_ROLL_A, QSHIFT_ROLL_B
 };
 
-// the 14-tap stage with its sample indices taken beforehand: sum_s f[k0 + 2s]
-// * y[idx[s]], s from 0 upward
-__device__ __forceinline__ float up2_q(const float* f, int k0, const float* y,
-                                       const int idx[kQHit]) {
-  float acc = f[k0] * y[idx[0]];
-#pragma unroll
-  for (int s = 1; s < kQHit; ++s) acc = acc + f[k0 + 2 * s] * y[idx[s]];
-  return acc;
-}
+// -- the q-shift levels: one block per kQTh x kQTw output tile of one (frame, tree) --
+
+constexpr int kQTh = 32, kQTw = 64;           // output rows and columns per tile
+constexpr int kQHalo = (kQTaps - 1) / 2;      // samples a run reads before its first (6)
+constexpr int kQWr = kQTh / 2 + kQHalo + 1;   // input rows of its window (23)
+constexpr int kQWc = kQTw / 2 + kQHalo + 1;   // input columns of its window (39)
+constexpr int kQWcp = 40;                     // a window row in shared memory (8-byte runs)
+constexpr int kQThreads = 256;
+constexpr int kQLoadGroups = kQThreads / kQWc;                          // 6 row groups
+constexpr int kQLoadRows = (kQWr + kQLoadGroups - 1) / kQLoadGroups;    // rows a thread loads (4)
+static_assert((kQTh / 2) * (kQTw / 4) == kQThreads, "row stage: 2 x 4 outputs a thread");
+static_assert(kQWcp >= kQWc && kQWcp % 2 == 0, "column runs start at even window columns");
 
 template <bool kFull>
-__global__ void __launch_bounds__(kThreads)
-    qshift_kernel(const float* __restrict__ d, float* __restrict__ out, int batch, int h, int w,
-                  QSynParams p) {
-  __shared__ float g[2][2][kQTaps];
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int tr = 0; tr < 2; ++tr)
-#pragma unroll
-      for (int f = 0; f < 2; ++f)
-#pragma unroll
-        for (int k = 0; k < kQTaps; ++k) g[tr][f][k] = p.g[tr][f][k];
-  }
-  __syncthreads();
+constexpr int qshift_smem_bytes() {
+  return 4 * ((kFull ? 4 : 1) * kQWr * kQWcp + (kFull ? 2 : 1) * kQWr * kQTw);
+}
+
+// Tree (kRt, kCt) of frame b: the output tile at rows i0.., columns j0...
+// Output row i is n = i - roll_r of the unrolled synthesis; n0 = i0 - roll_r
+// has the parity kEr of the roll (i0 is even), and the window starts kQHalo
+// samples before (n0 - kEr) / 2, so output t of the tile reads window row (t +
+// kEr + 2 kQHalo - k) / 2 at tap k: a constant for each (t mod 2, k).  The
+// same on columns with kEc.
+template <bool kFull, int kRt, int kCt, int kEr, int kEc>
+__device__ __forceinline__ void qshift_tile(const float* __restrict__ d, float* __restrict__ out,
+                                            int b, int h, int w, const QSynParams& p,
+                                            float* smem) {
+  constexpr int kCi = kRt * 2 + kCt;
+  constexpr int kBands = kFull ? 4 : 1;
+  constexpr int kBand = kQWr * kQWcp;
+  constexpr int kOffR = kEr + 2 * kQHalo, kOffC = kEc + 2 * kQHalo;
+  float* win = smem;                   // [band][kQWr][kQWcp]: ll (lh, hl, hh)
+  float* lo = win + kBands * kBand;    // [kQWr][kQTw]
+  float* hi = lo + kQWr * kQTw;        // [kQWr][kQTw], full mode only
   const int oh = 2 * h, ow = 2 * w;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)batch * 4 * oh * ow) return;
-  const int x = (int)(t % ow);
-  const int y = (int)((t / ow) % oh);
-  const int ci = (int)((t / ((long long)ow * oh)) % 4);
-  const long long b = t / (4LL * ow * oh);
-  const int rt = ci >> 1, ct = ci & 1;
-  const int r = wrap(y - (rt ? p.roll[1] : p.roll[0]), oh);  // the rolls
-  const int c = wrap(x - (ct ? p.roll[1] : p.roll[0]), ow);
-  const int kr = r & 1, kc = c & 1;
-  int rows[kQHit], cols[kQHit];
-#pragma unroll
-  for (int s = 0; s < kQHit; ++s) {
-    rows[s] = wrap((r - kr - 2 * s) >> 1, h) * w;
-    cols[s] = wrap((c - kc - 2 * s) >> 1, w);
-  }
+  const int i0 = blockIdx.y * kQTh, j0 = blockIdx.x * kQTw;
   const long long plane = (long long)h * w;
-  const float* db = d + b * (kFull ? 16 : 4) * plane;
-  const float* ll = db + ci * plane;
-  const float *g0r = g[rt][0], *g1r = g[rt][1], *g0c = g[ct][0], *g1c = g[ct][1];
-  float a = 0.0f, e = 0.0f;
+  const float* db = d + (long long)b * (kFull ? 16 : 4) * plane;
+
+  // the window, input rows br .. br + kQWr - 1 and columns bc .. bc + kQWc - 1
+  // (mod h, w) of the tree's bands: thread (g, c) takes window column c and
+  // rows g, g + 6, ..., each index wrapped once
+  {
+    const int br = (i0 - p.roll[kRt] - kEr) / 2 - kQHalo;
+    const int bc = (j0 - p.roll[kCt] - kEc) / 2 - kQHalo;
+    const int g = threadIdx.x / kQWc, c = threadIdx.x % kQWc;
+    if (g < kQLoadGroups) {
+      const int col = wrap_near(bc + c, w);
+      int off[kQLoadRows];
 #pragma unroll
-  for (int s = 0; s < kQHit; ++s) {
-    const int k = kr + 2 * s;
-    float lo = up2_q(g0c, kc, ll + rows[s], cols);
-    if constexpr (kFull) lo = lo + up2_q(g1c, kc, db + (4 + ci) * plane + rows[s], cols);
-    a = s == 0 ? g0r[k] * lo : a + g0r[k] * lo;
+      for (int j = 0; j < kQLoadRows; ++j) off[j] = wrap_near(br + g + kQLoadGroups * j, h) * w + col;
+#pragma unroll
+      for (int bi = 0; bi < kBands; ++bi) {
+        const float* src = db + (bi * 4 + kCi) * plane;
+        float* dst = win + bi * kBand + g * kQWcp + c;
+#pragma unroll
+        for (int j = 0; j < kQLoadRows; ++j)
+          if (g + kQLoadGroups * j < kQWr) cp_async4(dst + kQLoadGroups * j * kQWcp, src + off[j]);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // column stage, once per (window row, output column), 4 columns a thread
+  // from the run of samples they share: lo = up2(ll, g0c) + up2(lh, g1c), hi =
+  // up2(hl, g0c) + up2(hh, g1c)
+  constexpr int kMc = run_len(4, kOffC);
+  const float* g0c = p.g[kCt][0];
+  const float* g1c = p.g[kCt][1];
+  for (int it = threadIdx.x; it < kQWr * (kQTw / 4); it += kQThreads) {
+    const int a = it / (kQTw / 4), q = it % (kQTw / 4);
+    const float* src = win + a * kQWcp + 2 * q;
+    float v[kMc], x[4], y[4];
+    load_run2(src, v);
+    up2_run<kQTaps, kOffC, 4>(g0c, v, x);
     if constexpr (kFull) {
-      const float hi = up2_q(g0c, kc, db + (8 + ci) * plane + rows[s], cols) +
-                       up2_q(g1c, kc, db + (12 + ci) * plane + rows[s], cols);
-      e = s == 0 ? g1r[k] * hi : e + g1r[k] * hi;
+      load_run2(src + kBand, v);
+      up2_run<kQTaps, kOffC, 4>(g1c, v, y);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) x[t] = x[t] + y[t];
+    }
+    *reinterpret_cast<float4*>(lo + a * kQTw + 4 * q) = make_float4(x[0], x[1], x[2], x[3]);
+    if constexpr (kFull) {
+      load_run2(src + 2 * kBand, v);
+      up2_run<kQTaps, kOffC, 4>(g0c, v, x);
+      load_run2(src + 3 * kBand, v);
+      up2_run<kQTaps, kOffC, 4>(g1c, v, y);
+      *reinterpret_cast<float4*>(hi + a * kQTw + 4 * q) =
+          make_float4(x[0] + y[0], x[1] + y[1], x[2] + y[2], x[3] + y[3]);
     }
   }
-  out[t] = kFull ? a + e : a;
+  __syncthreads();
+
+  // row stage: rows i0 + 2 rp + di, columns j0 + 4q .. + 3 from 16-byte reads,
+  // up2(lo, g0r) + up2(hi, g1r)
+  constexpr int kMr = run_len(2, kOffR);
+  const int rp = threadIdx.x / (kQTw / 4), q = threadIdx.x % (kQTw / 4);
+  float4 v4[kMr], acc[2];
+  load_rows(lo + rp * kQTw + 4 * q, kQTw, v4);
+  up2_run<kQTaps, kOffR, 2>(p.g[kRt][0], v4, acc);
+  if constexpr (kFull) {
+    float4 e[2];
+    load_rows(hi + rp * kQTw + 4 * q, kQTw, v4);
+    up2_run<kQTaps, kOffR, 2>(p.g[kRt][1], v4, e);
+    acc[0] = vadd(acc[0], e[0]);
+    acc[1] = vadd(acc[1], e[1]);
+  }
+  const int j = j0 + 4 * q;
+  const bool vec = (ow & 3) == 0 && j + 4 <= ow;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    const int i = i0 + 2 * rp + di;
+    if (i >= oh) continue;
+    float* o = out + (((long long)b * 4 + kCi) * oh + i) * ow + j;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) = acc[di];
+    } else {
+      const float vs[4] = {acc[di].x, acc[di].y, acc[di].z, acc[di].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (j + t < ow) o[t] = vs[t];
+    }
+  }
+}
+
+// kE: the parity of the rolls (trees a and b share it).  The block's tree
+// combo is uniform, so it dispatches once to a body whose taps and window
+// offsets are all compile-time.
+template <bool kFull, int kE>
+__global__ void __launch_bounds__(kQThreads, 4)
+    qshift_kernel(const float* __restrict__ d, float* __restrict__ out, int h, int w,
+                  QSynParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z >> 2;
+  switch (blockIdx.z & 3) {
+    case 0: qshift_tile<kFull, 0, 0, kE, kE>(d, out, b, h, w, p, smem); break;
+    case 1: qshift_tile<kFull, 0, 1, kE, kE>(d, out, b, h, w, p, smem); break;
+    case 2: qshift_tile<kFull, 1, 0, kE, kE>(d, out, b, h, w, p, smem); break;
+    default: qshift_tile<kFull, 1, 1, kE, kE>(d, out, b, h, w, p, smem); break;
+  }
 }
 
 // -- the LeGall level 1: one block per kLTh x kLTw output tile --------------------
@@ -181,47 +275,6 @@ struct Bands {
 template <int kMode>
 constexpr int legall_smem_bytes() {
   return 4 * (4 * Bands<kMode>::n * kLWr * kLWc + (kMode == kLl ? 1 : 2) * kLWr * kLTw);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// One up2 stage at an output whose taps hit the input at parity kK0: sum_k
-// f[k] * y[((kOff - k) / 2) * kStride], k = kK0, kK0 + 2, ... < kTaps, in
-// that order (kOff - kK0 is even).  Taps and indices are compile-time.
-template <int kTaps, int kK0, int kOff, int kStride>
-__device__ __forceinline__ float up2_tile(const float* f, const float* y) {
-  float acc = f[kK0] * y[(kOff - kK0) / 2 * kStride];
-#pragma unroll
-  for (int k = kK0 + 2; k < kTaps; k += 2) acc = acc + f[k] * y[(kOff - k) / 2 * kStride];
-  return acc;
-}
-
-// the same on 4 neighbouring outputs at once, each lane its own column
-template <int kTaps, int kK0, int kOff, int kStride>
-__device__ __forceinline__ float4 up2_tile4(const float* f, const float* y) {
-  const float4 y0 = *reinterpret_cast<const float4*>(y + (kOff - kK0) / 2 * kStride);
-  float4 acc = make_float4(f[kK0] * y0.x, f[kK0] * y0.y, f[kK0] * y0.z, f[kK0] * y0.w);
-#pragma unroll
-  for (int k = kK0 + 2; k < kTaps; k += 2) {
-    const float4 yk = *reinterpret_cast<const float4*>(y + (kOff - k) / 2 * kStride);
-    acc = make_float4(acc.x + f[k] * yk.x, acc.y + f[k] * yk.y, acc.z + f[k] * yk.z,
-                      acc.w + f[k] * yk.w);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // Column stage of tree (., kCt) at window input row a, output column 2p +
@@ -252,7 +305,7 @@ __device__ __forceinline__ float4 row_stage(const float* lo, const float* hi, co
   constexpr int kK0 = (kE + 1 + kDi - kRt) & 1, kOff = 5 + kE + kDi - kRt;
   const float4 a = up2_tile4<kG0, kK0, kOff, kLTw>(p.g0, lo);
   if constexpr (kMode == kLl) return a;
-  else return add4(a, up2_tile4<kG1, kK0, kOff, kLTw>(p.g1, hi));
+  else return vadd(a, up2_tile4<kG1, kK0, kOff, kLTw>(p.g1, hi));
 }
 
 template <int kMode, int kE, int kCi>
@@ -282,8 +335,8 @@ __device__ __forceinline__ void legall_tree(const float* in, float* lo, float* h
     acc[0] = t0;
     acc[1] = t1;
   } else {
-    acc[0] = add4(acc[0], t0);
-    acc[1] = add4(acc[1], t1);
+    acc[0] = vadd(acc[0], t0);
+    acc[1] = vadd(acc[1], t1);
   }
 }
 
@@ -378,8 +431,6 @@ QSynParams qsyn_params(const void* host_params) {
   return k;
 }
 
-unsigned grid_for(long long total) { return (unsigned)((total + kThreads - 1) / kThreads); }
-
 template <int kMode, int kE>
 int launch_legall_tiles(const float* d, float* out, int batch, int h, int w, const SynParams& p,
                         cudaStream_t stream) {
@@ -408,14 +459,27 @@ int launch_legall(const void* d, void* out, int batch, int h, int w, const void*
                                             (cudaStream_t)stream);
 }
 
+template <bool kFull, int kE>
+int launch_qshift_tiles(const float* d, float* out, int batch, int h, int w,
+                        const QSynParams& p, cudaStream_t stream) {
+  constexpr int bytes = qshift_smem_bytes<kFull>();
+  static_assert(bytes <= 48 * 1024, "over the default dynamic shared memory");
+  const dim3 grid((2 * w + kQTw - 1) / kQTw, (2 * h + kQTh - 1) / kQTh, 4 * batch);
+  qshift_kernel<kFull, kE><<<grid, kQThreads, bytes, stream>>>(d, out, h, w, p);
+  return (int)cudaGetLastError();
+}
+
 template <bool kFull>
 int launch_qshift(const void* d, void* out, int batch, int h, int w, const void* params,
                   void* stream) {
-  const long long total = (long long)batch * 4 * (2 * h) * (2 * w);
-  if (total == 0) return 0;
-  qshift_kernel<kFull><<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)d, (float*)out, batch, h, w, qsyn_params(params));
-  return (int)cudaGetLastError();
+  if (batch == 0 || h == 0 || w == 0) return 0;
+  const QSynParams p = qsyn_params(params);
+  // QSHIFT_ROLL_A and _B are both -13: the tiles take one parity for both
+  if ((p.roll[0] & 1) != (p.roll[1] & 1)) return (int)cudaErrorInvalidValue;
+  return p.roll[0] & 1 ? launch_qshift_tiles<kFull, 1>((const float*)d, (float*)out, batch, h, w,
+                                                       p, (cudaStream_t)stream)
+                       : launch_qshift_tiles<kFull, 0>((const float*)d, (float*)out, batch, h, w,
+                                                       p, (cudaStream_t)stream);
 }
 
 }  // namespace
