@@ -20,7 +20,7 @@ Phases, each printing its lines:
    a multiple of 32, flat 8x8 blocks whose texture mask divides 0/0, a black
    frame whose DT-CWT masks and delta are 0, every level of 854x480, 853x480
    and 2048x858 pyramids, an odd 33x65 grid), within the stated tolerances
-   (the DT-CWT kernels equal); the masks and the q-shift level also on the
+   (the DT-CWT kernels and the flagship mark equal); the masks and the q-shift level also on the
    in-place halves of the detect path's level-1 output;
 4. main paths, each with the launch counts set to 0 and the watermark-spectrum
    cache emptied just before it, the counts read just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
@@ -52,8 +52,9 @@ Phases, each printing its lines:
    HBM rate and float32 peak set for the same work; the sweep: the kernels
    redesigned for Hopper (level-1 and q-shift analysis, the LeGall synthesis
    with its lowpass-only and highpass-only twins, the masks, the q-shift
-   synthesis with its lowpass-only twin, and the delta synthesis, the last
-   timed against the chain of the three synthesis kernels it fuses) at
+   synthesis with its lowpass-only twin, the delta synthesis, the last
+   timed against the chain of the three synthesis kernels it fuses, the
+   level-1 u8 lowpasses of Y and of Y and U, and the flagship mark) at
    every shape the paths give them, each against its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
@@ -280,7 +281,30 @@ def _masks_geometry(shape):
             4 * 2 * 17 * 120 * 4)
 
 
+def _ll_tile_geometry(ch):
+    """ll_tile_kernel<ch, words>: an 8 x 32 tile of level-1 positions, two
+    positions a thread; word loads where W % 4 == 0 (the batch's base is
+    aligned)."""
+    def geometry(shape):
+        b, h, w, _ = shape
+        return (f"dtcwt_level1.cu ll_tile_kernel<{ch}, {int(w % 4 == 0)}>",
+                b * -(-(h // 2) // 8) * -(-(w // 2) // 32), 128, 0)
+    return geometry
+
+
+def _mark_geometry(shape):
+    """mark_tile_kernel<vec> on the interleaved view: 8 tile rows x 16 tiles
+    a block, one thread per tile; 16-byte staging where W % 16 == 0, else
+    4-byte."""
+    b, _, h, w = shape
+    tiles_h, tiles_w = -(-h // 8), -(-w // 8)
+    return (f"fused_embed.cu mark_tile_kernel<{16 if w % 16 == 0 else 4}>",
+            b * -(-tiles_h // 8) * -(-tiles_w // 16), 128, 0)
+
+
 GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": _qshift_geometry,
+            "dtcwt_level1_ll_y": _ll_tile_geometry(1), "dtcwt_level1_ll_color": _ll_tile_geometry(2),
+            "fused_mark_planar": _mark_geometry,
             "dtcwt_legall_synthesis": _legall_geometry(0, 4),
             "dtcwt_legall_synthesis_ll": _legall_geometry(1, 1),
             "dtcwt_legall_synthesis_hp": _legall_geometry(2, 3),
@@ -366,8 +390,7 @@ def check_kernels(device, cfg) -> dict:
         want = fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1)
         same = _frac_equal(got, want)
         record("fused_mark_planar", (got.int() - want.int()).abs().max())
-        # borderline s0 may take the other, parity-equivalent QIM bin
-        assert same >= 0.995, f"fused_mark_planar {b}x{h}x{w}: {same:.5f} identical"
+        assert torch.equal(got, want), f"fused_mark_planar {b}x{h}x{w}: {same:.5f} identical"
         assert torch.equal(got[:, :, 8 * nbh:], planes[:, :, 8 * nbh:]), "tail rows modified"
         bits = fe.fused_extract_planar(got, 15.0, 1)
         torch.cuda.synchronize()
@@ -498,7 +521,7 @@ def check_dtcwt_kernels(device, cfg, rng, record):
         torch.cuda.synchronize()
         want_ll = dl.dtcwt_level1_ll_y_reference(frames)
         record("dtcwt_level1_ll_y", (ll - want_ll).abs().max())
-        assert torch.allclose(ll, want_ll, rtol=1e-6, atol=1e-4), "dtcwt_level1_ll_y"
+        assert torch.equal(ll, want_ll), "dtcwt_level1_ll_y"
         masks = dm.dtcwt_qshift_masks(ll, codec.step)
         torch.cuda.synchronize()
         want_masks = dm.dtcwt_qshift_masks_reference(ll, codec.step)
@@ -545,7 +568,7 @@ def check_dtcwt_detect_kernels(codec, frames, ll_y, masks_y, record, label):
     torch.cuda.synchronize()
     want = dl.dtcwt_level1_ll_color_reference(frames)
     record("dtcwt_level1_ll_color", (ll - want).abs().max())
-    assert torch.allclose(ll, want, rtol=1e-6, atol=1e-4), "dtcwt_level1_ll_color"
+    assert torch.equal(ll, want), "dtcwt_level1_ll_color"
     assert torch.equal(ll[:, 0], ll_y), "the Y half differs from dtcwt_level1_ll_y"
     masks = dm.dtcwt_qshift_masks(ll[:, 0], codec.step)  # the strided view, in place
     torch.cuda.synchronize()
@@ -1609,27 +1632,38 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
       480] (the forward's own planes at each level); ``_ll`` on path 1's
       cropped level-2 lowpasses [16, 4, 201, 480];
     - ``dtcwt_delta_synthesis`` on the 1080p mark glue's delta planes [16,
-      12, 135, 240].
+      12, 135, 240];
+    - ``dtcwt_level1_ll_y`` on the mark paths' smooth frames [16, 1080, 1920,
+      3] and [16, 804, 1920, 3] and on [2, 480, 856, 3];
+      ``dtcwt_level1_ll_color`` on the detect paths' inputs, those two
+      batches marked by the codec;
+    - ``fused_mark_planar`` on the interleaved view ``frames.permute(0, 3, 1,
+      2)`` of [16, 1080, 1920], [2, 480, 856] and [2, 1078, 1920] frames, with
+      the spread watermark's bits, as phase 3 gives them.
 
     At each shape: the kernel against its plain version (equal), its
     host-inclusive and device-only times, the yardstick's where there is one
-    (a stride-2 ``F.conv2d`` for the analyses, a stride-2
-    ``F.conv_transpose2d`` for the syntheses, over the input padded
-    circularly beforehand, as in ``dtcwt_timing_cases`` and
-    ``full_dtcwt_timing_cases``; for the delta, which no one PyTorch call
-    computes, the chain of the three synthesis kernels it fuses,
-    ``dtcwt_qshift_synthesis`` -> ``_ll`` -> ``dtcwt_legall_synthesis_ll``,
-    on the same planes with the zero lowpasses concatenated beforehand; none
-    for the masks), the bound, and with ``occupancy`` the launch geometry
-    beside ptxas's report.  Only the wrappers' public functions (and the codec's,
-    to make the detect path's inputs) are called, so ``--package-root`` can
-    point this at another checkout's package.  Returns ({name: [entry per
-    shape]}, {name: max abs error})."""
+    (a stride-2 ``F.conv2d`` for the analyses, for the u8 lowpasses over the
+    lincombed Y (and U) plane, a stride-2 ``F.conv_transpose2d`` for the
+    syntheses, over the input padded circularly beforehand, as in
+    ``dtcwt_timing_cases`` and ``full_dtcwt_timing_cases``; for the delta,
+    which no one PyTorch call computes, the chain of the three synthesis
+    kernels it fuses, ``dtcwt_qshift_synthesis`` -> ``_ll`` ->
+    ``dtcwt_legall_synthesis_ll``, on the same planes with the zero
+    lowpasses concatenated beforehand; none for the masks and the mark),
+    the bound (the bytes at each tensor's element size; for the mark the
+    frame read and written and the f32 bits), and with ``occupancy`` the
+    launch geometry beside ptxas's report.  Only the wrappers' public
+    functions (and the codec's, to make the path inputs) are called, so
+    ``--package-root`` can point this at another checkout's package.
+    Returns ({name: [entry per shape]}, {name: max abs error})."""
     from vfp_tpu_torch.kernels import _build, dtcwt_level1 as dl, dtcwt_masks as dm
     from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_synthesis as ds
+    from vfp_tpu_torch.kernels import fused_embed as fe
+    from vfp_tpu_torch.kernels.fused_dct_qim import _lincomb
     from vfp_tpu_torch.ops import dtcwt_coeffs as C
     from vfp_tpu_torch.ops.dtcwt import Transform2d, _qshift
-    from vfp_tpu_torch.wm import DtcwtKey
+    from vfp_tpu_torch.wm import DtcwtKey, DwtDctSvd, block_grid
 
     F = torch.nn.functional
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
@@ -1658,8 +1692,9 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     # the DT-CWT key codec's 1080p inputs: the mark path's Y lowpasses, the
     # detect path's level-1 output of the marked batch and its folded planes
     frames = torch.as_tensor(smooth_frames(rng, b, h, w), device=device)
+    marked = codec.mark_frames(frames, key_wm(codec, h, w, device))
     ll_y = dl.dtcwt_level1_ll_y(frames)
-    llc = dl.dtcwt_level1_ll_color(codec.mark_frames(frames, key_wm(codec, h, w, device)))
+    llc = dl.dtcwt_level1_ll_color(marked)
     u_hp3 = dl.dtcwt_qshift_hp(dl.dtcwt_qshift_ll(llc[:, 1]))
     folded = codec._decode_coeffs(u_hp3, dm.dtcwt_qshift_masks(llc[:, 0], codec.step),
                                   lambda subs: subs)
@@ -1671,31 +1706,58 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     t4 = Transform2d("kernel")
     u_levels = t4.forward_raw(x720[b:], 4)[0][1:]
     rt_levels = t4.forward_raw(x1080, 4)[0][1:]
-    del frames, u_hp3
-    cases = [("dtcwt_level1_analysis", wm), ("dtcwt_level1_analysis", x720),
-             ("dtcwt_level1_analysis", x1080), ("dtcwt_qshift_analysis", ll_1080),
-             ("dtcwt_qshift_analysis", l1_720[:, :4]), ("dtcwt_qshift_analysis", l2_720[:, :4]),
-             ("dtcwt_qshift_analysis", l3_720[:, :4]), ("dtcwt_qshift_analysis", l1_1080[:, :4]),
-             ("dtcwt_legall_synthesis", l1_1080), ("dtcwt_legall_synthesis", l1_720[:b]),
-             ("dtcwt_legall_synthesis_ll", dll1), ("dtcwt_legall_synthesis_hp", folded),
-             ("dtcwt_qshift_masks", ll_y), ("dtcwt_qshift_masks", llc[:, 0]),
-             ("dtcwt_qshift_synthesis", d3),
-             *(("dtcwt_qshift_synthesis", x) for x in u_levels[::-1] + rt_levels[::-1]),
-             ("dtcwt_qshift_synthesis_ll", dll2), ("dtcwt_delta_synthesis", dsubs)]
+    del u_hp3
+    # the level-1 u8 lowpasses' other inputs: the 1920x804 mark and detect
+    # batches, a 480x856 batch
+    scope_h, prime = cfg["scope_h"], (cfg["prime_h"], cfg["prime_w"])
+    scope = torch.as_tensor(smooth_frames(rng, b, scope_h, w), device=device)
+    scope_marked = codec.mark_frames(scope, key_wm(codec, scope_h, w, device))
+    f480 = torch.as_tensor(smooth_frames(rng, 2, *prime), device=device)
+    # the flagship mark's inputs, as phase 3 makes them
+    flagship = DwtDctSvd()
+    mark_args = []
+    for fb, fh, fw in ((b, h, w), (2, *prime), (2, cfg["tail_h"], w)):
+        planes = torch.as_tensor(natural_frames(rng, fb, fh, fw), device=device).permute(0, 3, 1, 2)
+        (nbh, nbw), _ = block_grid((fh, fw))
+        wm2d = spread_wm(flagship, fh, fw, device)[: nbh * nbw].reshape(nbh, nbw).contiguous()
+        mark_args.append((planes, wm2d, 15.0, 1))
+    cases = [("dtcwt_level1_analysis", (wm,)), ("dtcwt_level1_analysis", (x720,)),
+             ("dtcwt_level1_analysis", (x1080,)), ("dtcwt_qshift_analysis", (ll_1080,)),
+             ("dtcwt_qshift_analysis", (l1_720[:, :4],)),
+             ("dtcwt_qshift_analysis", (l2_720[:, :4],)),
+             ("dtcwt_qshift_analysis", (l3_720[:, :4],)),
+             ("dtcwt_qshift_analysis", (l1_1080[:, :4],)),
+             ("dtcwt_legall_synthesis", (l1_1080,)), ("dtcwt_legall_synthesis", (l1_720[:b],)),
+             ("dtcwt_legall_synthesis_ll", (dll1,)), ("dtcwt_legall_synthesis_hp", (folded,)),
+             ("dtcwt_qshift_masks", (ll_y, codec.step)),
+             ("dtcwt_qshift_masks", (llc[:, 0], codec.step)),
+             ("dtcwt_qshift_synthesis", (d3,)),
+             *(("dtcwt_qshift_synthesis", (x,)) for x in u_levels[::-1] + rt_levels[::-1]),
+             ("dtcwt_qshift_synthesis_ll", (dll2,)), ("dtcwt_delta_synthesis", (dsubs,)),
+             ("dtcwt_level1_ll_y", (frames,)), ("dtcwt_level1_ll_y", (scope,)),
+             ("dtcwt_level1_ll_y", (f480,)), ("dtcwt_level1_ll_color", (marked,)),
+             ("dtcwt_level1_ll_color", (scope_marked,)),
+             *(("fused_mark_planar", args) for args in mark_args)]
+    w4 = _tree_weights([C.LEGALL_H0], [C.LEGALL_H0]).to(device)
     entries, errs = collections.defaultdict(list), collections.defaultdict(float)
-    for name, x in cases:
-        module = next(m for m in (dl, ds, dd, dm) if hasattr(m, name))
-        args = (x, codec.step) if name == "dtcwt_qshift_masks" else (x,)
+    for name, args in cases:
+        x = args[0]
+        module = next(m for m in (dl, ds, dd, dm, fe) if hasattr(m, name))
         kernel, plain = getattr(module, name), getattr(module, name + "_reference")
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
-        err = float((got - want).abs().max())
+        err = float((got.double() - want.double()).abs().max())
         assert torch.equal(got, want), f"{name} {tuple(x.shape)}: max err {err}"
         errs[name] = max(errs[name], err)
         if name == "dtcwt_level1_analysis":
             xpad = F.pad(x[:, None], (4, 1, 4, 1), mode="circular")
             library = lambda xpad=xpad: F.conv2d(xpad, w16, stride=2)  # noqa: E731
+        elif name in ("dtcwt_level1_ll_y", "dtcwt_level1_ll_color"):  # over the lincombed planes
+            xp = x.permute(0, 3, 1, 2)
+            chans = [_lincomb(xp, ch) for ch in range(1 if name.endswith("_y") else 2)]
+            xpad = F.pad(torch.cat(chans)[:, None], (4, 1, 4, 1), mode="circular")
+            library = lambda xpad=xpad: F.conv2d(xpad, w4, stride=2)  # noqa: E731
         elif name == "dtcwt_qshift_analysis":
             xpad = F.pad(x, (13, 0, 13, 0), mode="circular")
             library = lambda xpad=xpad: F.conv2d(xpad, wq16, stride=2, groups=4)  # noqa: E731
@@ -1721,15 +1783,24 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
             f"; the {yardstick} differs by {float((library() - got).abs().max()):.3g}")
         run = lambda kernel=kernel, args=args: kernel(*args)  # noqa: E731
         ms = (_time_ms(run, cfg["iters"]) + _time_ms(run, cfg["iters"])) / 2
-        # units: output positions of all 16 planes (the analyses), mask
-        # positions of all 6 bands (masks), output samples (the syntheses)
-        units = got.numel() // {"dtcwt_qshift_masks": 6, "dtcwt_level1_analysis": 16,
-                                "dtcwt_qshift_analysis": 16}.get(name, 1)
-        t = timing_entry(ms, None, library, run, 4 * x.numel() + 4 * got.numel(),
-                         units * FLOPS_PER_UNIT[name], cfg["iters"])
+        # units: output positions of all 16 planes (the analyses), of the 4
+        # (8) lowpass planes (the u8 lowpasses), mask positions of all 6
+        # bands (masks), output samples (the syntheses), 8x8 tiles (the mark)
+        if name == "fused_mark_planar":
+            fb, _, fh, fw = x.shape
+            units, nbytes = fb * (fh // 8) * (fw // 8), 2 * x.numel() + 4 * args[1].numel()
+        else:
+            units = got.numel() // {"dtcwt_qshift_masks": 6, "dtcwt_level1_analysis": 16,
+                                    "dtcwt_qshift_analysis": 16, "dtcwt_level1_ll_y": 4,
+                                    "dtcwt_level1_ll_color": 8}.get(name, 1)
+            nbytes = x.element_size() * x.numel() + got.element_size() * got.numel()
+        t = timing_entry(ms, None, library, run, nbytes, units * FLOPS_PER_UNIT[name],
+                         cfg["iters"])
         del xpad, library, got, want
-        print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):]
-              + ("" if x.is_contiguous() else " (batch-strided view)") + yard_note)
+        view = "" if x.is_contiguous() else (
+            " (interleaved view)" if name == "fused_mark_planar" else " (batch-strided view)")
+        print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):] + view
+              + yard_note)
         if occupancy:
             print(occupancy_line(name, x.shape, report))
         entries[name].append({"shape": list(x.shape), "max_abs_err": err,
@@ -1790,8 +1861,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="only the build and redesign_sweep (the kernels redesigned for "
                          "Hopper: level-1 and q-shift analysis, the LeGall and q-shift "
-                         "syntheses, the masks and the delta, at every shape the paths give "
-                         "them)")
+                         "syntheses, the masks, the delta, the level-1 u8 lowpasses and the "
+                         "flagship mark, at every shape the paths give them)")
     ap.add_argument("--package-root", type=Path, default=None,
                     help="with --sweep: import vfp_tpu_torch from this checkout (e.g. the "
                          "parent commit unpacked with git archive) instead of this one")

@@ -6,14 +6,14 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: the DT-CWT masks, the delta synthesis, the six full-transform
-DT-CWT kernels and, at the tile edges, the highpass-only LeGall synthesis
-equal (max_abs_err 0);
+DT-CWT kernels, the level-1 u8 lowpasses, the flagship mark and, at the tile
+edges, the highpass-only LeGall synthesis equal (max_abs_err 0);
 other float outputs rtol/atol 2e-5 (the kernels and their plain
 versions share one op order, IEEE division and no FMA; the detect kernels at 480x856
 atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on the card against the
 CPU's kernel path atol 1e-4 (PyTorch's complex division may round otherwise);
-u8 marks identical on >= 99.5% of pixels and bits on >= 99.9% (a borderline
-s0 may take the other, parity-equivalent QIM bin).  The DCT-QIM kernels get
+the DCT-QIM marks identical on >= 99.5% of pixels and bits on >= 99.9% (a
+borderline s0 may take the other, parity-equivalent QIM bin).  The DCT-QIM kernels get
 the same means as their plain versions, so the comparison isolates the
 kernel.
 """
@@ -36,6 +36,8 @@ DETECT_KERNELS = ("dtcwt_level1_ll_color", "dtcwt_qshift_ll", "dtcwt_qshift_hp",
                   "dtcwt_legall_synthesis_hp")
 NEW_DTCWT = ("dtcwt_level1_analysis_ll", "dtcwt_qshift_analysis", "dtcwt_qshift_synthesis",
              "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis", "dtcwt_legall_synthesis_ll")
+EQUAL = ("dtcwt_qshift_masks", "dtcwt_delta_synthesis", "dtcwt_level1_ll_y",
+         "dtcwt_level1_ll_color", "fused_mark_planar")
 SYNTHESIS_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4,
                     "dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4}
 
@@ -110,11 +112,10 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
     for g, r in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.shape == r.shape and g.dtype == r.dtype
-        if g.dtype == torch.uint8:
-            assert (g == r).float().mean() >= 0.995
-        elif name in ("dtcwt_qshift_masks", "dtcwt_delta_synthesis") or name in NEW_DTCWT:
-            # one op order: equal
+        if name in EQUAL or name in NEW_DTCWT:  # one op order: equal
             assert torch.equal(g, r)
+        elif g.dtype == torch.uint8:
+            assert (g == r).float().mean() >= 0.995
         elif name == "y_dc_mean":
             torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
         elif name.endswith("extract_planar") or name in ("qim_decode_soa", "fused_dct_qim_extract"):
@@ -194,7 +195,10 @@ def test_detect_kernel_matches_plain_version_at_480x856(cuda_device, name):
     torch.cuda.synchronize()
     want = getattr(tdl if hasattr(tdl, name) else tds, name + "_reference")(*args)
     assert got.shape == want.shape
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if name in EQUAL:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -432,6 +436,69 @@ def test_delta_synthesis_equals_plain_version_at_edge_shapes(cuda_device, shape,
     assert torch.equal(got, want), float((got - want).abs().max())
     if zero:
         assert not got.any()
+
+
+# The level-1 u8 lowpass tile (8 x 32 positions from a 20 x 68 pixel
+# window; ll_y and ll_color share its template) and the flagship mark's
+# strip (8 tile rows x 16 tiles) at their edges: a frame smaller than one
+# tile and its halo (the circular index wraps more than once), grids that are
+# not a multiple of the tile (h1 % 8 and w1 % 32 != 0),
+# W % 4 == 2 (byte loads, odd W / 2: no paired stores), a batch whose base is
+# not 4-byte aligned, B = 1 and B = 32; for the mark W % 16 != 0 (4-byte
+# staging), W % 8 == 4 (a half tile passed through), tail rows below the
+# block grid, and a contiguous planar batch (byte by byte through the strides).
+LL_U8_SHAPES = [(1, 6, 10), (2, 38, 100), (32, 72, 136), (2, 236, 318), (1, 540, 960),
+                (32, 24, 64)]
+MARK_SHAPES = [(2, 40, 856), (1, 72, 132), (2, 48, 140), (1, 78, 128), (2, 1078, 256),
+               (32, 64, 128), (1, 1080, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("shape", LL_U8_SHAPES)
+@pytest.mark.parametrize("name", ["dtcwt_level1_ll_y", "dtcwt_level1_ll_color"])
+def test_level1_u8_lowpasses_equal_plain_versions_at_edge_shapes(cuda_device, name, shape,
+                                                                 offset):
+    """``offset``: the batch starts one byte into its buffer."""
+    b, h, w = shape
+    frames = natural_frames(np.random.RandomState(b * h + w), b, h, w)
+    n = frames.size
+    buf = torch.empty(n + int(offset), dtype=torch.uint8, device=cuda_device)
+    x = buf[int(offset):].view(b, h, w, 3)
+    x.copy_(torch.as_tensor(frames))
+    assert x.is_contiguous() and x.data_ptr() % 4 == (1 if offset else 0)
+    kernels.reset_launch_counts()
+    got = getattr(tdl, name)(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == 1
+    want = getattr(tdl, name + "_reference")(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("shape", MARK_SHAPES)
+def test_fused_mark_equals_plain_version_at_edge_shapes(cuda_device, shape, planar):
+    """``planar``: a contiguous [B, 3, H, W] batch instead of the interleaved
+    view of [B, H, W, 3] frames; the output keeps the input's strides."""
+    b, h, w = shape
+    rng = np.random.RandomState(b * h + w)
+    frames = torch.as_tensor(natural_frames(rng, b, h, w), device=cuda_device)
+    planes = frames.permute(0, 3, 1, 2)
+    if planar:
+        planes = planes.contiguous()
+    (nbh, nbw), _ = block_grid((h, w))
+    wm2d = _wm(h, w, cuda_device)[: nbh * nbw].reshape(nbh, nbw).contiguous()
+    kernels.reset_launch_counts()
+    got = tfe.fused_mark_planar(planes, wm2d, SCALE, 1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_mark_planar"] == 1
+    assert got.stride() == planes.stride()
+    want = tfe.fused_mark_planar_reference(planes, wm2d, SCALE, 1)
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+    assert torch.equal(got[:, :, 8 * nbh:], planes[:, :, 8 * nbh:])  # tail rows
+    assert torch.equal(got[..., 8 * nbw:], planes[..., 8 * nbw:])  # the half tile
+    assert not torch.equal(got, planes)
 
 
 @pytest.mark.cuda

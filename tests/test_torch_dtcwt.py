@@ -191,12 +191,37 @@ def test_correlation_batch_matches_jax(rng, key):
 
 # -- the kernels' plain versions against the Pallas kernels ------------------------------
 
-@pytest.mark.parametrize("h,w", [(64, 128), (68, 192), (128, 256)])
-def test_level1_ll_y_matches_pallas(rng, h, w):
-    f = rng.randint(0, 256, (2, h, w, 3)).astype(np.uint8)
+# (b, h, w): three shapes at B = 2 and the CUDA tile's edges
+# (tests/test_torch_cuda.py): a frame smaller than one tile and its halo,
+# h1 % 8 and w1 % 32 != 0, W % 4 == 2, B = 1 and 32; the Pallas kernel takes
+# the kernel_eligible shapes, the JAX codec's XLA path (bgr_to_yuv, then the
+# XLA level 1) the others
+LL_U8_CASES = [(2, 64, 128), (2, 68, 192), (2, 128, 256), (1, 6, 10), (2, 38, 100),
+               (32, 72, 136), (2, 236, 318), (1, 64, 128), (32, 24, 64)]
+
+
+def ll_u8_ids(cases):
+    """'h-w' at B = 2 (the ids the cases had before B varied), 'bB-h-w' else."""
+    return [f"{h}-{w}" if b == 2 else f"b{b}-{h}-{w}" for b, h, w in cases]
+
+
+def jax_level1_ll(f, channels, pallas):
+    """The JAX package's level-1 lowpasses of u8 frames' first ``channels``
+    YUV channels: the Pallas kernel (in interpret mode) where it takes the
+    shape, else the XLA path."""
+    if jl1.kernel_eligible(*f.shape[1:3]):
+        return _np(pallas(jnp.asarray(f), interpret=True))
+    yuv = jnp.moveaxis(jax_bgr_to_yuv(jnp.asarray(f, jnp.float32))[..., :channels], -1, 1)
+    ll, _ = jdt.Transform2d(backend="xla").analysis_level1(yuv, lowpass_only=True)
+    return _np(ll[:, 0] if channels == 1 else ll)
+
+
+@pytest.mark.parametrize("b,h,w", LL_U8_CASES, ids=ll_u8_ids(LL_U8_CASES))
+def test_level1_ll_y_matches_pallas(rng, b, h, w):
+    f = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
     got = tl1.dtcwt_level1_ll_y(torch.from_numpy(f)).numpy()
-    np.testing.assert_allclose(got, _np(jl1.dtcwt_level1_analysis_ll_y(jnp.asarray(f),
-                                                                        interpret=True)), atol=2e-4)
+    np.testing.assert_allclose(got, jax_level1_ll(f, 1, jl1.dtcwt_level1_analysis_ll_y),
+                               atol=2e-4)
     if jl1.chain_eligible(h, w):  # the chained twin's valid window
         m = jl1.CHAIN_MARGIN // 2
         raw = _np(jl1.dtcwt_level1_ll_y_chain(jnp.asarray(f), interpret=True))

@@ -41,6 +41,7 @@ from vfp_tpu_torch.ops import dtcwt as tdt
 from vfp_tpu_torch.wm import CorrShuffler, DeCorrShuffler, DtcwtKey
 
 from test_dwt_dct_svd import natural_frames as smooth_frames
+from test_torch_dtcwt import LL_U8_CASES, jax_level1_ll, ll_u8_ids
 from torch_parity import natural_frames
 
 torch.set_num_threads(1)
@@ -57,12 +58,12 @@ def _frames(rng, h, w):
 
 # -- the kernels' plain versions against the Pallas kernels ------------------------------
 
-@pytest.mark.parametrize("h,w", [(64, 128), (68, 192), (128, 256)])
-def test_level1_ll_color_matches_pallas(rng, h, w):
-    f = _frames(rng, h, w)
+@pytest.mark.parametrize("b,h,w", LL_U8_CASES, ids=ll_u8_ids(LL_U8_CASES))
+def test_level1_ll_color_matches_pallas(rng, b, h, w):
+    f = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
     got = tl1.dtcwt_level1_ll_color(torch.from_numpy(f)).numpy()
-    assert got.shape == (2, 2, 4, h // 2, w // 2)
-    want = _np(jl1.dtcwt_level1_analysis_ll_color(jnp.asarray(f), interpret=True))
+    assert got.shape == (b, 2, 4, h // 2, w // 2)
+    want = jax_level1_ll(f, 2, jl1.dtcwt_level1_analysis_ll_color)
     np.testing.assert_allclose(got, want, atol=2e-4)
     if jl1.chain_eligible(h, w):  # the chained twin's valid window
         m = jl1.CHAIN_MARGIN // 2

@@ -29,14 +29,24 @@ from torch_parity import PAYLOAD, despread, natural_frames, spread_wm
 torch.set_num_threads(1)
 SCALE = 15.0
 FUSED_SHAPES = [(72, 128), (40, 856), (78, 128)]
+# (b, h, w): FUSED_SHAPES at B = 2 and the CUDA mark strip's edges
+# (tests/test_torch_cuda.py): W % 16 != 0, W % 8 == 4 (a half tile passed
+# through), tail rows, B = 1 and 32
+FUSED_MARK_CASES = [(2, h, w) for h, w in FUSED_SHAPES] + [
+    (1, 72, 132), (2, 48, 140), (2, 1078, 128), (32, 40, 128), (1, 72, 128)]
+
+
+def _case_ids(cases):
+    """'h-w' at B = 2 (the ids the cases had before B varied), 'bB-h-w' else."""
+    return [f"{h}-{w}" if b == 2 else f"b{b}-{h}-{w}" for b, h, w in cases]
 
 
 def _soa(rng, n):
     return (rng.rand(2, 16, n) * 300).astype(np.float32)
 
 
-def _fused_inputs(rng, h, w):
-    frames = natural_frames(rng, 2, h, w)
+def _fused_inputs(rng, h, w, b=2):
+    frames = natural_frames(rng, b, h, w)
     (nbh, nbw), cap = block_grid((h, w), 4)
     wm2d = spread_wm(h, w)[: nbh * nbw].reshape(nbh, nbw)
     return frames.transpose(0, 3, 1, 2).copy(), wm2d, (nbh, nbw), cap
@@ -73,17 +83,17 @@ def test_embed_reference_matches_pallas(rng, n):
     assert (bits == wm).mean() >= 0.999
 
 
-@pytest.mark.parametrize("h,w", FUSED_SHAPES)
-def test_fused_mark_reference_matches_pallas(rng, h, w):
-    planes, wm2d, (nbh, nbw), cap = _fused_inputs(rng, h, w)
+@pytest.mark.parametrize("b,h,w", FUSED_MARK_CASES, ids=_case_ids(FUSED_MARK_CASES))
+def test_fused_mark_reference_matches_pallas(rng, b, h, w):
+    planes, wm2d, (nbh, nbw), cap = _fused_inputs(rng, h, w, b)
     want = np.asarray(jfe.fused_mark_planar(jnp.asarray(planes), jnp.asarray(wm2d), SCALE, 1,
                                             interpret=True))
     got = tfe.fused_mark_planar_reference(torch.from_numpy(planes), torch.from_numpy(wm2d),
                                           SCALE, 1).numpy()
     assert (got == want).mean() >= 0.995
     bits = tfe.fused_extract_planar_reference(torch.from_numpy(got), SCALE, 1).numpy()
-    flat = np.zeros((2, cap), np.float32)
-    flat[:, : nbh * nbw] = bits.reshape(2, -1)
+    flat = np.zeros((b, cap), np.float32)
+    flat[:, : nbh * nbw] = bits.reshape(b, -1)
     for p in despread(flat):
         np.testing.assert_array_equal(p, PAYLOAD)
 
@@ -202,7 +212,8 @@ def test_build_flags_keep_ieee_float():
                                                   "dtcwt_level1.cu", "dtcwt_masks.cu",
                                                   "dtcwt_delta.cu", "dtcwt_qshift.cu",
                                                   "dtcwt_synthesis.cu", "triplet.cuh",
-                                                  "qshift_passes.cuh", "synthesis_tiles.cuh"}
+                                                  "qshift_passes.cuh", "synthesis_tiles.cuh",
+                                                  "staging.cuh"}
 
 
 def test_build_compiles_each_source_in_its_own_nvcc(monkeypatch):

@@ -1,12 +1,12 @@
 // DT-CWT level-1 analysis with the LeGall 5/3 pair and circular indexing.
 //
 // Replaces the Pallas kernels of vfp_tpu/kernels/dtcwt_level1.py:
-//   ll_color_kernel<1> <- dtcwt_level1_analysis_ll_y (:508) and its chained
+//   ll_tile_kernel<1, ...> <- dtcwt_level1_analysis_ll_y (:508) and its chained
 //                         twin dtcwt_level1_ll_y_chain (:918): u8 [B, H, W, 3]
 //                         -> the Y channel's 4 tree lowpasses [B, 4, H/2, W/2];
-//   ll_color_kernel<2> <- dtcwt_level1_analysis_ll_color (:428) and its chained
-//                         twin dtcwt_level1_ll_color_chain (:888): u8 frames
-//                         -> the Y and U tree lowpasses [B, 2, 4, H/2, W/2];
+//   ll_tile_kernel<2, ...> <- dtcwt_level1_analysis_ll_color (:428) and its
+//                         chained twin dtcwt_level1_ll_color_chain (:888): u8
+//                         frames -> the Y and U tree lowpasses [B, 2, 4, H/2, W/2];
 //   analysis_tile_kernel<8>, <2> <- dtcwt_level1_analysis (:276): f32 [B, H, W]
 //                         -> the 16 planes [ll*4, lh*4, hl*4, hh*4], combos
 //                         (rt, ct) row-major;
@@ -19,18 +19,19 @@
 // then a column pass
 //   out[m][n] = sum_k g[k] * lo_rt[(2n + ct - k) mod W].
 // With the 5-tap h0 and both phases, every output position reads rows
-// 2m-4 .. 2m+1 and columns 2n-4 .. 2n+1.  The lowpass kernels give one
-// thread that 6x6 patch (for u8 input it reads each pixel's 3 bytes once and
-// forms each channel as ((M_FWD[ch,0] b + M_FWD[ch,1] g) + M_FWD[ch,2] r) +
-// OFF_FWD[ch]) and it writes the 4 (or 8) planes of its position.  The full
-// analysis is tiled instead (analysis_tile_kernel): each input is loaded
-// once per tile, and each row-pass value computed once and shared through
-// shared memory by the three positions that read it.  Modular indexing
-// covers the chained and unchained Pallas twins alike: there is no pad
-// copy, no selection matmul, no strip or chunk width, and no u8->i32->f32
-// hop.  The plain versions in kernels/dtcwt_level1.py fold in the same
-// order (each sum from k = 0 upward, rows before columns, rounded to float32
-// between the passes); the build has --fmad=false and no fast-math.
+// 2m-4 .. 2m+1 and columns 2n-4 .. 2n+1.  The f32 lowpass-only kernel gives
+// one thread that 6x6 patch and it writes the 4 planes of its position.  The
+// u8 lowpass kernels and the full analysis are tiled instead: each input is
+// loaded once per tile, and each row-pass value computed once and shared
+// through shared memory by the positions that read it.  For u8 input
+// (ll_tile_kernel) each window pixel's 3 bytes are read once and each
+// channel is formed once per window pixel, as ((M_FWD[ch,0] b + M_FWD[ch,1]
+// g) + M_FWD[ch,2] r) + OFF_FWD[ch].  Modular indexing covers the chained
+// and unchained Pallas twins alike: there is no pad copy, no selection
+// matmul, no strip or chunk width, and no u8->i32->f32 hop.  The plain
+// versions in kernels/dtcwt_level1.py fold in the same order (each sum from
+// k = 0 upward, rows before columns, rounded to float32 between the passes);
+// the build has --fmad=false and no fast-math.
 //
 // Bound on the card: memory (3 B/pixel read for the u8 kernels and 4 B
 // (Y) or 8 B (Y and U) per pixel written; 4 B/pixel read and 16 B/pixel
@@ -42,8 +43,13 @@
 
 #include <cstdint>
 
+#include "qshift_passes.cuh"  // wrap_near
+#include "staging.cuh"        // byte_to_float
+
 namespace vfp {
 namespace {
+
+using qshift::wrap_near;
 
 constexpr int kThreads = 128;
 
@@ -80,41 +86,125 @@ __device__ __forceinline__ float col_pass(const float lo[6], const float* f, int
   return acc;
 }
 
-// kCh = 1: Y only; kCh = 2: Y and U, out [B, 2, 4, H/2, W/2].
-template <int kCh>
-__global__ void __launch_bounds__(kThreads)
-    ll_color_kernel(const uint8_t* __restrict__ x, float* __restrict__ out, int batch, int h,
-                    int w, L1Params k) {
+// The geometry of ll_tile_kernel<kCh, kWords>: a tile of 8 x 32 level-1
+// positions of one frame reads the 20 x 68 pixel window at rows 2 i0 - 4 ...
+// and columns 2 j0 - 4 ...; one thread per two neighbouring positions of a
+// row.  (16-row tiles of 256 threads, whose windows overlap less, ran 0-3%
+// slower on an H100 at every path shape.)
+struct LlTile {
+  static constexpr int kTh = 8;              // output rows
+  static constexpr int kTw = 32;             // output columns
+  static constexpr int kWr = 2 * kTh + 4;    // window rows
+  static constexpr int kWc = 2 * kTw + 4;    // window columns (68)
+  static constexpr int kQuads = kWc / 4;     // runs of 4 window pixels a row (17)
+  static constexpr int kThreads = kTh * kTw / 2;
+};
+
+// The 4 (kCh = 1: Y) or 8 (kCh = 2: Y and U, out [B, 2, 4, H/2, W/2]) tree
+// lowpasses of a u8 frame batch, an 8 x 32 tile of positions a block, in
+// three stages with a barrier between them:
+//   1. window -> colour planes s_p: one item per run of 4 window pixels of a
+//      row, its row and column wrapped once (a compare and an add away from
+//      the frame's edges); with kWords (W % 4 == 0, so a run never straddles
+//      the wrap and its 12 bytes are word-aligned) three 4-byte loads (a
+//      warp's runs lie side by side), else 12 byte loads; each channel once
+//      per pixel, as a float4;
+//   2. row pass s_lo[ch][rt][i][c] = sum_k h0[k] * P[2 i + rt - k + 4][c], once
+//      per (channel, output row, window column) and tree row rt, 4 window
+//      columns an item from 6 float4 reads;
+//   3. column pass: a thread's two neighbouring positions n, n + 1 read the
+//      row-pass columns 2 n - 4 .. 2 n + 3 (two float4), sum
+//      out = sum_k h0[k] * lo[2 n + ct - k + 4] and store each plane's pair as
+//      one float2 where W / 2 is even (the stores coalesce along n).
+template <int kCh, bool kWords>
+__global__ void __launch_bounds__(LlTile::kThreads)
+    ll_tile_kernel(const uint8_t* __restrict__ x, float* __restrict__ out, int h, int w,
+                   L1Params k) {
+  using T = LlTile;
+  constexpr int kTh = T::kTh;
+  __shared__ __align__(16) float s_p[kCh][T::kWr][T::kWc];
+  __shared__ __align__(16) float s_lo[kCh][2][kTh][T::kWc];
   const int h1 = h / 2, w1 = w / 2;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)batch * h1 * w1) return;
-  const int n = (int)(t % w1);
-  const int m = (int)((t / w1) % h1);
-  const long long b = t / ((long long)w1 * h1);
+  const int j0 = blockIdx.x * T::kTw, i0 = blockIdx.y * kTh;
+  const long long b = blockIdx.z;
   const uint8_t* xb = x + b * h * w * 3;
-  float p[kCh][6][6];
+
+  for (int it = threadIdx.x; it < T::kWr * T::kQuads; it += T::kThreads) {
+    const int q = it % T::kQuads, r = it / T::kQuads;
+    const uint8_t* row = xb + (long long)wrap_near(2 * i0 - 4 + r, h) * w * 3;
+    const int c0 = 2 * j0 - 4 + 4 * q;
+    float v[4][3];
+    if constexpr (kWords) {
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(row + wrap_near(c0, w) * 3);
+      const uint32_t word[3] = {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 #pragma unroll
-  for (int r = 0; r < 6; ++r) {
-    const uint8_t* row = xb + (long long)wrap(2 * m - 4 + r, h) * w * 3;
+      for (int i = 0; i < 12; ++i) v[i / 3][i % 3] = byte_to_float(word[i / 4] >> (8 * (i % 4)));
+    } else {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      const uint8_t* px = row + wrap(2 * n - 4 + c, w) * 3;
-      const float v0 = (float)px[0], v1 = (float)px[1], v2 = (float)px[2];
+      for (int px = 0; px < 4; ++px) {
+        const uint8_t* p = row + wrap_near(c0 + px, w) * 3;
 #pragma unroll
-      for (int ch = 0; ch < kCh; ++ch)
-        p[ch][r][c] = ((k.fwd[ch][0] * v0 + k.fwd[ch][1] * v1) + k.fwd[ch][2] * v2) + k.off[ch];
+        for (int c = 0; c < 3; ++c) v[px][c] = byte_to_float(p[c]);
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      float y[4];
+#pragma unroll
+      for (int px = 0; px < 4; ++px)
+        y[px] = ((k.fwd[ch][0] * v[px][0] + k.fwd[ch][1] * v[px][1]) + k.fwd[ch][2] * v[px][2]) +
+                k.off[ch];
+      *reinterpret_cast<float4*>(&s_p[ch][r][4 * q]) = make_float4(y[0], y[1], y[2], y[3]);
     }
   }
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < kCh * kTh * T::kQuads; it += T::kThreads) {
+    const int q = it % T::kQuads, i = (it / T::kQuads) % kTh, ch = it / (T::kQuads * kTh);
+    float4 p[6];  // window rows 2 i .. 2 i + 5
+#pragma unroll
+    for (int j = 0; j < 6; ++j) p[j] = *reinterpret_cast<const float4*>(&s_p[ch][2 * i + j][4 * q]);
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt) {
+      float4 lo = make_float4(k.h0[0] * p[rt + 4].x, k.h0[0] * p[rt + 4].y, k.h0[0] * p[rt + 4].z,
+                              k.h0[0] * p[rt + 4].w);
+#pragma unroll
+      for (int kk = 1; kk < 5; ++kk) {
+        const float4 a = p[rt - kk + 4];
+        lo = make_float4(lo.x + k.h0[kk] * a.x, lo.y + k.h0[kk] * a.y, lo.z + k.h0[kk] * a.z,
+                         lo.w + k.h0[kk] * a.w);
+      }
+      *reinterpret_cast<float4*>(&s_lo[ch][rt][i][4 * q]) = lo;
+    }
+  }
+  __syncthreads();
+
+  const int i = threadIdx.x / (T::kTw / 2), t = threadIdx.x % (T::kTw / 2);
+  const int m = i0 + i, n = j0 + 2 * t;
+  if (m >= h1 || n >= w1) return;
   const long long plane = (long long)h1 * w1;
   float* ob = out + b * kCh * 4 * plane + (long long)m * w1 + n;
+  const bool pairs = w1 % 2 == 0;  // n is even: the pair is 8-byte aligned and inside the row
 #pragma unroll
   for (int ch = 0; ch < kCh; ++ch)
 #pragma unroll
     for (int rt = 0; rt < 2; ++rt) {
-      float lo[6];
-      row_pass<5>(p[ch], k.h0, rt, lo);
+      float lo[8];  // row-pass columns 2 n - 4 .. 2 n + 3
+      const float4 a = *reinterpret_cast<const float4*>(&s_lo[ch][rt][i][4 * t]);
+      const float4 c = *reinterpret_cast<const float4*>(&s_lo[ch][rt][i][4 * t + 4]);
+      lo[0] = a.x, lo[1] = a.y, lo[2] = a.z, lo[3] = a.w;
+      lo[4] = c.x, lo[5] = c.y, lo[6] = c.z, lo[7] = c.w;
 #pragma unroll
-      for (int ct = 0; ct < 2; ++ct) ob[(ch * 4 + rt * 2 + ct) * plane] = col_pass<5>(lo, k.h0, ct);
+      for (int ct = 0; ct < 2; ++ct) {
+        const float y0 = col_pass<5>(lo, k.h0, ct), y1 = col_pass<5>(lo + 2, k.h0, ct);
+        float* o = ob + (ch * 4 + rt * 2 + ct) * plane;
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+        } else {
+          o[0] = y0;
+          if (n + 1 < w1) o[1] = y1;
+        }
+      }
     }
 }
 
@@ -256,14 +346,25 @@ unsigned grid_for(long long total) { return (unsigned)((total + kThreads - 1) / 
 // and W are even; params is host memory (16 floats in the order of
 // vfp::L1Params).  Returns the launch's cudaError_t.
 
+template <int kCh, bool kWords>
+static int launch_ll_tile(const void* x, void* out, int batch, int h, int w,
+                          const void* params, void* stream) {
+  using T = vfp::LlTile;
+  const dim3 grid((w / 2 + T::kTw - 1) / T::kTw, (h / 2 + T::kTh - 1) / T::kTh, batch);
+  vfp::ll_tile_kernel<kCh, kWords><<<grid, T::kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)x, (float*)out, h, w, vfp::params(params));
+  return (int)cudaGetLastError();
+}
+
+// Word loads where every run of 4 pixels is 4-byte aligned (W % 4 == 0 and
+// an aligned base).
 template <int kCh>
 static int launch_ll(const void* x, void* out, int batch, int h, int w, const void* params,
                      void* stream) {
-  const long long total = (long long)batch * (h / 2) * (w / 2);
-  if (total == 0) return 0;
-  vfp::ll_color_kernel<kCh><<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)x, (float*)out, batch, h, w, vfp::params(params));
-  return (int)cudaGetLastError();
+  if (batch == 0 || h == 0 || w == 0) return 0;
+  return w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0
+             ? launch_ll_tile<kCh, true>(x, out, batch, h, w, params, stream)
+             : launch_ll_tile<kCh, false>(x, out, batch, h, w, params, stream);
 }
 
 extern "C" int vfp_dtcwt_level1_ll_y(const void* x, void* out, int batch, int h, int w,

@@ -18,22 +18,57 @@
 //
 // None of the Mosaic workarounds is carried over: no selection matmuls, no
 // row strips or lane chunks, no u8->i32->f32 hop, and the mark writes a new
-// output (no aliasing).  One thread per tile computes the LL block from the
-// u8 pixels in registers, reading the planes through the strides it is given
-// (so a [B, H, W, 3] frame batch viewed as [B, 3, H, W] needs no copy).
+// output (no aliasing).  Both read the planes through the strides they are
+// given, so a [B, H, W, 3] frame batch viewed as [B, 3, H, W] needs no copy.
 // Bound on the card: memory — 3 B/pixel read for extract, 3 B read + 3 B
-// written for mark, against a few hundred FLOPs per 64 pixels.  Neighbouring
-// threads take neighbouring tiles of one tile row, so a warp reads 32
-// consecutive 8-pixel runs of each image row.
+// written for mark, against a few hundred FLOPs per 64 pixels.
+//
+// Extract: one thread per tile computes the LL block from the u8 pixels in
+// registers; neighbouring threads take neighbouring tiles of one tile row,
+// so a warp reads 32 consecutive 8-pixel runs of each image row.
+//
+// Mark (mark_tile_kernel): a block owns 8 tile rows x 16 tiles, one thread
+// per tile, in three stages with a barrier between them:
+//   1. the strip's 64 pixel rows of 384 bytes go to shared memory once, by
+//      16-byte (W % 16 == 0) or 4-byte cp.async on the interleaved view
+//      (every row is 4-byte aligned, since the wrapper demands W % 4 == 0),
+//      byte by byte through the strides otherwise;
+//   2. each thread reads its tile's 192 bytes from shared memory (8-byte
+//      reads, conflict-free across the warp), forms the LL block in
+//      ll_block's order, runs dominant_triplet and qim_target (triplet.cuh)
+//      and writes du = 0.5 * (ds * (u[r] * v[c])) per LL entry to shared
+//      memory; a tile outside the nbh x nbw grid gets du = 0, which leaves
+//      every byte as it is (x + M_BWD * 0 is x, and x is a whole number in
+//      [0, 255]);
+//   3. byte-parallel output: an item is 48 bytes (16 pixels) of one staged
+//      row, where each byte's channel and LL column are compile-time; each
+//      byte of a channel with M_BWD[k, chan] != 0 becomes rint(clip(x +
+//      M_BWD[k, chan] * du, 0, 255)), and the 48 bytes go out as three
+//      16-byte or twelve 4-byte stores.
+// Bytes convert to float and back exactly by integer permutes and float
+// adds (staging.cuh), not by the conversion unit.
 
 #include <cstdint>
 
+#include "staging.cuh"  // cp.async, byte_to_float, float_to_byte
 #include "triplet.cuh"
 
 namespace vfp {
 namespace {
 
 constexpr int kThreads = 128;
+
+// mark_tile_kernel's geometry
+constexpr int kMarkTc = 16;                       // tiles a block row
+constexpr int kMarkTr = 8;                        // tile rows a block
+constexpr int kMarkThreads = kMarkTc * kMarkTr;   // one thread per tile in stage 2
+constexpr int kMarkRows = 8 * kMarkTr;            // staged pixel rows (64)
+constexpr int kMarkRowBytes = 3 * 8 * kMarkTc;    // staged bytes a row (384)
+constexpr int kChunk = 48;                        // output bytes an item: 16 pixels
+constexpr int kChunks = kMarkRowBytes / kChunk;   // items a row (8)
+constexpr int kDuRow = 4 * kMarkTc;               // du entries a LL row (64)
+// 6 blocks of 32 KB shared memory a SM (24 warps): at most 80 registers
+constexpr int kMarkBlocks = 6;
 
 struct Strides {
   long long b, c, h, w;  // in elements (bytes: the planes are u8)
@@ -68,56 +103,139 @@ __device__ __forceinline__ void ll_block(const uint8_t* __restrict__ x, const St
   }
 }
 
-__global__ void mark_kernel(const uint8_t* __restrict__ x, Strides xs, uint8_t* __restrict__ o,
-                            Strides os, const float* __restrict__ wm, int batch, int height,
-                            int width, int nbh, int nbw, int tiles_h, int tiles_w, float scale,
-                            Color k, StartVector v0) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)batch * tiles_h * tiles_w) return;
-  const int tj = (int)(t % tiles_w);
-  const int ti = (int)((t / tiles_w) % tiles_h);
-  const long long b = t / ((long long)tiles_w * tiles_h);
+// kVec = 16 or 4: the interleaved view (channel stride 1, pixel stride 3),
+// rows and batch items kVec-byte aligned in and out; kVec = 1: any strides,
+// byte by byte.
+template <int kVec>
+__global__ void __launch_bounds__(kMarkThreads, kMarkBlocks)
+    mark_tile_kernel(const uint8_t* __restrict__ x, Strides xs, uint8_t* __restrict__ o,
+                     Strides os, const float* __restrict__ wm, int height, int width, int nbh,
+                     int nbw, float scale, Color k, StartVector v0) {
+  __shared__ __align__(16) uint8_t s_x[kMarkRows][kMarkRowBytes];
+  __shared__ __align__(16) float s_du[kMarkRows / 2][kDuRow];
+  const int tj0 = blockIdx.x * kMarkTc, ti0 = blockIdx.y * kMarkTr;
+  const int y0 = 8 * ti0, x0 = 8 * tj0;
+  const int rows = min(kMarkRows, height - y0);
+  const int nbytes = 3 * min(8 * kMarkTc, width - x0);  // staged bytes a row: a multiple of 12
+  const long long b = blockIdx.z;
   const uint8_t* xb = x + b * xs.b;
   uint8_t* ob = o + b * os.b;
-  const int y0 = ti * 8, x0 = tj * 8;
 
-  if (ti >= nbh || tj >= nbw) {  // outside the block grid: pass through
-    const int y1 = min(y0 + 8, height), x1 = min(x0 + 8, width);
-    for (int y = y0; y < y1; ++y)
-      for (int xx = x0; xx < x1; ++xx)
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch)
-          ob[ch * os.c + y * os.h + xx * os.w] = xb[ch * xs.c + y * xs.h + xx * xs.w];
-    return;
+  if constexpr (kVec > 1) {
+    constexpr int kUnits = kMarkRowBytes / kVec;
+    for (int it = threadIdx.x; it < rows * kUnits; it += kMarkThreads) {
+      const int r = it / kUnits, e = (it % kUnits) * kVec;
+      if (e >= nbytes) continue;
+      const uint8_t* src = xb + (long long)(y0 + r) * xs.h + 3LL * x0 + e;
+      if constexpr (kVec == 16)
+        cp_async16(&s_x[r][e], src);
+      else
+        cp_async4(&s_x[r][e], src);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int it = threadIdx.x; it < rows * kMarkRowBytes; it += kMarkThreads) {
+      const int r = it / kMarkRowBytes, e = it % kMarkRowBytes;
+      if (e < nbytes)
+        s_x[r][e] = xb[(e % 3) * xs.c + (long long)(y0 + r) * xs.h + (long long)(x0 + e / 3) * xs.w];
+    }
   }
+  __syncthreads();
 
-  float ll[16], u[4], v[4];
-  ll_block(xb, xs, y0, x0, k, ll);
-  const float s0 = dominant_triplet(ll, v0, u, v);
-  const float ds = qim_target(s0, wm[(long long)ti * nbw + tj], scale) - s0;
-
+  {
+    const int a = threadIdx.x / kMarkTc, t = threadIdx.x % kMarkTc;
+    const int ti = ti0 + a, tj = tj0 + t;
+    float du[16];
+    if (ti < nbh && tj < nbw) {
+      float ll[16], u[4], v[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 4; ++r) {
+        uint32_t p[2][6];  // pixel rows 8 a + 2 r and the next: the tile's 24 bytes of each
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float du = 0.5f * (ds * (u[r] * v[c]));
+        for (int dy = 0; dy < 2; ++dy) {
+          const uint2* src = reinterpret_cast<const uint2*>(&s_x[8 * a + 2 * r + dy][24 * t]);
 #pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const long long y = y0 + 2 * r + dy, xx = x0 + 2 * c + dx;
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
-            const uint8_t xv = xb[ch * xs.c + y * xs.h + xx * xs.w];
-            uint8_t ov = xv;
-            if (k.bwd[ch] != 0.0f) {
-              // clip before rounding; rint is round-half-even like jnp.round
-              const float f = fminf(fmaxf((float)xv + k.bwd[ch] * du, 0.0f), 255.0f);
-              ov = (uint8_t)__float2int_rn(f);
-            }
-            ob[ch * os.c + y * os.h + xx * os.w] = ov;
+          for (int j = 0; j < 3; ++j) {
+            const uint2 w2 = src[j];
+            p[dy][2 * j] = w2.x;
+            p[dy][2 * j + 1] = w2.y;
           }
         }
+        // channel value of pixel px of row dy: fwd . (byte 3 px, 3 px + 1, 3 px + 2)
+        auto cp = [&](int dy, int px) {
+          float acc = k.fwd[0] * byte_to_float(p[dy][(3 * px) / 4] >> (8 * ((3 * px) % 4)));
+          acc = acc + k.fwd[1] * byte_to_float(p[dy][(3 * px + 1) / 4] >> (8 * ((3 * px + 1) % 4)));
+          return acc + k.fwd[2] * byte_to_float(p[dy][(3 * px + 2) / 4] >> (8 * ((3 * px + 2) % 4)));
+        };
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float left = (cp(0, 2 * c) + cp(1, 2 * c)) + k.off2;
+          const float right = (cp(0, 2 * c + 1) + cp(1, 2 * c + 1)) + k.off2;
+          ll[r * 4 + c] = 0.5f * left + 0.5f * right;
+        }
+      }
+      const float s0 = dominant_triplet(ll, v0, u, v);
+      const float ds = qim_target(s0, wm[(long long)ti * nbw + tj], scale) - s0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) du[r * 4 + c] = 0.5f * (ds * (u[r] * v[c]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) du[i] = 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(&s_du[4 * a + r][4 * t]) =
+          make_float4(du[4 * r], du[4 * r + 1], du[4 * r + 2], du[4 * r + 3]);
+  }
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < rows * kChunks; it += kMarkThreads) {
+    const int r = it / kChunks, e0 = (it % kChunks) * kChunk;
+    if (e0 >= nbytes) continue;
+    uint32_t word[kChunk / 4];  // bytes e0 .. e0 + 47 of the row: pixels e0 / 3 .. + 15
+#pragma unroll
+    for (int j = 0; j < kChunk / 16; ++j) {
+      const uint4 w4 = *reinterpret_cast<const uint4*>(&s_x[r][e0 + 16 * j]);
+      word[4 * j] = w4.x, word[4 * j + 1] = w4.y, word[4 * j + 2] = w4.z, word[4 * j + 3] = w4.w;
+    }
+    float d[8];  // du of pixel pairs e0 / 6 .. + 7 on LL row r / 2
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 d4 = *reinterpret_cast<const float4*>(&s_du[r / 2][e0 / 6 + 4 * j]);
+      d[4 * j] = d4.x, d[4 * j + 1] = d4.y, d[4 * j + 2] = d4.z, d[4 * j + 3] = d4.w;
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      if (k.bwd[ch] == 0.0f) continue;  // that channel passes through
+#pragma unroll
+      for (int px = 0; px < kChunk / 3; ++px) {
+        const int j = 3 * px + ch, s = 8 * (j % 4);
+        // clip before rounding
+        const float f = fminf(fmaxf(byte_to_float(word[j / 4] >> s) + k.bwd[ch] * d[px / 2], 0.0f),
+                              255.0f);
+        word[j / 4] = (word[j / 4] & ~(0xffu << s)) | (float_to_byte(f) << s);
+      }
+    }
+    const long long row = (long long)(y0 + r) * os.h;
+    if constexpr (kVec == 16) {  // W % 16 == 0: nbytes is a multiple of 48
+      uint4* dst = reinterpret_cast<uint4*>(ob + row + 3LL * x0 + e0);
+#pragma unroll
+      for (int j = 0; j < kChunk / 16; ++j)
+        dst[j] = make_uint4(word[4 * j], word[4 * j + 1], word[4 * j + 2], word[4 * j + 3]);
+    } else if constexpr (kVec == 4) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(ob + row + 3LL * x0 + e0);
+#pragma unroll
+      for (int j = 0; j < kChunk / 4; ++j)
+        if (e0 + 4 * j < nbytes) dst[j] = word[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const int e = e0 + j;
+        if (e < nbytes)
+          ob[(e % 3) * os.c + row + (long long)(x0 + e / 3) * os.w] = (word[j / 4] >> (8 * (j % 4))) & 0xffu;
       }
     }
   }
@@ -162,18 +280,41 @@ unsigned grid_for(long long total) { return (unsigned)((total + kThreads - 1) / 
 // (7 floats: fwd[3], off2, bwd[3]) and v0 (4 floats) are host memory read
 // before the launch.  Returns the cudaError_t of the launch.
 
+// The interleaved view with rows and batch items aligned to n bytes, in and out.
+static bool interleaved(const void* p, const vfp::Strides& s, int n) {
+  return s.c == 1 && s.w == 3 && reinterpret_cast<uintptr_t>(p) % n == 0 && s.h % n == 0 &&
+         s.b % n == 0;
+}
+
+template <int kVec>
+static int launch_mark(const void* x, const vfp::Strides& xs, void* o, const vfp::Strides& os,
+                       const void* wm, int batch, int height, int width, int nbh, int nbw,
+                       float scale, const void* color, const void* v0, void* stream) {
+  const int tiles_h = (height + 7) / 8, tiles_w = (width + 7) / 8;
+  const dim3 grid((tiles_w + vfp::kMarkTc - 1) / vfp::kMarkTc,
+                  (tiles_h + vfp::kMarkTr - 1) / vfp::kMarkTr, batch);
+  vfp::mark_tile_kernel<kVec><<<grid, vfp::kMarkThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)x, xs, (uint8_t*)o, os, (const float*)wm, height, width, nbh, nbw, scale,
+      vfp::color(color), vfp::start_vector(v0));
+  return (int)cudaGetLastError();
+}
+
+// 16-byte staging and stores where W % 16 == 0 and both views are aligned
+// to it, 4-byte ones on any other aligned interleaved view, byte by byte
+// through the strides for any other layout (a contiguous planar batch).
 extern "C" int vfp_fused_mark_planar(const void* x, const void* x_strides, void* o,
                                      const void* o_strides, const void* wm, int batch, int height,
                                      int width, int nbh, int nbw, float scale,
                                      const void* color, const void* v0, void* stream) {
-  const int tiles_h = (height + 7) / 8, tiles_w = (width + 7) / 8;
-  const long long total = (long long)batch * tiles_h * tiles_w;
-  if (total == 0) return 0;
-  vfp::mark_kernel<<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)x, vfp::strides(x_strides), (uint8_t*)o, vfp::strides(o_strides),
-      (const float*)wm, batch, height, width, nbh, nbw, tiles_h, tiles_w, scale,
-      vfp::color(color), vfp::start_vector(v0));
-  return (int)cudaGetLastError();
+  if (batch == 0 || height == 0 || width == 0) return 0;
+  const vfp::Strides xs = vfp::strides(x_strides), os = vfp::strides(o_strides);
+  if (width % 16 == 0 && interleaved(x, xs, 16) && interleaved(o, os, 16))
+    return launch_mark<16>(x, xs, o, os, wm, batch, height, width, nbh, nbw, scale, color, v0,
+                           stream);
+  if (width % 4 == 0 && interleaved(x, xs, 4) && interleaved(o, os, 4))
+    return launch_mark<4>(x, xs, o, os, wm, batch, height, width, nbh, nbw, scale, color, v0,
+                          stream);
+  return launch_mark<1>(x, xs, o, os, wm, batch, height, width, nbh, nbw, scale, color, v0, stream);
 }
 
 extern "C" int vfp_fused_extract_planar(const void* x, const void* x_strides, void* bits,

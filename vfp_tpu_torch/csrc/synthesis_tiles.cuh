@@ -17,20 +17,10 @@
 
 #include <cuda_runtime.h>
 
+#include "staging.cuh"  // cp.async
+
 namespace vfp {
 namespace tiles {
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // a tap times a sample, and a sum, lane by lane for the vector types
 __device__ __forceinline__ float vmul(float f, float y) { return f * y; }

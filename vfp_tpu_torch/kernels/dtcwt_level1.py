@@ -35,6 +35,10 @@ q-shift wrappers take a view whose batch items are each contiguous
 planes) in place.  The f32 level-1 wrappers copy a strided input first (the
 Y channel of ``bgr_to_yuv``: 4 B per pixel).
 
+The u8 lowpass kernels and the full level-1 analysis are tiled (a tile of
+output positions a block, its pixel window loaded once, each row-pass value
+computed once); ``dtcwt_level1_analysis_ll`` gives one thread each position.
+
 The plain versions (``*_reference``) are the plain transform's blocks
 (``ops/dtcwt.py``), which fold every sum in the kernels' order: each channel
 as ((M_FWD[ch,0] b + M_FWD[ch,1] g) + M_FWD[ch,2] r) + OFF_FWD[ch], then each
@@ -80,11 +84,12 @@ def _qshift_params_ptr() -> int:
 
 
 def _check(x: torch.Tensor, name: str, dtype, ndim: int) -> None:
-    if x.dtype != dtype or x.dim() != ndim or (ndim == 4 and x.shape[-1] != 3):
+    shape = x.shape
+    if x.dtype != dtype or len(shape) != ndim or (ndim == 4 and shape[-1] != 3):
         want = "uint8 [B, H, W, 3]" if ndim == 4 else "float32 [B, H, W]"
-        raise ValueError(f"{name}: want {want}, got {x.dtype} {tuple(x.shape)}")
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"{name} requires even H and W, got {tuple(x.shape[1:3])}")
+        raise ValueError(f"{name}: want {want}, got {x.dtype} {tuple(shape)}")
+    if shape[1] % 2 or shape[2] % 2:
+        raise ValueError(f"{name} requires even H and W, got {tuple(shape[1:3])}")
 
 
 # -- dtcwt_level1_ll_y -------------------------------------------------------------
@@ -102,8 +107,9 @@ def dtcwt_level1_ll_y(frames: torch.Tensor) -> torch.Tensor:
         return dtcwt_level1_ll_y_reference(frames)
     frames = frames.contiguous()
     b, h, w, _ = frames.shape
-    out = torch.empty((b, 4, h // 2, w // 2), dtype=torch.float32, device=frames.device)
-    _build.launch("vfp_dtcwt_level1_ll_y", frames.device, frames.data_ptr(), out.data_ptr(), b,
+    device = frames.device
+    out = torch.empty((b, 4, h // 2, w // 2), dtype=torch.float32, device=device)
+    _build.launch("vfp_dtcwt_level1_ll_y", device, frames.data_ptr(), out.data_ptr(), b,
                   h, w, _params_ptr())
     dtcwt_level1_ll_y.launches += 1
     return out
@@ -129,8 +135,9 @@ def dtcwt_level1_ll_color(frames: torch.Tensor) -> torch.Tensor:
         return dtcwt_level1_ll_color_reference(frames)
     frames = frames.contiguous()
     b, h, w, _ = frames.shape
-    out = torch.empty((b, 2, 4, h // 2, w // 2), dtype=torch.float32, device=frames.device)
-    _build.launch("vfp_dtcwt_level1_ll_color", frames.device, frames.data_ptr(), out.data_ptr(),
+    device = frames.device
+    out = torch.empty((b, 2, 4, h // 2, w // 2), dtype=torch.float32, device=device)
+    _build.launch("vfp_dtcwt_level1_ll_color", device, frames.data_ptr(), out.data_ptr(),
                   b, h, w, _params_ptr())
     dtcwt_level1_ll_color.launches += 1
     return out

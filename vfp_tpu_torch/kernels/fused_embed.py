@@ -8,10 +8,13 @@ channel lincomb -> Haar LL -> dominant triplet -> QIM -> rank-1 delta ->
 
 Bound on the card: memory.  Mark reads and writes the frame once (3 B/pixel
 each way), extract reads it once (3 B/pixel); the block math is a few hundred
-FLOPs per 64 pixels, kept in registers by one thread per tile.  The Mosaic
-workarounds of the TPU kernel (selection matmuls, strips and lane chunks,
-the u8->i32->f32 hop, the aliased output) are not carried over, and any
-``W % 4 == 0`` width is taken as it is.
+FLOPs per 64 pixels, done by one thread per tile.  Mark stages a strip of 8
+tile rows x 16 tiles in shared memory with 16- or 4-byte copies on the
+interleaved view (byte by byte through the strides on any other layout) and
+writes its output bytes 16 or 4 at a time.  The Mosaic workarounds of the
+TPU kernel (selection matmuls, strips and lane chunks, the u8->i32->f32 hop,
+the aliased output) are not carried over, and any ``W % 4 == 0`` width is
+taken as it is.
 
 Numerics of the TPU kernel, which the plain versions below mirror and which
 differ from the codec's multi-op path (``wm/dwt_dct_svd.py``): the +0.5
@@ -26,6 +29,8 @@ the launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -49,14 +54,18 @@ def _check_planes(planes: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} requires W % 4 == 0, got W={planes.shape[3]}")
 
 
-def _color_host(chan: int) -> np.ndarray:
-    """[fwd row (3), 2*OFF_FWD[chan], bwd column (3)] as the kernel's float32 array."""
-    return np.ascontiguousarray(np.concatenate([
-        M_FWD[chan], [2.0 * OFF_FWD[chan]], M_BWD[:, chan]]).astype(np.float32))
+# Per channel, [fwd row (3), 2*OFF_FWD[chan], bwd column (3)] as the
+# kernel's float32 array, and the host addresses the launchers read (the
+# arrays live as long as the module).
+_COLOR_HOST = {chan: np.ascontiguousarray(np.concatenate([
+    M_FWD[chan], [2.0 * OFF_FWD[chan]], M_BWD[:, chan]]).astype(np.float32)) for chan in range(3)}
+_COLOR_PTR = {chan: a.ctypes.data for chan, a in _COLOR_HOST.items()}
+_V0_PTR = _V0_HOST.ctypes.data
 
 
-def _strides_host(t: torch.Tensor) -> np.ndarray:
-    return np.ascontiguousarray(t.stride(), dtype=np.int64)
+def _strides_arg(t: torch.Tensor) -> ctypes.Array:
+    """The 4 int64 strides as a host array the launcher reads during the call."""
+    return (ctypes.c_longlong * 4)(*t.stride())
 
 
 def _ll_blocks(planes: torch.Tensor, chan: int, nbh: int, nbw: int) -> torch.Tensor:
@@ -110,11 +119,9 @@ def fused_mark_planar(planes: torch.Tensor, wm2d: torch.Tensor, scale: float = 1
     if wm2d.device != planes.device or wm2d.dtype != torch.float32 or not wm2d.is_contiguous():
         raise ValueError("fused_mark_planar: bits must be contiguous float32 on the planes' device")
     out = torch.empty_like(planes)
-    # host arrays the launcher reads: held in locals for the call's duration
-    xs, os_, color = _strides_host(planes), _strides_host(out), _color_host(chan)
-    _build.launch("vfp_fused_mark_planar", planes.device, planes.data_ptr(), xs.ctypes.data,
-                  out.data_ptr(), os_.ctypes.data, wm2d.data_ptr(), b, h, w, nbh, nbw,
-                  float(scale), color.ctypes.data, _V0_HOST.ctypes.data)
+    _build.launch("vfp_fused_mark_planar", planes.device, planes.data_ptr(), _strides_arg(planes),
+                  out.data_ptr(), _strides_arg(out), wm2d.data_ptr(), b, h, w, nbh, nbw,
+                  float(scale), _COLOR_PTR[chan], _V0_PTR)
     fused_mark_planar.launches += 1
     return out
 
@@ -140,10 +147,9 @@ def fused_extract_planar(planes: torch.Tensor, scale: float = 15.0, chan: int = 
     if not planes.is_cuda:
         return fused_extract_planar_reference(planes, scale, chan)
     bits = torch.empty((b, nbh, nbw), dtype=torch.float32, device=planes.device)
-    xs, color = _strides_host(planes), _color_host(chan)
-    _build.launch("vfp_fused_extract_planar", planes.device, planes.data_ptr(), xs.ctypes.data,
-                  bits.data_ptr(), b, nbh, nbw, float(scale), color.ctypes.data,
-                  _V0_HOST.ctypes.data)
+    _build.launch("vfp_fused_extract_planar", planes.device, planes.data_ptr(),
+                  _strides_arg(planes), bits.data_ptr(), b, nbh, nbw, float(scale),
+                  _COLOR_PTR[chan], _V0_PTR)
     fused_extract_planar.launches += 1
     return bits
 
