@@ -6,6 +6,11 @@
                                    # only the build and the sweep of phase 5
                                    # (DIR: another checkout's package, e.g.
                                    # the parent commit from git archive)
+    python3 chip_smoke.py --stages [--package-root DIR]
+                                   # only the build and phase 5's batch stages
+    python3 chip_smoke.py --sass PATTERN
+                                   # only the build and the SASS opcode counts of
+                                   # the kernels whose mangled name has PATTERN
 
 Phases, each printing its lines:
 
@@ -20,8 +25,9 @@ Phases, each printing its lines:
    a multiple of 32, flat 8x8 blocks whose texture mask divides 0/0, a black
    frame whose DT-CWT masks and delta are 0, every level of 854x480, 853x480
    and 2048x858 pyramids, an odd 33x65 grid), within the stated tolerances
-   (the DT-CWT kernels and the flagship mark equal); the masks and the q-shift level also on the
-   in-place halves of the detect path's level-1 output;
+   (the DT-CWT kernels and both marks equal); the masks and the q-shift level also on the
+   in-place halves of the detect path's level-1 output, level 1 lowpass-only
+   also on the Y view of a YUV batch, in place;
 4. main paths, each with the launch counts set to 0 and the watermark-spectrum
    cache emptied just before it, the counts read just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
    then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
@@ -54,8 +60,11 @@ Phases, each printing its lines:
    with its lowpass-only and highpass-only twins, the masks, the q-shift
    synthesis with its lowpass-only twin, the delta synthesis, the last
    timed against the chain of the three synthesis kernels it fuses, the
-   level-1 u8 lowpasses of Y and of Y and U, and the flagship mark) at
-   every shape the paths give them, each against its plain version, with its
+   level-1 u8 lowpasses of Y and of Y and U, the flagship mark, level 1
+   lowpass-only of f32 planes (also on the Y view of a YUV batch, beside
+   the copy a contiguous-only wrapper would make) and the DCT-QIM mark,
+   interleaved and planar) at every shape the paths give them, each equal
+   to its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
    split into upload, device and download on the host clock.
@@ -224,18 +233,18 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 # The launch geometry of the kernels redesigned for Hopper, as their
-# launchers in csrc/ set it: f(input shape) -> (ptxas name, blocks, threads,
-# dynamic shared bytes).
-def _level1_geometry(shape):
-    b, h, w = shape
+# launchers in csrc/ set it: f(input tensor) -> (ptxas name, blocks,
+# threads, dynamic shared bytes).
+def _level1_geometry(x):
+    b, h, w = x.shape
     tiles8 = b * -(-(h // 2) // 8) * -(-(w // 2) // 32)
     th = 8 if tiles8 >= 2 * 132 else 2
     return (f"dtcwt_level1.cu analysis_tile_kernel<{th}>", b * -(-(h // 2) // th) * -(-(w // 2) // 32),
             256 if th == 8 else 96, 0)
 
 
-def _qshift_geometry(shape):
-    b, _, h, w = shape
+def _qshift_geometry(x):
+    b, _, h, w = x.shape
     return ("dtcwt_qshift.cu qshift_kernel<2>", 4 * b * -(-(h // 2) // 16) * -(-(w // 2) // 32),
             160, 0)
 
@@ -244,8 +253,8 @@ def _legall_geometry(mode, bands):
     """legall_kernel<mode, 0> (LEGALL_ROLL is odd): a 32 x 64 output tile;
     its 19 x 35 input window of 4 x ``bands`` planes and the lo (and hi)
     rows in dynamic shared memory."""
-    def geometry(shape):
-        b, _, h, w = shape
+    def geometry(x):
+        b, _, h, w = x.shape
         smem = 4 * (4 * bands * 19 * 35 + (1 if bands == 1 else 2) * 19 * 64)
         return (f"dtcwt_synthesis.cu legall_kernel<{mode}, 0>",
                 b * -(-(2 * h) // 32) * -(-(2 * w) // 64), 256, smem)
@@ -256,8 +265,8 @@ def _qshift_synthesis_geometry(full):
     """qshift_kernel<full, 1> (both q-shift rolls are odd): a 32 x 64 output
     tile of one (frame, tree); its 23 x 39 input window of 4 planes or 1 (rows
     of 40 floats) and lo (and hi) at 23 x 64 in dynamic shared memory."""
-    def geometry(shape):
-        b, _, h, w = shape
+    def geometry(x):
+        b, _, h, w = x.shape
         bands = 4 if full else 1
         smem = 4 * (bands * 23 * 40 + (2 if full else 1) * 23 * 64)
         return (f"dtcwt_synthesis.cu qshift_kernel<{int(full)}, 1>",
@@ -265,18 +274,18 @@ def _qshift_synthesis_geometry(full):
     return geometry
 
 
-def _delta_geometry(shape):
+def _delta_geometry(x):
     """delta_kernel<1> (the LeGall roll is odd): a 64 x 128 pixel tile; its
     static shared memory (the 4 trees' 19 x 28 level-3 windows and two stage
     buffers) is in ptxas's report."""
-    b, _, h3, w3 = shape
+    b, _, h3, w3 = x.shape
     return ("dtcwt_delta.cu delta_kernel<1>", b * -(-(8 * h3) // 64) * -(-(8 * w3) // 128), 256, 0)
 
 
-def _masks_geometry(shape):
+def _masks_geometry(x):
     """an 8 x 24 tile of mask outputs; the row-pass values of its 17 x 116
     window (4 trees, lo and hi, 120 floats a row) in dynamic shared memory"""
-    b, _, h1, w1 = shape
+    b, _, h1, w1 = x.shape
     return ("dtcwt_masks.cu masks_kernel", b * -(-(h1 // 4) // 8) * -(-(w1 // 4) // 24), 256,
             4 * 2 * 17 * 120 * 4)
 
@@ -285,21 +294,49 @@ def _ll_tile_geometry(ch):
     """ll_tile_kernel<ch, words>: an 8 x 32 tile of level-1 positions, two
     positions a thread; word loads where W % 4 == 0 (the batch's base is
     aligned)."""
-    def geometry(shape):
-        b, h, w, _ = shape
+    def geometry(x):
+        b, h, w, _ = x.shape
         return (f"dtcwt_level1.cu ll_tile_kernel<{ch}, {int(w % 4 == 0)}>",
                 b * -(-(h // 2) // 8) * -(-(w // 2) // 32), 128, 0)
     return geometry
 
 
-def _mark_geometry(shape):
+def _mark_geometry(x):
     """mark_tile_kernel<vec> on the interleaved view: 8 tile rows x 16 tiles
     a block, one thread per tile; 16-byte staging where W % 16 == 0, else
     4-byte."""
-    b, _, h, w = shape
+    b, _, h, w = x.shape
     tiles_h, tiles_w = -(-h // 8), -(-w // 8)
     return (f"fused_embed.cu mark_tile_kernel<{16 if w % 16 == 0 else 4}>",
             b * -(-tiles_h // 8) * -(-tiles_w // 16), 128, 0)
+
+
+def _ll_f32_geometry(x):
+    """ll_f32_tile_kernel<load>: an 8 x 32 tile of level-1 positions, two
+    positions a thread; load 2 (16-byte cp.async) for unit column stride,
+    W % 4 == 0 and 16-byte aligned rows, 1 (scalar, one wrap a run) for
+    other W % 4 == 0 layouts, 0 (each column wrapped) for W % 4 == 2."""
+    b, h, w = x.shape
+    sb, sh, sw = x.stride()
+    aligned = sw == 1 and sh % 4 == 0 and sb % 4 == 0 and x.data_ptr() % 16 == 0
+    load = 2 if w % 4 == 0 and aligned else 1 if w % 4 == 0 else 0
+    return (f"dtcwt_level1.cu ll_f32_tile_kernel<{load}>",
+            b * -(-(h // 2) // 8) * -(-(w // 2) // 32), 128, 0)
+
+
+def _dct_mark_geometry(x):
+    """mark_tile_kernel<vec> of the DCT-QIM mark: 4 tile rows x 16 tiles a
+    block, 128 threads; 16- or 8-byte staging on the aligned interleaved
+    view, 0 (8-pixel runs of each channel) on aligned channel planes, 1
+    (bytes through the strides) for any other layout."""
+    b, _, h, w = x.shape
+    sb, sc, sh, sw = x.stride()
+    aligned = [n for n in (16, 8) if sc == 1 and sw == 3 and x.data_ptr() % n == 0
+               and sh % n == 0 and sb % n == 0 and (n != 16 or w % 16 == 0)]
+    if not aligned and sw == 1 and all(v % 8 == 0 for v in (x.data_ptr(), sc, sh, sb)):
+        aligned = [0]  # channel planes: 8-pixel runs of each channel
+    return (f"fused_dct_qim.cu mark_tile_kernel<{aligned[0] if aligned else 1}>",
+            b * -(-(h // 8) // 4) * -(-(w // 8) // 16), 128, 0)
 
 
 GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": _qshift_geometry,
@@ -311,15 +348,17 @@ GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": 
             "dtcwt_qshift_masks": _masks_geometry,
             "dtcwt_qshift_synthesis": _qshift_synthesis_geometry(True),
             "dtcwt_qshift_synthesis_ll": _qshift_synthesis_geometry(False),
-            "dtcwt_delta_synthesis": _delta_geometry}
+            "dtcwt_delta_synthesis": _delta_geometry,
+            "dtcwt_level1_analysis_ll": _ll_f32_geometry, "fused_dct_qim_mark": _dct_mark_geometry}
 
 
-def occupancy_line(name, shape, report) -> str:
+def occupancy_line(name, x, report) -> str:
     """Blocks, threads, shared bytes, registers and spills of one launch,
     and the blocks one H100 SM can hold at once (2048 threads, 32 blocks,
     65,536 registers allocated per warp in units of 256, 233,472 bytes of
     shared memory with 1 KB reserved per block)."""
-    kernel, blocks, threads, dynamic = GEOMETRY[name](tuple(shape))
+    kernel, blocks, threads, dynamic = GEOMETRY[name](x)
+    shape = list(x.shape)
     r = report.get(kernel)
     if r is None:
         return f"occupancy {name} @ {tuple(shape)}: {blocks} blocks x {threads} threads " \
@@ -332,6 +371,34 @@ def occupancy_line(name, shape, report) -> str:
             f"{smem} bytes shared, {r['registers']} registers, {r['spill']} bytes spilled, "
             f"{r['stack']} bytes stack; at most {resident} blocks ({resident * warps} warps) "
             f"resident per SM, {blocks / (132 * resident):.2f} waves on 132 SMs")
+
+
+def sass_report(lib: Path, pattern: str) -> list[str]:
+    """For each kernel of ``lib`` whose mangled name contains ``pattern``:
+    its static SASS instruction count, the count between consecutive
+    barriers (a tiled kernel's stages; loops count once) and its opcode
+    histogram, from ``cuobjdump -sass`` of the CUDA toolkit."""
+    from vfp_tpu_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    lines = []
+    for fn in re.split(r"\n\s*Function : ", dump)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if pattern not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+        stages, n = [], 0
+        for op in ops:
+            n += 1
+            if op.startswith("BAR."):
+                stages.append(n)
+                n = 0
+        hist = collections.Counter(op.split(".")[0] for op in ops).most_common()
+        lines.append(f"sass {name}: {len(ops)} instructions; between barriers "
+                     f"{stages + [n]}; " + ", ".join(f"{k} {v}" for k, v in hist))
+    return lines or [f"sass: no kernel matches {pattern!r}"]
 
 
 def nvidia_smi_line() -> str:
@@ -477,7 +544,7 @@ def check_dct_kernels(device, cfg, rng, record):
             want = dq.fused_dct_qim_mark_reference(planes, wm2d, ALPHA, means)
             same = _frac_equal(got, want)
             record("fused_dct_qim_mark", (got.int() - want.int()).abs().max())
-            assert same >= 0.999, f"fused_dct_qim_mark {b}x{h}x{w}: {same:.6f} identical"
+            assert torch.equal(got, want), f"fused_dct_qim_mark {b}x{h}x{w}: {same:.6f} identical"
             assert got.stride() == planes.stride()
             bits = dq.fused_dct_qim_extract(got, ALPHA, means)
             torch.cuda.synchronize()
@@ -636,7 +703,8 @@ def scope_delta_stages(device, cfg, rng):
 def check_full_dtcwt_kernels(device, cfg, rng, record):
     """The six kernels of the rest of the transform against their plain
     versions on the card, which must be equal: at the new paths' shapes
-    (level 1 lowpass-only on [Y; U] of a 1080p batch, [32, 1080, 1920]; a
+    (level 1 lowpass-only on [Y; U] of a 1080p batch, [32, 1080, 1920], and
+    on the mark path's Y view of the YUV batch, read in place; a
     full q-shift level on its output, [32, 4, 540, 960]; the full LeGall
     synthesis of 16 frames' level-1 planes, [16, 16, 540, 960]; path 1's
     three synthesis stages at 1920x804), then on every level of 4-level
@@ -649,6 +717,8 @@ def check_full_dtcwt_kernels(device, cfg, rng, record):
     b, h, w = cfg["b"], cfg["h"], cfg["w"]
     yuv = bgr_to_yuv(torch.as_tensor(smooth_frames(rng, b, h, w), device=device).to(
         torch.float32))
+    compare_plain("dtcwt_level1_analysis_ll", yuv[..., 0], record,
+                  "Y view of [16, 1080, 1920, 3] YUV, in place")
     x32 = torch.cat([yuv[..., 0], yuv[..., 1]]).contiguous()
     ll1 = compare_plain("dtcwt_level1_analysis_ll", x32, record, "[32, 1080, 1920]")
     compare_plain("dtcwt_qshift_analysis", ll1, record, "[32, 4, 540, 960]")
@@ -676,7 +746,8 @@ def check_full_dtcwt_kernels(device, cfg, rng, record):
         compare_plain(name, grid, record, "[2, 16, 33, 65]")
         compare_plain(name + "_ll", grid[:, :4], record, "[2, 4, 33, 65]")
     print("kernels: DT-CWT level1_analysis_ll, qshift_analysis, qshift_synthesis(_ll), "
-          "legall_synthesis(_ll) equal to their plain versions at [32, 1080, 1920], "
+          "legall_synthesis(_ll) equal to their plain versions at [32, 1080, 1920] (and "
+          "level1_analysis_ll on the Y view of [16, 1080, 1920, 3] YUV, in place), "
           "[32, 4, 540, 960], [16, 16, 540, 960], path 1's 1920x804 stages, every level of "
           "854x480, 853x480 and 2048x858 pyramids and a [2, 16, 33, 65] grid")
 
@@ -1639,7 +1710,16 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
       batches marked by the codec;
     - ``fused_mark_planar`` on the interleaved view ``frames.permute(0, 3, 1,
       2)`` of [16, 1080, 1920], [2, 480, 856] and [2, 1078, 1920] frames, with
-      the spread watermark's bits, as phase 3 gives them.
+      the spread watermark's bits, as phase 3 gives them;
+    - ``dtcwt_level1_analysis_ll`` on path 2's [Y; U] [32, 1080, 1920], on
+      its mark input ``bgr_to_yuv(frames)[..., 0]`` [16, 1080, 1920] read in
+      place (its yardstick: the contiguous copy a wrapper that takes
+      contiguous input makes first, timed apart) and on phase 3's padded
+      854x480, 853x480 and 2048x858 pyramid inputs;
+    - ``fused_dct_qim_mark`` on the interleaved view of [16, 1080, 1920]
+      frames and on its contiguous planar copy, on [2, 480, 856] (rows 8-byte
+      aligned only) and on [2, 1080, 1920] frames with flat tiles, with
+      random bits and ``y_dc_mean``'s means given.
 
     At each shape: the kernel against its plain version (equal), its
     host-inclusive and device-only times, the yardstick's where there is one
@@ -1650,19 +1730,21 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     which no one PyTorch call computes, the chain of the three synthesis
     kernels it fuses, ``dtcwt_qshift_synthesis`` -> ``_ll`` ->
     ``dtcwt_legall_synthesis_ll``, on the same planes with the zero
-    lowpasses concatenated beforehand; none for the masks and the mark),
-    the bound (the bytes at each tensor's element size; for the mark the
-    frame read and written and the f32 bits), and with ``occupancy`` the
+    lowpasses concatenated beforehand; none for the masks and the marks),
+    the bound (the bytes at each tensor's element size, for a view read in
+    place those of the rows it touches; for the marks the frame read and
+    written, the f32 bits and means), and with ``occupancy`` the
     launch geometry beside ptxas's report.  Only the wrappers' public
     functions (and the codec's, to make the path inputs) are called, so
     ``--package-root`` can point this at another checkout's package.
     Returns ({name: [entry per shape]}, {name: max abs error})."""
     from vfp_tpu_torch.kernels import _build, dtcwt_level1 as dl, dtcwt_masks as dm
     from vfp_tpu_torch.kernels import dtcwt_delta as dd, dtcwt_synthesis as ds
-    from vfp_tpu_torch.kernels import fused_embed as fe
+    from vfp_tpu_torch.kernels import fused_dct_qim as dq, fused_embed as fe
     from vfp_tpu_torch.kernels.fused_dct_qim import _lincomb
     from vfp_tpu_torch.ops import dtcwt_coeffs as C
-    from vfp_tpu_torch.ops.dtcwt import Transform2d, _qshift
+    from vfp_tpu_torch.ops.color import bgr_to_yuv
+    from vfp_tpu_torch.ops.dtcwt import Transform2d, _pad_even, _qshift
     from vfp_tpu_torch.wm import DtcwtKey, DwtDctSvd, block_grid
 
     F = torch.nn.functional
@@ -1713,6 +1795,28 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
     scope = torch.as_tensor(smooth_frames(rng, b, scope_h, w), device=device)
     scope_marked = codec.mark_frames(scope, key_wm(codec, scope_h, w, device))
     f480 = torch.as_tensor(smooth_frames(rng, 2, *prime), device=device)
+    # level 1 lowpass-only: path 2's detect input [Y; U] and its mark input,
+    # the Y channel of the YUV batch (a view, 12 bytes a pixel apart), and
+    # phase 3's padded pyramid inputs (W % 4 == 2; an odd level-1 height)
+    yuv = bgr_to_yuv(torch.as_tensor(smooth_frames(rng, b, h, w), device=device).to(
+        torch.float32))
+    y_view = yuv[..., 0]
+    x32 = torch.cat([y_view, yuv[..., 1]])
+    pyramid_inputs = [_pad_even(torch.as_tensor(rng.rand(2, fh, fw).astype(np.float32) * 255,
+                                                device=device))[0]
+                      for fh, fw in ((prime[0], 854), (prime[0], 853), (858, 2048))]
+    # the DCT-QIM mark's inputs, as phase 3 makes them: the interleaved view of
+    # 1080p frames and its planar copy, a 480x856 batch (rows 8-byte aligned
+    # only) and flat tiles; the means and bits given, as in time_kernels
+    dct_args = []
+    for fb, fh, fw, flat in ((b, h, w, False), (2, *prime, False), (2, h, w, True)):
+        fr = natural_frames(rng, fb, fh, fw)
+        planes = torch.as_tensor(_with_flat_blocks(fr) if flat else fr, device=device).permute(
+            0, 3, 1, 2)
+        bits = torch.as_tensor(rng.randint(0, 2, (fh // 8, fw // 8)).astype(np.float32),
+                               device=device)
+        views = (planes, planes.contiguous()) if fb == b else (planes,)
+        dct_args += [(v, bits, ALPHA, dq.y_dc_mean(v)) for v in views]
     # the flagship mark's inputs, as phase 3 makes them
     flagship = DwtDctSvd()
     mark_args = []
@@ -1737,12 +1841,15 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
              ("dtcwt_level1_ll_y", (frames,)), ("dtcwt_level1_ll_y", (scope,)),
              ("dtcwt_level1_ll_y", (f480,)), ("dtcwt_level1_ll_color", (marked,)),
              ("dtcwt_level1_ll_color", (scope_marked,)),
-             *(("fused_mark_planar", args) for args in mark_args)]
+             *(("fused_mark_planar", args) for args in mark_args),
+             ("dtcwt_level1_analysis_ll", (x32,)), ("dtcwt_level1_analysis_ll", (y_view,)),
+             *(("dtcwt_level1_analysis_ll", (x,)) for x in pyramid_inputs),
+             *(("fused_dct_qim_mark", args) for args in dct_args)]
     w4 = _tree_weights([C.LEGALL_H0], [C.LEGALL_H0]).to(device)
     entries, errs = collections.defaultdict(list), collections.defaultdict(float)
     for name, args in cases:
         x = args[0]
-        module = next(m for m in (dl, ds, dd, dm, fe) if hasattr(m, name))
+        module = next(m for m in (dl, ds, dd, dm, fe, dq) if hasattr(m, name))
         kernel, plain = getattr(module, name), getattr(module, name + "_reference")
         got = kernel(*args)
         torch.cuda.synchronize()
@@ -1753,6 +1860,12 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
         if name == "dtcwt_level1_analysis":
             xpad = F.pad(x[:, None], (4, 1, 4, 1), mode="circular")
             library = lambda xpad=xpad: F.conv2d(xpad, w16, stride=2)  # noqa: E731
+        elif name == "dtcwt_level1_analysis_ll" and not x.is_contiguous():
+            # the Y view: the copy a wrapper that takes contiguous input makes first
+            xpad, library = None, lambda x=x: x.contiguous()  # noqa: E731
+        elif name == "dtcwt_level1_analysis_ll":
+            xpad = F.pad(x[:, None], (4, 1, 4, 1), mode="circular")
+            library = lambda xpad=xpad: F.conv2d(xpad, w4, stride=2)  # noqa: E731
         elif name in ("dtcwt_level1_ll_y", "dtcwt_level1_ll_color"):  # over the lincombed planes
             xp = x.permute(0, 3, 1, 2)
             chans = [_lincomb(xp, ch) for ch in range(1 if name.endswith("_y") else 2)]
@@ -1778,6 +1891,7 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
         else:
             xpad, library = None, None
         yardstick = ("three-kernel chain" if name == "dtcwt_delta_synthesis"
+                     else "contiguous copy" if xpad is None and library is not None
                      else None if library is None else "library")
         yard_note = "" if library is None or "synthesis" not in name else (  # same layout
             f"; the {yardstick} differs by {float((library() - got).abs().max()):.3g}")
@@ -1786,23 +1900,28 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
         # units: output positions of all 16 planes (the analyses), of the 4
         # (8) lowpass planes (the u8 lowpasses), mask positions of all 6
         # bands (masks), output samples (the syntheses), 8x8 tiles (the mark)
-        if name == "fused_mark_planar":
+        if name in ("fused_mark_planar", "fused_dct_qim_mark"):  # and the means
             fb, _, fh, fw = x.shape
             units, nbytes = fb * (fh // 8) * (fw // 8), 2 * x.numel() + 4 * args[1].numel()
+            nbytes += 4 * fb if name == "fused_dct_qim_mark" else 0
         else:
             units = got.numel() // {"dtcwt_qshift_masks": 6, "dtcwt_level1_analysis": 16,
                                     "dtcwt_qshift_analysis": 16, "dtcwt_level1_ll_y": 4,
                                     "dtcwt_level1_ll_color": 8}.get(name, 1)
-            nbytes = x.element_size() * x.numel() + got.element_size() * got.numel()
+            # a strided input read in place: the bytes of the rows it touches
+            nbytes = (x.element_size() * x.numel() * x.stride(-1)
+                      + got.element_size() * got.numel())
         t = timing_entry(ms, None, library, run, nbytes, units * FLOPS_PER_UNIT[name],
                          cfg["iters"])
         del xpad, library, got, want
         view = "" if x.is_contiguous() else (
-            " (interleaved view)" if name == "fused_mark_planar" else " (batch-strided view)")
+            " (interleaved view)" if name.startswith("fused") else
+            " (Y view of interleaved YUV)" if name == "dtcwt_level1_analysis_ll"
+            else " (batch-strided view)")
         print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):] + view
               + yard_note)
         if occupancy:
-            print(occupancy_line(name, x.shape, report))
+            print(occupancy_line(name, x, report))
         entries[name].append({"shape": list(x.shape), "max_abs_err": err,
                               "strided": not x.is_contiguous(), "yardstick": yardstick,
                               **{k: t[k] for k in ("ms", "device_ms", "library_ms",
@@ -1814,7 +1933,8 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
     """Host clock around one 16-frame batch of FrameMarker/FrameExtractor's
     work, split at its synchronising boundaries: upload (pinned staging +
     H2D), device compute, download.  Median of ``reps`` after a warm-up.
-    1080p for every codec, and 1920x804 (path 1) for ``dtcwtKey``."""
+    1080p for every codec, 1920x804 (path 1) and float frames (path 2) for
+    ``dtcwtKey``."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
     from vfp_tpu_torch.wm import DctQim, DeCorrShuffler, DeShuffler, DtcwtKey, DwtDctSvd
 
@@ -1836,6 +1956,13 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
         stages[label + " mark"] = (fr, lambda x, wm=wm_key: key_codec.mark_frames(x, wm))
         stages[label + " extract"] = (fr, lambda x: deg_key.correlation_batch(
             key_codec.extract_frames(x)))
+    # path 2's float frames: u8 uploaded, made float32 on the card (in the
+    # device stage), then the bgr_to_yuv channel path
+    wm_key = key_wm(key_codec, h, w, device)
+    stages["dtcwtKey float mark"] = (frames, lambda x: key_codec.mark_frames(
+        x.to(torch.float32), wm_key))
+    stages["dtcwtKey float extract"] = (frames, lambda x: deg_key.correlation_batch(
+        key_codec.extract_frames(x.to(torch.float32))))
     for name, (host, compute) in stages.items():
         runs = []
         for _ in range(reps + 1):
@@ -1861,15 +1988,21 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="only the build and redesign_sweep (the kernels redesigned for "
                          "Hopper: level-1 and q-shift analysis, the LeGall and q-shift "
-                         "syntheses, the masks, the delta, the level-1 u8 lowpasses and the "
-                         "flagship mark, at every shape the paths give them)")
+                         "syntheses, the masks, the delta, the level-1 u8 and f32 lowpasses, "
+                         "the flagship and DCT-QIM marks, at every shape the paths give them)")
+    ap.add_argument("--stages", action="store_true",
+                    help="only the build and the batch stages (upload, device, download of "
+                         "one batch of each codec's pipeline work)")
+    ap.add_argument("--sass", metavar="PATTERN", default=None,
+                    help="only the build and the SASS opcode histogram of the kernels whose "
+                         "mangled name contains PATTERN (cuobjdump)")
     ap.add_argument("--package-root", type=Path, default=None,
-                    help="with --sweep: import vfp_tpu_torch from this checkout (e.g. the "
-                         "parent commit unpacked with git archive) instead of this one")
+                    help="with --sweep or --stages: import vfp_tpu_torch from this checkout "
+                         "(e.g. the parent commit unpacked with git archive) instead of this one")
     args = ap.parse_args(argv)
     if args.package_root is not None:
-        if not args.sweep:
-            ap.error("--package-root needs --sweep")
+        if not (args.sweep or args.stages):
+            ap.error("--package-root needs --sweep or --stages")
         sys.path.insert(0, str(args.package_root.resolve()))
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on a GPU",
@@ -1898,6 +2031,15 @@ def main(argv=None) -> int:
         sweep, _ = redesign_sweep(device, cfg, occupancy=args.package_root is None)
         print(f"sweep above on {card}, package {Path(_build.__file__).parents[1]}")
         print(json.dumps({"sweep": sweep}))
+        return 0
+    if args.sass is not None:
+        for line in sass_report(_build.BUILD_ROOT / _build.source_hash() / _build.LIB_NAME,
+                                args.sass):
+            print(line)
+        return 0
+    if args.stages:
+        time_batch_stages(device, cfg)
+        print(f"batch stages above on {card}, package {Path(_build.__file__).parents[1]}")
         return 0
 
     errs = check_kernels(device, cfg)

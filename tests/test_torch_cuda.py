@@ -6,16 +6,16 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: the DT-CWT masks, the delta synthesis, the six full-transform
-DT-CWT kernels, the level-1 u8 lowpasses, the flagship mark and, at the tile
-edges, the highpass-only LeGall synthesis equal (max_abs_err 0);
-other float outputs rtol/atol 2e-5 (the kernels and their plain
-versions share one op order, IEEE division and no FMA; the detect kernels at 480x856
-atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on the card against the
-CPU's kernel path atol 1e-4 (PyTorch's complex division may round otherwise);
-the DCT-QIM marks identical on >= 99.5% of pixels and bits on >= 99.9% (a
-borderline s0 may take the other, parity-equivalent QIM bin).  The DCT-QIM kernels get
-the same means as their plain versions, so the comparison isolates the
-kernel.
+DT-CWT kernels, the level-1 u8 lowpasses, the flagship and DCT-QIM marks
+and, at the tile edges, the highpass-only LeGall synthesis equal
+(max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and their
+plain versions share one op order, IEEE division and no FMA; the detect
+kernels at 480x856 atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on
+the card against the CPU's kernel path atol 1e-4 (PyTorch's complex
+division may round otherwise); other u8 outputs identical on >= 99.5% of
+pixels and bits on >= 99.9% (a borderline s0 may take the other,
+parity-equivalent QIM bin).  The DCT-QIM kernels get the same means as
+their plain versions, so the comparison isolates the kernel.
 """
 
 import numpy as np
@@ -26,6 +26,7 @@ from vfp_tpu_torch import kernels
 from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt_masks as tdm
 from vfp_tpu_torch.kernels import dtcwt_synthesis as tds
 from vfp_tpu_torch.kernels import fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
+from vfp_tpu_torch.ops.color import bgr_to_yuv
 from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeCorrShuffler, DeShuffler, DtcwtKey,
                               DwtDctSvd, Shuffler, block_grid, clear_wm_cache)
 
@@ -37,7 +38,7 @@ DETECT_KERNELS = ("dtcwt_level1_ll_color", "dtcwt_qshift_ll", "dtcwt_qshift_hp",
 NEW_DTCWT = ("dtcwt_level1_analysis_ll", "dtcwt_qshift_analysis", "dtcwt_qshift_synthesis",
              "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis", "dtcwt_legall_synthesis_ll")
 EQUAL = ("dtcwt_qshift_masks", "dtcwt_delta_synthesis", "dtcwt_level1_ll_y",
-         "dtcwt_level1_ll_color", "fused_mark_planar")
+         "dtcwt_level1_ll_color", "fused_mark_planar", "fused_dct_qim_mark")
 SYNTHESIS_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4,
                     "dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4}
 
@@ -498,6 +499,85 @@ def test_fused_mark_equals_plain_version_at_edge_shapes(cuda_device, shape, plan
     assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
     assert torch.equal(got[:, :, 8 * nbh:], planes[:, :, 8 * nbh:])  # tail rows
     assert torch.equal(got[..., 8 * nbw:], planes[..., 8 * nbw:])  # the half tile
+    assert not torch.equal(got, planes)
+
+
+# The f32 level-1 lowpass tile (8 x 32 positions from a 20 x 68 window, read
+# through the input's strides) and the DCT-QIM mark's strip (4 tile rows x
+# 16 tiles) at their edges: frames smaller than the window, h1 % 8 and w1 %
+# 32 != 0, W % 4 == 2 (each column wrapped, odd w1: no paired stores), B = 1
+# and B = 32; layouts: contiguous (16-byte cp.async), the Y view of an
+# interleaved YUV batch (read in place, pixels 12 bytes apart) and a batch
+# whose base is 4 bytes off 16-byte alignment (scalar loads).  For the mark:
+# W % 16 != 0 (8-byte staging), nbw % 16 and nbh % 4 != 0, one tile, flat
+# tiles (0/0 in the texture mask), the interleaved view (16- or 8-byte), the
+# same view 4 bytes off alignment and a contiguous planar batch 1 byte off
+# (both bytes through the strides), a contiguous planar batch (8-byte runs
+# of each channel).
+LEVEL1_LL_SHAPES = [(1, 2, 2), (1, 6, 10), (2, 18, 22), (2, 34, 98), (1, 38, 70), (32, 24, 40),
+                    (2, 480, 854), (4, 720, 1280)]
+DCT_MARK_SHAPES = [(1, 8, 8), (2, 40, 856), (1, 72, 136), (2, 24, 264), (32, 64, 128),
+                   (2, 200, 136), (1, 1080, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "y_view", "offset"])
+@pytest.mark.parametrize("shape", LEVEL1_LL_SHAPES)
+def test_level1_f32_lowpass_equals_plain_version_at_edge_shapes(cuda_device, shape, layout):
+    b, h, w = shape
+    rng = np.random.RandomState(b * h + w)
+    if layout == "y_view":
+        frames = torch.as_tensor(natural_frames(rng, b, h, w), device=cuda_device)
+        x = bgr_to_yuv(frames.to(torch.float32))[..., 0]
+        assert x.stride() == (3 * h * w, 3 * w, 3)
+    else:
+        data = torch.as_tensor(rng.rand(b, h, w).astype(np.float32) * 255, device=cuda_device)
+        off = int(layout == "offset")
+        x = torch.empty(b * h * w + off, device=cuda_device)[off:].view(b, h, w)
+        x.copy_(data)
+        assert x.is_contiguous() and x.data_ptr() % 16 == (4 if off else 0)
+    kernels.reset_launch_counts()
+    got = tdl.dtcwt_level1_analysis_ll(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dtcwt_level1_analysis_ll"] == 1
+    want = tdl.dtcwt_level1_analysis_ll_reference(x)
+    assert got.shape == want.shape and torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(got, tdl.dtcwt_level1_analysis_ll(x.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "offset", "planar", "planar_offset", "flat"])
+@pytest.mark.parametrize("shape", DCT_MARK_SHAPES)
+def test_dct_qim_mark_equals_plain_version_at_edge_shapes(cuda_device, shape, layout):
+    """``offset``: the interleaved view of a batch that starts 4 bytes into
+    its buffer; ``planar_offset``: a contiguous planar batch 1 byte into its
+    buffer; ``flat``: the interleaved view of frames with flat tiles."""
+    b, h, w = shape
+    rng = np.random.RandomState(b * h + w)
+    frames = natural_frames(rng, b, h, w)
+    if layout == "flat":
+        frames[:, : h // 2] = 0
+        frames[:, h // 2 :, : w // 2] = 128
+    off = {"offset": 4, "planar_offset": 1}.get(layout, 0)
+    buf = torch.empty(frames.size + 4, dtype=torch.uint8, device=cuda_device)
+    if layout.startswith("planar"):
+        planes = buf[off:][: frames.size].view(b, 3, h, w)
+        planes.copy_(torch.as_tensor(frames.transpose(0, 3, 1, 2)))
+        assert planes.is_contiguous() and planes.data_ptr() % 8 == off
+    else:
+        x = buf[off:][: frames.size].view(b, h, w, 3)
+        x.copy_(torch.as_tensor(frames))
+        planes = x.permute(0, 3, 1, 2)
+    wm2d = torch.as_tensor(rng.randint(0, 2, (h // 8, w // 8)).astype(np.float32),
+                           device=cuda_device)
+    means = tdq.y_dc_mean_reference(planes)
+    kernels.reset_launch_counts()
+    got = tdq.fused_dct_qim_mark(planes, wm2d, 20.0, means)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_dct_qim_mark"] == 1
+    assert got.stride() == planes.stride()
+    want = tdq.fused_dct_qim_mark_reference(planes, wm2d, 20.0, means)
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
     assert not torch.equal(got, planes)
 
 

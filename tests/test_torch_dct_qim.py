@@ -203,6 +203,25 @@ def test_mark_reference_matches_pallas(rng, h, w):
     np.testing.assert_array_equal(got[:, 2], planes[:, 2])  # M_BWD[2, 1] == 0: passthrough
 
 
+# The CUDA mark's strip is 4 tile rows x 16 tiles: W % 16 != 0 (136: 8-byte
+# staging), nbw % 16 != 0 (17, 33 tiles), nbh % 4 and % 8 != 0 (9, 25 tile
+# rows), one tile, B = 1 and B = 32.
+STRIP_EDGES = [(1, 72, 136), (1, 8, 8), (2, 24, 264), (32, 16, 16), (1, 200, 136)]
+
+
+@pytest.mark.parametrize("b,h,w", STRIP_EDGES)
+def test_mark_reference_matches_pallas_at_the_strip_edges(rng, b, h, w):
+    planes = natural_frames(rng, b, h, w).transpose(0, 3, 1, 2).copy()
+    wm2d = rng.randint(0, 2, (h // 8, w // 8)).astype(np.float32)
+    want = np.asarray(jk.fused_dct_qim_mark(jnp.asarray(planes), jnp.asarray(wm2d), ALPHA,
+                                            interpret=True))
+    got = tk.fused_dct_qim_mark_reference(torch.from_numpy(planes), torch.from_numpy(wm2d),
+                                          ALPHA).numpy()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.98
+    np.testing.assert_array_equal(got[:, 2], planes[:, 2])
+
+
 @pytest.mark.parametrize("h,w", SHAPES)
 def test_extract_reference_matches_pallas(rng, h, w):
     planes = natural_frames(rng, 2, h, w).transpose(0, 3, 1, 2).copy()

@@ -45,7 +45,7 @@ from vfp_tpu_torch.cli import main as port_cli
 from vfp_tpu_torch.io import RawVideoReader, RawVideoWriter
 from vfp_tpu_torch.kernels import dtcwt_delta as tdelta, dtcwt_level1 as tl1
 from vfp_tpu_torch.kernels import dtcwt_masks as tmasks, dtcwt_synthesis as tsyn
-from vfp_tpu_torch.ops import dtcwt as tdt
+from vfp_tpu_torch.ops import color as tcolor, dtcwt as tdt
 from vfp_tpu_torch.wm import DeCorrShuffler, DtcwtKey, dtcwt_codecs as tcodecs
 
 from torch_parity import natural_frames
@@ -68,15 +68,19 @@ PALLAS = {
     "dtcwt_legall_synthesis_ll": (tsyn, jsyn.dtcwt_legall_synthesis_ll),
     "dtcwt_legall_synthesis_hp": (tsyn, jsyn.dtcwt_legall_synthesis_hp),
 }
-# the JAX XLA chain of each synthesis, for planes the Pallas kernel does not
-# take (synthesis_eligible: h >= 32 and w >= 64)
-XLA_SYNTHESIS = {
+# the JAX XLA chain of each synthesis and of level 1, for planes the Pallas
+# kernel does not take (synthesis_eligible: h >= 32 and w >= 64;
+# kernel_eligible: H >= 32 and W >= 64 with a wrap pad that fits)
+XLA_CHAIN = {
+    "dtcwt_level1_analysis_ll":
+        lambda x: jdt.Transform2d(backend="xla").analysis_level1(x, lowpass_only=True)[0],
     "dtcwt_legall_synthesis": lambda x: jdt.Transform2d(backend="xla").inverse_raw([x]),
     "dtcwt_legall_synthesis_ll": lambda x: jdt.Transform2d(backend="xla").synthesis_legall_ll(x),
     "dtcwt_legall_synthesis_hp": lambda x: jdt.Transform2d(backend="xla").synthesis_legall_hp(x),
     "dtcwt_qshift_synthesis": lambda x: jdt.Transform2d(backend="xla").synthesis_qshift(x),
     "dtcwt_qshift_synthesis_ll": lambda x: jdt.Transform2d(backend="xla").synthesis_qshift_ll(x),
 }
+ELIGIBLE = {"dtcwt_level1_analysis_ll": jl1.kernel_eligible}  # else synthesis_eligible
 LEGALL_PLANES = {"dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4,
                  "dtcwt_legall_synthesis_hp": 12}
 QSHIFT_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4}
@@ -92,6 +96,12 @@ PALLAS_CASES = [
     # and 32, one tile exactly, and a ragged last tile
     (name, (b, LEGALL_PLANES[name], h, w)) for name in LEGALL_PLANES
     for b, h, w in ((2, 1, 1), (1, 1, 2), (2, 3, 5), (1, 17, 33), (32, 16, 32), (1, 33, 65))
+] + [  # the level-1 lowpass tile's edges (8 x 32 positions, a 20 x 68 input
+    # window): frames smaller than the window, h1 % 8 and w1 % 32 != 0, W % 4
+    # == 2 (odd w1), B = 1 and 32, and the padded 854x480 frame
+    ("dtcwt_level1_analysis_ll", shape)
+    for shape in ((1, 2, 2), (1, 6, 10), (2, 34, 98), (1, 38, 70), (32, 32, 64), (32, 6, 10),
+                  (1, 480, 854))
 ] + [  # the q-shift synthesis tile's edges (32 x 64 outputs, a 23 x 39 input
     # window): planes smaller than the 7-sample halo, odd h and w, B = 1 and
     # 32, one tile exactly, a ragged last tile, and a plane the Pallas kernel takes
@@ -111,12 +121,31 @@ def test_plain_version_matches_pallas(rng, name, shape):
     kernels.reset_launch_counts()
     got = getattr(module, name)(torch.from_numpy(x)).numpy()
     assert not any(kernels.launch_counts().values())
-    if name in XLA_SYNTHESIS and not jsyn.synthesis_eligible(*shape[-2:]):
-        want = _np(XLA_SYNTHESIS[name](jnp.asarray(x)))
+    if name in XLA_CHAIN and not ELIGIBLE.get(name, jsyn.synthesis_eligible)(*shape[-2:]):
+        want = _np(XLA_CHAIN[name](jnp.asarray(x)))
     else:
         want = _np(pallas(jnp.asarray(x), interpret=True, fast=False))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 128), (1, 38, 70)])
+def test_level1_lowpass_reads_the_y_view_as_its_copy(rng, shape):
+    """The codec's float-frame mark path hands ``dtcwt_level1_analysis_ll``
+    the Y channel of ``bgr_to_yuv`` (pixels 3 floats apart), which the CUDA
+    wrapper reads in place: the result equals the wrapper's on the
+    contiguous copy and the JAX function's on the same Y."""
+    frames = rng.rand(*shape, 3).astype(np.float32)
+    yuv = tcolor.bgr_to_yuv(torch.from_numpy(frames))
+    view = yuv[..., 0]
+    assert not view.is_contiguous() and view.stride(-1) == 3
+    kernels.reset_launch_counts()
+    got = tl1.dtcwt_level1_analysis_ll(view)
+    assert not any(kernels.launch_counts().values())
+    assert torch.equal(got, tl1.dtcwt_level1_analysis_ll(view.contiguous()))
+    want = jl1.dtcwt_level1_analysis_ll(jax_bgr_to_yuv(jnp.asarray(frames))[..., 0],
+                                        interpret=True, fast=False)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5)
 
 
 # -- Transform2d at any depth ----------------------------------------------------------

@@ -237,7 +237,8 @@ def test_ctypes_signature_matches_the_c_launcher(name):
     params = [p.strip() for p in match.group(1).split(",")]
     assert len(params) == len(_build.SIGNATURES[name])
     assert params[-1] == "void* stream"
-    scalars = {"int": _build.ctypes.c_int, "float": _build.ctypes.c_float}
+    scalars = {"int": _build.ctypes.c_int, "long long": _build.ctypes.c_longlong,
+               "float": _build.ctypes.c_float}
     for p, t in zip(params, _build.SIGNATURES[name]):
         ctype = p.rsplit(" ", 1)[0]
         want = _build.ctypes.c_void_p if "*" in ctype else scalars[ctype]

@@ -30,14 +30,49 @@
 //
 // None of the Mosaic workarounds is carried over: no selection matmuls, no
 // strips or chunk widths, no padded columns, no u8->i32->f32 hop, no aliased
-// output; any W % 8 == 0 width runs as it is.  One thread per tile keeps the
-// 64 row-pass values in registers and overwrites them with the coefficients.
-// Bound on the card: memory (3 B/pixel read, and 3 B/pixel written by mark)
-// against about 3.5 kFLOP per 64 pixels.  Neighbouring threads take
-// neighbouring tiles of a tile row.  Planes are read through the strides they
-// come with; where they are the permuted view of an interleaved [B, H, W, 3]
-// batch (channel stride 1, pixel stride 3, 8-byte aligned rows), each thread
-// moves a tile row as three 8-byte words instead of 24 single bytes.
+// output; any W % 8 == 0 width runs as it is.  Bound on the card: memory
+// (3 B/pixel read, and 3 B/pixel written by mark) against about 3.7 kFLOP per
+// 64 pixels; built without multiply-add contraction the float issue comes
+// close to the bytes' time, so the mark is laid out for issue.
+//
+// Mark (mark_tile_kernel): a block owns 4 tile rows x 16 tiles (32 pixel
+// rows of 384 bytes), 128 threads, in five stages with a barrier between
+// them:
+//   1. the strip goes to shared memory once, interleaved: by 16-byte (W % 16
+//      == 0) or 8-byte cp.async on the interleaved view of a frame batch
+//      (channel stride 1, pixel stride 3), by 8-byte loads of 8 pixels of a
+//      channel from channel planes (a contiguous planar batch), byte by byte
+//      through the strides on any other layout; from here on every layout
+//      runs the same code;
+//   2. row pass, one item per (tile, pixel row), a thread per tile row of 8
+//      pixels: its 24 bytes by three 8-byte reads, the Y and U lincombs, the
+//      8 Y row sums c[r][q] = sum_i Y[r][i] D[q][i] and the U row sum t[r] =
+//      sum_i U[r][i] D[1][i], written to the tile's 72 floats of s_c;
+//   3. column pass, one item per (tile, coefficient column q), in place:
+//      c[p][q] = sum_r D[p][r] c[r][q];
+//   4. one thread per tile: u21 = sum_r D[2][r] t[r], the texture mask (the
+//      64-term sum of |c| as a left fold in index order), the luminance
+//      mask, the step and the QIM target: amp to shared memory;
+//   5. byte-parallel output: an item is 48 bytes (16 pixels, two tiles' row)
+//      of one staged row, each byte's channel and tile column known at
+//      compile time; du = amp * basis[r][i] (basis rows staged in shared
+//      memory), each byte of a channel with M_BWD[k, 1] != 0 becomes
+//      rint(clip(x + M_BWD[k, 1] * du, 0, 255)) (the byte read and the
+//      clipped, rounded result written by the conversion unit, which the
+//      float work leaves idle), and the 48 bytes go out as three 16-byte
+//      (or six 8-byte) stores, as two 8-byte stores a channel plane, or byte
+//      by byte.
+// No thread holds more than one tile row or column, so the launch bound of 6
+// blocks a SM (80 registers) costs no spill; shared memory holds 7.  Each
+// sum keeps the order written above (the plain version's), so the kernel's
+// bytes equal the plain version's.
+//
+// Extract (extract_kernel): one thread per tile keeps the 64 row-pass values
+// in registers and overwrites them with the coefficients.  Neighbouring
+// threads take neighbouring tiles of a tile row.  Planes are read through the
+// strides they come with; where they are the interleaved view with 8-byte
+// aligned rows each thread moves a tile row as three 8-byte words instead of
+// 24 single bytes.  Both kernels share the mask and step (qim_step).
 //
 // The Y mean is a reduction across all tiles of a frame, so it is its own
 // pass: a fixed-order two-stage sum in double (per-block partial sums, then
@@ -46,15 +81,13 @@
 
 #include <cstdint>
 
+#include "staging.cuh"  // cp.async, byte conversions, Strides
+
 namespace vfp {
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMeanThreads = 256;
-
-struct Strides {
-  long long b, c, h, w;  // in elements (bytes: the planes are u8)
-};
 
 // Constants from Python (kernels/fused_dct_qim.py:_params_host), so they hold
 // the reference's float32 bits.
@@ -86,24 +119,6 @@ __device__ __forceinline__ void load_row(const uint8_t* __restrict__ p, const St
   }
 }
 
-template <bool kPacked>
-__device__ __forceinline__ void store_row(uint8_t* __restrict__ p, const Strides& s,
-                                          const unsigned v[24]) {
-  if (kPacked) {
-    unsigned w[6] = {0u, 0u, 0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int j = 0; j < 24; ++j) w[j >> 2] |= v[j] << (8 * (j & 3));
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-    *reinterpret_cast<uint2*>(p + 8) = make_uint2(w[2], w[3]);
-    *reinterpret_cast<uint2*>(p + 16) = make_uint2(w[4], w[5]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) p[c * s.w + ch * s.c] = (uint8_t)v[3 * c + ch];
-  }
-}
-
 __device__ __forceinline__ float lincomb(const float m[3], float off, float x0, float x1,
                                          float x2) {
   return ((m[0] * x0 + m[1] * x1) + m[2] * x2) + off;
@@ -116,6 +131,46 @@ struct Qim {
   float v;     // U coefficient [2][1]
   float step;  // alpha * texture mask * luminance mask
 };
+
+// step = alpha * (texture mask * luminance mask) of one tile, from A(i) =
+// |C[i / 8][i % 8]| and the DC coefficient c00 = C[0][0], in the reference's
+// operation order.
+template <class Abs>
+__device__ __forceinline__ float qim_step(Abs abs_c, float c00, float mean, float alpha) {
+  // texture mask (vfp_tpu/wm/dct_qim.py:texture_mask)
+#define A(p, q) abs_c((p) * 8 + (q))
+  float total = A(0, 0);
+#pragma unroll
+  for (int i = 1; i < 64; ++i) total = total + abs_c(i);
+  const float dcl = A(0, 0) + A(0, 1) + A(0, 2) + A(1, 0) + A(1, 1) + A(2, 0);
+  const float eh = total - dcl;
+  const float e = A(3, 0) + A(4, 0) + A(5, 0) + A(6, 0) + A(0, 3) + A(0, 4) + A(0, 5) + A(0, 6) +
+                  A(2, 1) + A(1, 2) + A(2, 2) + A(3, 3);
+  const float h = eh - e;
+  const float l = dcl - A(0, 0);
+#undef A
+  // unguarded IEEE division: a flat tile gives 0/0 = NaN or x/0 = inf here,
+  // and the comparisons below then decide as the reference's do
+  const float l_e = l / e;
+  const float le_h = (l + e) / h;
+  const bool edge_hi = ((l_e >= 1.4f) & (le_h >= 1.1f)) | ((l_e >= 1.1f) & (le_h >= 1.4f)) |
+                       (le_h > 4.0f);
+  const bool edge_lo = ((l_e >= 2.3f) & (le_h >= 1.6f)) | ((l_e >= 1.6f) & (le_h >= 2.3f)) |
+                       (le_h > 4.0f);
+  const float edge_val = (l + e <= 400.0f) ? 1.125f : 1.25f;
+  const float ramp = 1.0f + 1.25f * (eh - 290.0f) / 1510.0f;
+  const float hi = edge_hi ? edge_val : ramp;
+  const float lo = edge_lo ? edge_val : ((e + h > 290.0f) ? ramp : 1.0f);
+  const float tex = (eh > 125.0f) ? ((eh > 900.0f) ? hi : lo) : 1.0f;
+
+  // luminance mask (vfp_tpu/kernels/fused_dct_qim.py:_lum_mask)
+  const float dc = c00 / 8.0f;
+  const float m = fmaxf(90.0f, mean);
+  const float f_ref = 1.0f + (m - 90.0f) * 1.0f / 165.0f;
+  const float lramp = 1.0f + (dc - m) / (255.0f - m) * (2.0f - f_ref);
+  const float lum = (dc > m) ? lramp : ((dc < 15.0f) ? 1.25f : ((dc < 25.0f) ? 1.125f : 1.0f));
+  return alpha * (tex * lum);
+}
 
 // The QIM coefficient and step of the tile whose top-left pixel is (y0, x0).
 template <bool kPacked>
@@ -164,79 +219,249 @@ __device__ __forceinline__ Qim tile_qim(const uint8_t* __restrict__ xb, const St
 #pragma unroll
   for (int r = 1; r < 8; ++r) u21 = u21 + k.d[16 + r] * t[r];
 
-  // texture mask (vfp_tpu/wm/dct_qim.py:texture_mask)
-#define A(p, q) fabsf(c[(p) * 8 + (q)])
-  float total = A(0, 0);
-#pragma unroll
-  for (int i = 1; i < 64; ++i) total = total + fabsf(c[i]);
-  const float dcl = A(0, 0) + A(0, 1) + A(0, 2) + A(1, 0) + A(1, 1) + A(2, 0);
-  const float eh = total - dcl;
-  const float e = A(3, 0) + A(4, 0) + A(5, 0) + A(6, 0) + A(0, 3) + A(0, 4) + A(0, 5) + A(0, 6) +
-                  A(2, 1) + A(1, 2) + A(2, 2) + A(3, 3);
-  const float h = eh - e;
-  const float l = dcl - A(0, 0);
-#undef A
-  // unguarded IEEE division: a flat tile gives 0/0 = NaN or x/0 = inf here,
-  // and the comparisons below then decide as the reference's do
-  const float l_e = l / e;
-  const float le_h = (l + e) / h;
-  const bool edge_hi = ((l_e >= 1.4f) & (le_h >= 1.1f)) | ((l_e >= 1.1f) & (le_h >= 1.4f)) |
-                       (le_h > 4.0f);
-  const bool edge_lo = ((l_e >= 2.3f) & (le_h >= 1.6f)) | ((l_e >= 1.6f) & (le_h >= 2.3f)) |
-                       (le_h > 4.0f);
-  const float edge_val = (l + e <= 400.0f) ? 1.125f : 1.25f;
-  const float ramp = 1.0f + 1.25f * (eh - 290.0f) / 1510.0f;
-  const float hi = edge_hi ? edge_val : ramp;
-  const float lo = edge_lo ? edge_val : ((e + h > 290.0f) ? ramp : 1.0f);
-  const float tex = (eh > 125.0f) ? ((eh > 900.0f) ? hi : lo) : 1.0f;
-
-  // luminance mask (vfp_tpu/kernels/fused_dct_qim.py:_lum_mask)
-  const float dc = c[0] / 8.0f;
-  const float m = fmaxf(90.0f, mean);
-  const float f_ref = 1.0f + (m - 90.0f) * 1.0f / 165.0f;
-  const float lramp = 1.0f + (dc - m) / (255.0f - m) * (2.0f - f_ref);
-  const float lum = (dc > m) ? lramp : ((dc < 15.0f) ? 1.25f : ((dc < 25.0f) ? 1.125f : 1.0f));
-  return Qim{u21, alpha * (tex * lum)};
+  return Qim{u21, qim_step([&](int i) { return fabsf(c[i]); }, c[0], mean, alpha)};
 }
 
-template <bool kPacked>
-__global__ void __launch_bounds__(kThreads)
-    mark_kernel(const uint8_t* __restrict__ x, Strides xs, uint8_t* __restrict__ o, Strides os,
-                const float* __restrict__ wm, const float* __restrict__ means, int batch, int nbh,
-                int nbw, float alpha, Params k) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)batch * nbh * nbw) return;
-  const int tj = (int)(t % nbw);
-  const int ti = (int)((t / nbw) % nbh);
-  const long long b = t / ((long long)nbw * nbh);
+// mark_tile_kernel's geometry
+constexpr int kQimTc = 16;                        // tiles a block row
+constexpr int kQimTr = 4;                         // tile rows a block
+constexpr int kQimTiles = kQimTc * kQimTr;        // 64
+constexpr int kQimThreads = 8 * kQimTc;           // one (tile, row) item per thread and tile row
+constexpr int kQimRows = 8 * kQimTr;              // staged pixel rows (32)
+constexpr int kQimRowBytes = 3 * 8 * kQimTc;      // staged bytes a row (384)
+constexpr int kQimChunk = 48;                     // output bytes an item: 16 pixels
+constexpr int kQimChunks = kQimRowBytes / kQimChunk;  // items a row (8)
+// floats a tile in s_c: the 64 row sums, then the coefficients, row-major,
+// and the 8 U row sums; 72 = 8 mod 32 banks, so the column pass's 8
+// columns of 4 tiles a warp hit 32 banks
+constexpr int kQimC = 72;
+// 30,976 bytes of shared memory a block: 6 blocks a SM need at most 80 registers
+constexpr int kQimBlocks = 6;
+
+// kVec = 16 or 8: the interleaved view (channel stride 1, pixel stride 3),
+// rows and batch items kVec-byte aligned in and out (W % 8 == 0 makes every
+// interleaved batch from an aligned allocation 8-byte aligned); kVec = 0: channel
+// planes of unit pixel stride (a contiguous [B, 3, H, W] batch), rows,
+// planes and batch items 8-byte aligned in and out, 8 pixels of a channel a
+// load or store, interleaved in shared memory; kVec = 1: any strides, byte
+// by byte.
+template <int kVec>
+__global__ void __launch_bounds__(kQimThreads, kQimBlocks)
+    mark_tile_kernel(const uint8_t* __restrict__ x, Strides xs, uint8_t* __restrict__ o,
+                     Strides os, const float* __restrict__ wm, const float* __restrict__ means,
+                     int nbh, int nbw, float alpha, Params k) {
+  __shared__ __align__(16) uint8_t s_x[kQimRows][kQimRowBytes];
+  __shared__ __align__(16) float s_c[kQimTiles][kQimC];
+  __shared__ __align__(16) float s_basis[64];
+  __shared__ float s_amp[kQimTiles];
+  const int tj0 = blockIdx.x * kQimTc, ti0 = blockIdx.y * kQimTr;
+  const int y0 = 8 * ti0, x0 = 8 * tj0;
+  const int trows = min(kQimTr, nbh - ti0), tcols = min(kQimTc, nbw - tj0);
+  const int rows = 8 * trows, nbytes = 24 * tcols;  // staged rows and bytes a row
+  const long long b = blockIdx.z;
   const uint8_t* xb = x + b * xs.b;
   uint8_t* ob = o + b * os.b;
-  const int y0 = ti * 8, x0 = tj * 8;
+  // stage 4's inputs, loaded now so their latency hides behind stages 1-3
+  const int ma = threadIdx.x / kQimTc, mt = threadIdx.x % kQimTc;  // stage 4's tile
+  const bool masker = threadIdx.x < kQimTiles && ma < trows && mt < tcols;
+  const float bit = masker ? wm[(long long)(ti0 + ma) * nbw + tj0 + mt] : 0.0f;
+  const float mean = masker ? means[b] : 0.0f;
 
-  const Qim qv = tile_qim<kPacked>(xb, xs, y0, x0, means[b], alpha, k);
-  const float step2 = qv.step + qv.step;
-  const float sg = sign_of(qv.v);
-  const float base = sg * floorf(fabsf(qv.v) / step2) * step2;
-  const float target = (wm[(long long)ti * nbw + tj] == 0.0f) ? base : base + sg * qv.step;
-  const float amp = target - qv.v;
-
+  // 1. the strip, and the basis rows (constant indices: no local copy of k)
+  if constexpr (kVec > 1) {
+    constexpr int kUnits = kQimRowBytes / kVec;
+    for (int it = threadIdx.x; it < rows * kUnits; it += kQimThreads) {
+      const int r = it / kUnits, e = (it % kUnits) * kVec;
+      if (e >= nbytes) continue;
+      const uint8_t* src = xb + (long long)(y0 + r) * xs.h + 3LL * x0 + e;
+      if constexpr (kVec == 16)
+        cp_async16(&s_x[r][e], src);
+      else
+        cp_async8(&s_x[r][e], src);
+    }
+    cp_async_commit();
+  } else if constexpr (kVec == 0) {
+    for (int it = threadIdx.x; it < rows * kQimTc; it += kQimThreads) {
+      const int r = it / kQimTc, g = it % kQimTc;  // pixels 8 g .. 8 g + 7 of staged row r
+      if (g >= tcols) continue;
+      const uint8_t* src = xb + (long long)(y0 + r) * xs.h + x0 + 8 * g;
+      uint2 pw[3];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    unsigned v[24];
-    load_row<kPacked>(xb + (long long)(y0 + r) * xs.h + (long long)x0 * xs.w, xs, v);
+      for (int ch = 0; ch < 3; ++ch) pw[ch] = __ldg(reinterpret_cast<const uint2*>(src + ch * xs.c));
+      uint32_t wd[6] = {0u, 0u, 0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float du = amp * k.basis[r * 8 + i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        if (k.bwd[ch] != 0.0f) {
-          // clip before rounding; rintf is round-half-even like jnp.round
-          const float f = fminf(fmaxf((float)v[3 * i + ch] + k.bwd[ch] * du, 0.0f), 255.0f);
-          v[3 * i + ch] = (unsigned)rintf(f);
+        for (int ch = 0; ch < 3; ++ch) {
+          const uint32_t v = ((i < 4 ? pw[ch].x : pw[ch].y) >> (8 * (i % 4))) & 0xffu;
+          wd[(3 * i + ch) / 4] |= v << (8 * ((3 * i + ch) % 4));
         }
+      uint2* dst = reinterpret_cast<uint2*>(&s_x[r][24 * g]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dst[j] = make_uint2(wd[2 * j], wd[2 * j + 1]);
+    }
+  } else {
+    for (int it = threadIdx.x; it < rows * kQimRowBytes; it += kQimThreads) {
+      const int r = it / kQimRowBytes, e = it % kQimRowBytes;
+      if (e < nbytes)
+        s_x[r][e] = xb[(e % 3) * xs.c + (long long)(y0 + r) * xs.h + (long long)(x0 + e / 3) * xs.w];
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; i += 4)
+      *reinterpret_cast<float4*>(&s_basis[i]) =
+          make_float4(k.basis[i], k.basis[i + 1], k.basis[i + 2], k.basis[i + 3]);
+  }
+  if constexpr (kVec > 1) cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. row pass: thread (r, t) takes pixel row r of tile t in each tile row
+  {
+    const int r = threadIdx.x / kQimTc, t = threadIdx.x % kQimTc;
+    for (int a = 0; a < trows; ++a) {
+      if (t >= tcols) break;
+      uint32_t wd[6];  // the tile row's 24 bytes: byte 3 i + ch is channel ch of pixel i
+      const uint2* src = reinterpret_cast<const uint2*>(&s_x[8 * a + r][24 * t]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const uint2 w2 = src[j];
+        wd[2 * j] = w2.x;
+        wd[2 * j + 1] = w2.y;
+      }
+      float yv[8], uv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float bb = word_byte_to_float(wd[(3 * i) / 4], (3 * i) % 4);
+        const float gg = word_byte_to_float(wd[(3 * i + 1) / 4], (3 * i + 1) % 4);
+        const float rr = word_byte_to_float(wd[(3 * i + 2) / 4], (3 * i + 2) % 4);
+        yv[i] = lincomb(k.fwd_y, k.off_y, bb, gg, rr);
+        uv[i] = lincomb(k.fwd_u, k.off_u, bb, gg, rr);
+      }
+      float row[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float acc = yv[0] * k.d[q * 8];
+#pragma unroll
+        for (int i = 1; i < 8; ++i) acc = acc + yv[i] * k.d[q * 8 + i];
+        row[q] = acc;
+      }
+      float acc = uv[0] * k.d[8];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) acc = acc + uv[i] * k.d[8 + i];
+      float* c = s_c[a * kQimTc + t];
+      *reinterpret_cast<float4*>(&c[8 * r]) = make_float4(row[0], row[1], row[2], row[3]);
+      *reinterpret_cast<float4*>(&c[8 * r + 4]) = make_float4(row[4], row[5], row[6], row[7]);
+      c[64 + r] = acc;
+    }
+  }
+  __syncthreads();
+
+  // 3. column pass, in place: thread (t, q) takes coefficient column q of tile t
+  {
+    const int q = threadIdx.x % 8, t = threadIdx.x / 8;
+    for (int a = 0; a < trows; ++a) {
+      if (t >= tcols) break;
+      float* c = s_c[a * kQimTc + t];
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) v[r] = c[r * 8 + q];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        float acc = k.d[p * 8] * v[0];
+#pragma unroll
+        for (int r = 1; r < 8; ++r) acc = acc + k.d[p * 8 + r] * v[r];
+        c[p * 8 + q] = acc;
       }
     }
-    store_row<kPacked>(ob + (long long)(y0 + r) * os.h + (long long)x0 * os.w, os, v);
+  }
+  __syncthreads();
+
+  // 4. masks, step and QIM target: one thread per tile
+  if (masker) {
+    const float* c = s_c[threadIdx.x];
+    float ac[64];  // |C|, read as float4
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(&c[4 * j]);
+      ac[4 * j] = fabsf(v.x), ac[4 * j + 1] = fabsf(v.y);
+      ac[4 * j + 2] = fabsf(v.z), ac[4 * j + 3] = fabsf(v.w);
+    }
+    const float4 t0 = *reinterpret_cast<const float4*>(&c[64]);
+    const float4 t1 = *reinterpret_cast<const float4*>(&c[68]);
+    const float tr[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+    float v = k.d[16] * tr[0];
+#pragma unroll
+    for (int r = 1; r < 8; ++r) v = v + k.d[16 + r] * tr[r];
+    const float step = qim_step([&](int i) { return ac[i]; }, c[0], mean, alpha);
+    const float step2 = step + step;
+    const float sg = sign_of(v);
+    const float base = sg * floorf(fabsf(v) / step2) * step2;
+    const float target = (bit == 0.0f) ? base : base + sg * step;
+    s_amp[threadIdx.x] = target - v;
+  }
+  __syncthreads();
+
+  // 5. output: 48 bytes (pixels e0 / 3 .. + 15, tiles e0 / 24 and + 1) of staged row r
+  for (int it = threadIdx.x; it < rows * kQimChunks; it += kQimThreads) {
+    const int r = it / kQimChunks, e0 = (it % kQimChunks) * kQimChunk;
+    if (e0 >= nbytes) continue;
+    uint32_t word[kQimChunk / 4];
+#pragma unroll
+    for (int j = 0; j < kQimChunk / 16; ++j) {
+      const uint4 w4 = *reinterpret_cast<const uint4*>(&s_x[r][e0 + 16 * j]);
+      word[4 * j] = w4.x, word[4 * j + 1] = w4.y, word[4 * j + 2] = w4.z, word[4 * j + 3] = w4.w;
+    }
+    const float4 b0 = *reinterpret_cast<const float4*>(&s_basis[8 * (r % 8)]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&s_basis[8 * (r % 8) + 4]);
+    const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const float amp[2] = {s_amp[(r / 8) * kQimTc + e0 / 24], s_amp[(r / 8) * kQimTc + e0 / 24 + 1]};
+    float du[16];
+#pragma unroll
+    for (int px = 0; px < 16; ++px) du[px] = amp[px / 8] * bs[px % 8];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      if (k.bwd[ch] == 0.0f) continue;  // that channel passes through
+#pragma unroll
+      for (int px = 0; px < kQimChunk / 3; ++px) {
+        const int j = 3 * px + ch, sh = 8 * (j % 4);
+        // rint(clip(f, 0, 255)), half to even, as one saturating conversion
+        const float f = byte_to_float_cvt(word[j / 4] >> sh) + k.bwd[ch] * du[px];
+        word[j / 4] = (word[j / 4] & ~(0xffu << sh)) | (float_to_byte_sat(f) << sh);
+      }
+    }
+    const long long row = (long long)(y0 + r) * os.h;
+    if constexpr (kVec == 16) {  // W % 16 == 0: nbytes is a multiple of 48
+      uint4* dst = reinterpret_cast<uint4*>(ob + row + 3LL * x0 + e0);
+#pragma unroll
+      for (int j = 0; j < kQimChunk / 16; ++j)
+        dst[j] = make_uint4(word[4 * j], word[4 * j + 1], word[4 * j + 2], word[4 * j + 3]);
+    } else if constexpr (kVec == 8) {
+      uint2* dst = reinterpret_cast<uint2*>(ob + row + 3LL * x0 + e0);
+#pragma unroll
+      for (int j = 0; j < kQimChunk / 8; ++j)
+        if (e0 + 8 * j < nbytes) dst[j] = make_uint2(word[2 * j], word[2 * j + 1]);
+    } else if constexpr (kVec == 0) {  // each channel's 16 pixels as two 8-byte stores
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        uint32_t pw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int px = 0; px < 16; ++px) {
+          const int j = 3 * px + ch;
+          pw[px / 4] |= ((word[j / 4] >> (8 * (j % 4))) & 0xffu) << (8 * (px % 4));
+        }
+        uint2* dst = reinterpret_cast<uint2*>(ob + row + ch * os.c + x0 + e0 / 3);
+        dst[0] = make_uint2(pw[0], pw[1]);
+        if (e0 + 24 < nbytes) dst[1] = make_uint2(pw[2], pw[3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kQimChunk; ++j) {
+        const int e = e0 + j;
+        if (e < nbytes)
+          ob[(e % 3) * os.c + row + (long long)(x0 + e / 3) * os.w] = (word[j / 4] >> (8 * (j % 4))) & 0xffu;
+      }
+    }
   }
 }
 
@@ -291,11 +516,6 @@ __global__ void y_mean_kernel(const double* __restrict__ partial, int blocks, in
   means[b] = (float)(s / count);
 }
 
-Strides strides(const void* host_strides) {
-  const long long* p = static_cast<const long long*>(host_strides);
-  return Strides{p[0], p[1], p[2], p[3]};
-}
-
 Params params(const void* host_params) {
   Params k;
   const float* p = static_cast<const float*>(host_params);
@@ -318,9 +538,9 @@ unsigned grid_for(long long total) { return (unsigned)((total + kThreads - 1) / 
 // bits/partial are device pointers (partial: batch x slots doubles of
 // scratch); the stride arrays (4 int64: b, c, h, w) and the params array
 // (139 floats in the order of vfp::Params) are host memory read before the
-// launch; packed != 0 selects the 8-byte row path, which the caller allows
-// only for interleaved, 8-byte aligned planes.  Returns the cudaError_t of
-// the launch.
+// launch; for extract, packed != 0 selects the 8-byte row path, which the
+// caller allows only for interleaved, 8-byte aligned planes.  Returns the
+// cudaError_t of the launch.
 
 extern "C" int vfp_y_dc_mean(const void* x, const void* x_strides, void* partial,
                              void* means, int batch, int h8, int w8, int slots,
@@ -340,23 +560,43 @@ extern "C" int vfp_y_dc_mean(const void* x, const void* x_strides, void* partial
   return (int)cudaGetLastError();
 }
 
+template <int kVec>
+static int launch_mark(const void* x, const vfp::Strides& xs, void* o, const vfp::Strides& os,
+                       const void* wm, const void* means, int batch, int nbh, int nbw,
+                       float alpha, const vfp::Params& k, void* stream) {
+  const dim3 grid((nbw + vfp::kQimTc - 1) / vfp::kQimTc, (nbh + vfp::kQimTr - 1) / vfp::kQimTr,
+                  batch);
+  vfp::mark_tile_kernel<kVec><<<grid, vfp::kQimThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)x, xs, (uint8_t*)o, os, (const float*)wm, (const float*)means, nbh, nbw,
+      alpha, k);
+  return (int)cudaGetLastError();
+}
+
+// Channel planes of unit pixel stride whose rows, planes and batch items are
+// n-byte aligned.
+static bool planar(const void* p, const vfp::Strides& s, int n) {
+  return s.w == 1 && reinterpret_cast<uintptr_t>(p) % n == 0 && s.c % n == 0 && s.h % n == 0 &&
+         s.b % n == 0;
+}
+
+// 16-byte staging and stores where W % 16 == 0 and both views are aligned to
+// it, 8-byte ones on any other aligned interleaved view, 8-byte channel
+// runs on aligned planes (a contiguous planar batch), byte by byte through the
+// strides for any other layout.
 extern "C" int vfp_fused_dct_qim_mark(const void* x, const void* x_strides, void* o,
                                       const void* o_strides, const void* wm, const void* means,
-                                      int batch, int nbh, int nbw, float alpha, int packed,
+                                      int batch, int nbh, int nbw, float alpha,
                                       const void* params, void* stream) {
-  const long long total = (long long)batch * nbh * nbw;
-  if (total == 0) return 0;
+  if (batch == 0 || nbh == 0 || nbw == 0) return 0;
   const vfp::Strides xs = vfp::strides(x_strides), os = vfp::strides(o_strides);
   const vfp::Params k = vfp::params(params);
-  if (packed)
-    vfp::mark_kernel<true><<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, xs, (uint8_t*)o, os, (const float*)wm, (const float*)means, batch,
-        nbh, nbw, alpha, k);
-  else
-    vfp::mark_kernel<false><<<vfp::grid_for(total), vfp::kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, xs, (uint8_t*)o, os, (const float*)wm, (const float*)means, batch,
-        nbh, nbw, alpha, k);
-  return (int)cudaGetLastError();
+  auto both = [&](int n) { return vfp::interleaved(x, xs, n) && vfp::interleaved(o, os, n); };
+  if (nbw % 2 == 0 && both(16))
+    return launch_mark<16>(x, xs, o, os, wm, means, batch, nbh, nbw, alpha, k, stream);
+  if (both(8)) return launch_mark<8>(x, xs, o, os, wm, means, batch, nbh, nbw, alpha, k, stream);
+  if (planar(x, xs, 8) && planar(o, os, 8))
+    return launch_mark<0>(x, xs, o, os, wm, means, batch, nbh, nbw, alpha, k, stream);
+  return launch_mark<1>(x, xs, o, os, wm, means, batch, nbh, nbw, alpha, k, stream);
 }
 
 extern "C" int vfp_fused_dct_qim_extract(const void* x, const void* x_strides, void* bits,

@@ -50,7 +50,7 @@
 
 #include <cstdint>
 
-#include "staging.cuh"  // cp.async, byte_to_float, float_to_byte
+#include "staging.cuh"  // cp.async, byte_to_float, float_to_byte, Strides
 #include "triplet.cuh"
 
 namespace vfp {
@@ -69,10 +69,6 @@ constexpr int kChunks = kMarkRowBytes / kChunk;   // items a row (8)
 constexpr int kDuRow = 4 * kMarkTc;               // du entries a LL row (64)
 // 6 blocks of 32 KB shared memory a SM (24 warps): at most 80 registers
 constexpr int kMarkBlocks = 6;
-
-struct Strides {
-  long long b, c, h, w;  // in elements (bytes: the planes are u8)
-};
 
 // Colour constants for one channel, from Python (ops/color.py) so they hold
 // the reference's float32 bits: the forward row, the folded offset and the
@@ -253,11 +249,6 @@ __global__ void extract_kernel(const uint8_t* __restrict__ x, Strides xs, float*
   bits[t] = qim_bit(dominant_triplet(ll, v0, u, v), scale);
 }
 
-Strides strides(const void* host_strides) {
-  const long long* p = static_cast<const long long*>(host_strides);
-  return Strides{p[0], p[1], p[2], p[3]};
-}
-
 Color color(const void* host_color) {
   const float* p = static_cast<const float*>(host_color);
   return Color{{p[0], p[1], p[2]}, p[3], {p[4], p[5], p[6]}};
@@ -279,12 +270,6 @@ unsigned grid_for(long long total) { return (unsigned)((total + kThreads - 1) / 
 // device pointers; the stride arrays (4 int64: b, c, h, w), the colour array
 // (7 floats: fwd[3], off2, bwd[3]) and v0 (4 floats) are host memory read
 // before the launch.  Returns the cudaError_t of the launch.
-
-// The interleaved view with rows and batch items aligned to n bytes, in and out.
-static bool interleaved(const void* p, const vfp::Strides& s, int n) {
-  return s.c == 1 && s.w == 3 && reinterpret_cast<uintptr_t>(p) % n == 0 && s.h % n == 0 &&
-         s.b % n == 0;
-}
 
 template <int kVec>
 static int launch_mark(const void* x, const vfp::Strides& xs, void* o, const vfp::Strides& os,
@@ -308,10 +293,10 @@ extern "C" int vfp_fused_mark_planar(const void* x, const void* x_strides, void*
                                      const void* color, const void* v0, void* stream) {
   if (batch == 0 || height == 0 || width == 0) return 0;
   const vfp::Strides xs = vfp::strides(x_strides), os = vfp::strides(o_strides);
-  if (width % 16 == 0 && interleaved(x, xs, 16) && interleaved(o, os, 16))
+  if (width % 16 == 0 && vfp::interleaved(x, xs, 16) && vfp::interleaved(o, os, 16))
     return launch_mark<16>(x, xs, o, os, wm, batch, height, width, nbh, nbw, scale, color, v0,
                            stream);
-  if (width % 4 == 0 && interleaved(x, xs, 4) && interleaved(o, os, 4))
+  if (width % 4 == 0 && vfp::interleaved(x, xs, 4) && vfp::interleaved(o, os, 4))
     return launch_mark<4>(x, xs, o, os, wm, batch, height, width, nbh, nbw, scale, color, v0,
                           stream);
   return launch_mark<1>(x, xs, o, os, wm, batch, height, width, nbh, nbw, scale, color, v0, stream);

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libvfp_tpu_torch_kernels.so"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every exported launcher: every pointer and the stream as c_void_p
 SIGNATURES = {
     "vfp_qim_triplet_soa": [_P, _P, _I, _I, _P, _P],
@@ -45,7 +45,7 @@ SIGNATURES = {
     "vfp_fused_mark_planar": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "vfp_fused_extract_planar": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "vfp_y_dc_mean": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "vfp_fused_dct_qim_mark": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
+    "vfp_fused_dct_qim_mark": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "vfp_fused_dct_qim_extract": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
     "vfp_dtcwt_level1_ll_y": [_P, _P, _I, _I, _I, _P, _P],
     "vfp_dtcwt_level1_analysis": [_P, _P, _I, _I, _I, _P, _P],
@@ -55,7 +55,7 @@ SIGNATURES = {
     "vfp_dtcwt_qshift_ll": [_P, _P, _I, _I, _I, _I, _P, _P],
     "vfp_dtcwt_qshift_hp": [_P, _P, _I, _I, _I, _I, _P, _P],
     "vfp_dtcwt_legall_synthesis_hp": [_P, _P, _I, _I, _I, _P, _P],
-    "vfp_dtcwt_level1_analysis_ll": [_P, _P, _I, _I, _I, _P, _P],
+    "vfp_dtcwt_level1_analysis_ll": [_P, _P, _I, _I, _I, _L, _L, _L, _P, _P],
     "vfp_dtcwt_qshift_analysis": [_P, _P, _I, _I, _I, _I, _P, _P],
     "vfp_dtcwt_qshift_synthesis": [_P, _P, _I, _I, _I, _P, _P],
     "vfp_dtcwt_qshift_synthesis_ll": [_P, _P, _I, _I, _I, _P, _P],

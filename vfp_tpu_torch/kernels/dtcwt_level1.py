@@ -32,12 +32,15 @@ ct), the q-shift levels with tree rt's and tree ct's 14-tap filters at phase
 one kernel with modular indexing covers both and copies nothing.  The
 q-shift wrappers take a view whose batch items are each contiguous
 (``ll[:, 1]`` of the level-1 output, ``planes[:, :4]`` of a level's 16
-planes) in place.  The f32 level-1 wrappers copy a strided input first (the
-Y channel of ``bgr_to_yuv``: 4 B per pixel).
+planes) in place.  ``dtcwt_level1_analysis_ll`` reads any layout in place
+through its (batch, row, column) strides (the Y channel of ``bgr_to_yuv``,
+12 bytes a pixel apart, on the codec's float-frame mark path);
+``dtcwt_level1_analysis`` copies a non-contiguous input first (no path gives
+it one).
 
-The u8 lowpass kernels and the full level-1 analysis are tiled (a tile of
-output positions a block, its pixel window loaded once, each row-pass value
-computed once); ``dtcwt_level1_analysis_ll`` gives one thread each position.
+Every level-1 kernel is tiled (a tile of output positions a block, its pixel
+window loaded once, each row-pass value computed once); the three lowpass
+wrappers share one 8 x 32 tile of positions.
 
 The plain versions (``*_reference``) are the plain transform's blocks
 (``ops/dtcwt.py``), which fold every sum in the kernels' order: each channel
@@ -152,22 +155,19 @@ def dtcwt_level1_analysis_reference(x: torch.Tensor) -> torch.Tensor:
     return Transform2d("torch").analysis_level1(x)[0]
 
 
-def _launch_level1(fn, name: str, x: torch.Tensor, planes: int) -> torch.Tensor:
-    x = x.contiguous()
-    b, h, w = x.shape
-    out = torch.empty((b, planes, h // 2, w // 2), dtype=torch.float32, device=x.device)
-    _build.launch(name, x.device, x.data_ptr(), out.data_ptr(), b, h, w, _params_ptr())
-    fn.launches += 1
-    return out
-
-
 def dtcwt_level1_analysis(x: torch.Tensor) -> torch.Tensor:
     """f32 [B, H, W] (H, W even) -> [B, 16, H/2, W/2]: planes [ll*4, lh*4,
     hl*4, hh*4], tree combos (rt, ct) row-major within each band."""
     _check(x, "dtcwt_level1_analysis", torch.float32, 3)
     if not x.is_cuda:
         return dtcwt_level1_analysis_reference(x)
-    return _launch_level1(dtcwt_level1_analysis, "vfp_dtcwt_level1_analysis", x, 16)
+    x = x.contiguous()
+    b, h, w = x.shape
+    out = torch.empty((b, 16, h // 2, w // 2), dtype=torch.float32, device=x.device)
+    _build.launch("vfp_dtcwt_level1_analysis", x.device, x.data_ptr(), out.data_ptr(), b, h, w,
+                  _params_ptr())
+    dtcwt_level1_analysis.launches += 1
+    return out
 
 
 dtcwt_level1_analysis.launches = 0
@@ -180,12 +180,17 @@ def dtcwt_level1_analysis_ll_reference(x: torch.Tensor) -> torch.Tensor:
 
 
 def dtcwt_level1_analysis_ll(x: torch.Tensor) -> torch.Tensor:
-    """f32 [B, H, W] (H, W even) -> [B, 4, H/2, W/2]: the 4 level-1 tree
-    lowpasses, combos (rt, ct) row-major."""
+    """f32 [B, H, W] (H, W even; any strides, read in place) -> [B, 4, H/2,
+    W/2]: the 4 level-1 tree lowpasses, combos (rt, ct) row-major."""
     _check(x, "dtcwt_level1_analysis_ll", torch.float32, 3)
     if not x.is_cuda:
         return dtcwt_level1_analysis_ll_reference(x)
-    return _launch_level1(dtcwt_level1_analysis_ll, "vfp_dtcwt_level1_analysis_ll", x, 4)
+    b, h, w = x.shape
+    out = torch.empty((b, 4, h // 2, w // 2), dtype=torch.float32, device=x.device)
+    _build.launch("vfp_dtcwt_level1_analysis_ll", x.device, x.data_ptr(), out.data_ptr(), b, h,
+                  w, *x.stride(), _params_ptr())
+    dtcwt_level1_analysis_ll.launches += 1
+    return out
 
 
 dtcwt_level1_analysis_ll.launches = 0

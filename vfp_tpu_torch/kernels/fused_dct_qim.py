@@ -8,6 +8,10 @@ one U coefficient [2][1] -> luminance and texture masks -> step = alpha *
 mask -> QIM on the U coefficient -> the rank-1 spatial delta amp * basis
 with basis = outer(D[2], D[1]) -> ``x + M_BWD[k, 1] * du``, clip,
 round-half-even, u8 (mark), or the bit of round(v / step) (extract).
+The mark stages a strip of 4 x 16 tiles in shared memory and splits each
+tile's row pass, column pass and mask over the block's threads; the extract
+keeps one thread per tile.  Both read the planes through their strides
+(the codec passes the interleaved view of its frame batch, no copy).
 
 The luminance mask needs each frame's mean Y over the 8-aligned crop (the
 mean of the blocks' DC / 8), a reduction across tiles: ``y_dc_mean`` is its
@@ -68,7 +72,8 @@ def _strides_host(t: torch.Tensor) -> np.ndarray:
 
 def _packed(t: torch.Tensor) -> bool:
     """Whether ``t`` is the [B, 3, H, W] view of an interleaved frame batch with
-    8-byte aligned tile rows, which the kernels move as 8-byte words."""
+    8-byte aligned tile rows, which the extract kernel moves as 8-byte words
+    (the mark's launcher picks its staging from the strides itself)."""
     sb, sc, sh, sw = t.stride()
     return sc == 1 and sw == 3 and sb % 8 == 0 and sh % 8 == 0 and t.data_ptr() % 8 == 0
 
@@ -251,8 +256,7 @@ def fused_dct_qim_mark(planes: torch.Tensor, wm2d: torch.Tensor, alpha: float = 
     xs, os_ = _strides_host(planes), _strides_host(out)
     _build.launch("vfp_fused_dct_qim_mark", planes.device, planes.data_ptr(), xs.ctypes.data,
                   out.data_ptr(), os_.ctypes.data, wm2d.data_ptr(), means.data_ptr(), b, nbh,
-                  nbw, float(alpha), int(_packed(planes) and _packed(out)),
-                  _params_host().ctypes.data)
+                  nbw, float(alpha), _params_host().ctypes.data)
     fused_dct_qim_mark.launches += 1
     return out
 
