@@ -6,16 +6,16 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: the DT-CWT masks, the delta synthesis, the six full-transform
-DT-CWT kernels, the level-1 u8 lowpasses, the flagship and DCT-QIM marks
-and, at the tile edges, the highpass-only LeGall synthesis equal
-(max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and their
-plain versions share one op order, IEEE division and no FMA; the detect
-kernels at 480x856 atol 1e-5), the Y mean rtol 1e-6; the DT-CWT extract on
+DT-CWT kernels, the level-1 u8 lowpasses, the flagship and DCT-QIM marks,
+the DCT-QIM extract and the Y mean (an exact fixed-point sum) and, at the tile edges, the highpass-only LeGall synthesis
+equal (max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and
+their plain versions share one op order, IEEE division and no FMA; the
+detect kernels at 480x856 atol 1e-5); the DT-CWT extract on
 the card against the CPU's kernel path atol 1e-4 (PyTorch's complex
 division may round otherwise); other u8 outputs identical on >= 99.5% of
 pixels and bits on >= 99.9% (a borderline s0 may take the other,
-parity-equivalent QIM bin).  The DCT-QIM kernels get the same means as
-their plain versions, so the comparison isolates the kernel.
+parity-equivalent QIM bin).  The DCT-QIM mark gets the same means as its
+plain version, so the comparison isolates the kernel.
 """
 
 import numpy as np
@@ -38,7 +38,8 @@ DETECT_KERNELS = ("dtcwt_level1_ll_color", "dtcwt_qshift_ll", "dtcwt_qshift_hp",
 NEW_DTCWT = ("dtcwt_level1_analysis_ll", "dtcwt_qshift_analysis", "dtcwt_qshift_synthesis",
              "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis", "dtcwt_legall_synthesis_ll")
 EQUAL = ("dtcwt_qshift_masks", "dtcwt_delta_synthesis", "dtcwt_level1_ll_y",
-         "dtcwt_level1_ll_color", "fused_mark_planar", "fused_dct_qim_mark")
+         "dtcwt_level1_ll_color", "fused_mark_planar", "fused_dct_qim_mark", "y_dc_mean",
+         "fused_dct_qim_extract")
 SYNTHESIS_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4,
                     "dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4}
 
@@ -82,9 +83,9 @@ def _inputs(name, device, rng, h, w):
         planes = frames.permute(0, 3, 1, 2)
         if name == "y_dc_mean":
             return (planes,)
-        means = tdq.y_dc_mean_reference(planes)
         if name == "fused_dct_qim_extract":
-            return (planes, 20.0, means)
+            return (planes, 20.0)
+        means = tdq.y_dc_mean_reference(planes)
         wm2d = _wm(h8, w, device)[: (h8 // 8) * (w // 8)].reshape(h8 // 8, w // 8).contiguous()
         return (planes, wm2d, 20.0, means)
     if name.startswith("fused"):
@@ -117,9 +118,7 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
             assert torch.equal(g, r)
         elif g.dtype == torch.uint8:
             assert (g == r).float().mean() >= 0.995
-        elif name == "y_dc_mean":
-            torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
-        elif name.endswith("extract_planar") or name in ("qim_decode_soa", "fused_dct_qim_extract"):
+        elif name.endswith("extract_planar") or name == "qim_decode_soa":
             assert (g == r).float().mean() >= 0.999
         else:
             torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-5)
@@ -165,7 +164,7 @@ def test_dct_codec_on_the_card_takes_the_kernels(cuda_device, h, w):
     bits = codec.extract_frames(marked)
     counts = kernels.launch_counts()
     assert (counts["fused_dct_qim_mark"], counts["fused_dct_qim_extract"],
-            counts["y_dc_mean"]) == (1, 1, 2), counts
+            counts[kernels.EXTRACT_DECIDE], counts["y_dc_mean"]) == (1, 1, 1, 1), counts
     assert marked.shape == frames.shape and marked.dtype == torch.uint8
     assert (_payloads(bits) == PAYLOAD).all()
     plain = DctQim(backend="kernel").mark_frames(frames.cpu(), _wm(h, w, "cpu"))
@@ -180,12 +179,13 @@ def test_dct_kernels_take_contiguous_planes_too(cuda_device):
     planes = planes.permute(0, 3, 1, 2).contiguous()
     wm2d = torch.as_tensor(rng.randint(0, 2, (8, 16)).astype(np.float32), device=cuda_device)
     means = tdq.y_dc_mean(planes)
+    assert torch.equal(means, tdq.y_dc_mean_reference(planes))
     got = tdq.fused_dct_qim_mark(planes, wm2d, 20.0, means)
     assert got.stride() == planes.stride()
     want = tdq.fused_dct_qim_mark_reference(planes, wm2d, 20.0, means)
     assert (got == want).float().mean() >= 0.999
-    bits = tdq.fused_dct_qim_extract(got, 20.0, means)
-    assert (bits == tdq.fused_dct_qim_extract_reference(got, 20.0, means)).float().mean() >= 0.999
+    bits = tdq.fused_dct_qim_extract(got, 20.0)
+    assert torch.equal(bits, tdq.fused_dct_qim_extract_reference(got, 20.0))
 
 
 @pytest.mark.cuda
@@ -579,6 +579,50 @@ def test_dct_qim_mark_equals_plain_version_at_edge_shapes(cuda_device, shape, la
     want = tdq.fused_dct_qim_mark_reference(planes, wm2d, 20.0, means)
     assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
     assert not torch.equal(got, planes)
+
+
+# The Y mean's and the extract's layouts and edges: W = 856 (8-byte rows of
+# the interleaved view; 107 tiles a row), a contiguous planar batch and the
+# interleaved view 4 bytes into its buffer (both bytes through the strides),
+# flat tiles, a black and an all-255 frame, B = 1 and B = 33.
+DCT_MEAN_CASES = [(2, 40, 856, "interleaved"), (2, 64, 128, "planar"), (2, 64, 128, "offset"),
+                  (2, 64, 128, "flat"), (2, 64, 128, "black"), (2, 64, 128, "white"),
+                  (1, 72, 136, "interleaved"), (33, 16, 16, "interleaved"),
+                  (2, 1080, 1920, "interleaved")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,layout", DCT_MEAN_CASES)
+def test_y_mean_and_extract_equal_plain_versions_at_edge_shapes(cuda_device, b, h, w, layout):
+    rng = np.random.RandomState(b * h + w)
+    frames = natural_frames(rng, b, h, w)
+    if layout == "flat":
+        frames[:, : h // 2] = 0
+        frames[:, h // 2 :, : w // 2] = 128
+    elif layout in ("black", "white"):
+        frames[:] = 0 if layout == "black" else 255
+    buf = torch.empty(frames.size + 4, dtype=torch.uint8, device=cuda_device)
+    off = 4 if layout == "offset" else 0
+    if layout == "planar":
+        planes = buf[: frames.size].view(b, 3, h, w)
+        planes.copy_(torch.as_tensor(frames.transpose(0, 3, 1, 2)))
+    else:
+        x = buf[off:][: frames.size].view(b, h, w, 3)
+        x.copy_(torch.as_tensor(frames))
+        planes = x.permute(0, 3, 1, 2)
+    kernels.reset_launch_counts()
+    means = tdq.y_dc_mean(planes)
+    torch.cuda.synchronize()
+    want_means = tdq.y_dc_mean_reference(planes)
+    assert torch.equal(means, want_means), (means, want_means)
+    assert torch.equal(tdq.y_dc_mean(planes), means)  # atomics in any order, the same sum
+    bits = tdq.fused_dct_qim_extract(planes, 20.0)  # the frame's mean taken in the same read
+    torch.cuda.synchronize()
+    assert torch.equal(bits, tdq.fused_dct_qim_extract_reference(planes, 20.0))
+    assert torch.equal(tdq.fused_dct_qim_extract(planes, 20.0), bits)  # partials in any order
+    counts = kernels.launch_counts()
+    assert (counts["y_dc_mean"], counts["fused_dct_qim_extract"],
+            counts[kernels.EXTRACT_DECIDE]) == (2, 2, 2), counts
 
 
 @pytest.mark.cuda

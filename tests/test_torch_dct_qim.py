@@ -13,7 +13,8 @@ function and its port.  Stated tolerances:
 - the kernels' plain versions against the Pallas kernels in interpret mode
   (as tests/test_dct_qim.py runs them): mark within 1 with >= 98% identical
   (the bound tests/test_dct_qim.py pins), extract bits identical and the
-  payload despread to 01100101; the Y-mean pre-pass rtol 1e-6.
+  payload despread to 01100101; the Y-mean pre-pass rtol 1e-6 against the
+  JAX float32 mean, and equal to an exact integer sum of Y * 2^27.
 """
 
 import jax.numpy as jnp
@@ -249,6 +250,67 @@ def test_kernel_plain_versions_on_flat_frames_match_pallas(rng):
 
 
 @pytest.mark.parametrize("h,w", SHAPES)
+@pytest.mark.parametrize("content", ["natural", "flat"])
+def test_extract_takes_its_own_means_as_pallas(rng, h, w, content):
+    """The extract (its plain version on the CPU) takes each frame's mean
+    itself, as the Pallas kernel does, and decodes as that kernel."""
+    frames = _flat_frames(rng, h, w) if content == "flat" else natural_frames(rng, 2, h, w)
+    planes = frames.transpose(0, 3, 1, 2).copy()
+    marked = np.asarray(jk.fused_dct_qim_mark(jnp.asarray(planes), jnp.asarray(_wm2d(h, w)),
+                                              ALPHA, interpret=True))
+    x = torch.from_numpy(marked.copy())
+    got = tk.fused_dct_qim_extract(x, ALPHA)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jk.fused_dct_qim_extract(jnp.asarray(marked), ALPHA,
+                                                         interpret=True)))
+    if content == "natural":
+        np.testing.assert_array_equal(_payloads(got.numpy()), np.tile(PAYLOAD, (2, 1)))
+
+
+def test_every_u8_pixel_has_an_integer_fixed_point_y():
+    """The property the exact Y mean rests on, for all 2^24 (B, G, R): the
+    plain version's float32 Y times ``Y_SCALE`` (2^27) is an integer below
+    2^35.  Chunks of 16 blue values, G down the rows and R across."""
+    assert tk.Y_SCALE == 2.0 ** 27
+    g, r = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    for b0 in range(0, 256, 16):
+        planes = np.empty((16, 3, 256, 256), np.uint8)
+        planes[:, 0] = np.arange(b0, b0 + 16)[:, None, None]
+        planes[:, 1], planes[:, 2] = g, r
+        fixed = tk._lincomb(torch.from_numpy(planes), 0).to(torch.float64) * tk.Y_SCALE
+        assert torch.equal(fixed, torch.floor(fixed)), b0
+        assert float(fixed.min()) >= 0 and float(fixed.max()) < 2.0 ** 35, b0
+
+
+def _exact_mean(planes):
+    """Per frame: the Python-integer sum of Y * 2^27 over the 8-aligned crop,
+    and the float32 mean from the exact rational, rounded to a double first."""
+    from fractions import Fraction
+
+    h8, w8 = planes.shape[2] // 8 * 8, planes.shape[3] // 8 * 8
+    y = tk._lincomb(torch.from_numpy(planes[:, :, :h8, :w8]), 0).numpy().astype(np.float64)
+    sums = [sum(int(v) for v in (frame * 2.0 ** 27).ravel()) for frame in y]
+    return sums, np.array([float(Fraction(s, 2 ** 27 * h8 * w8)) for s in sums], np.float32)
+
+
+@pytest.mark.parametrize("content", ["random", "black", "white", "one_dark_pixel"])
+def test_y_dc_mean_reference_is_an_exact_sum(rng, content):
+    planes = (rng.rand(3, 3, 67, 133) * 256).astype(np.uint8)
+    if content != "random":
+        planes[:] = 0 if content == "black" else 255
+    if content == "one_dark_pixel":  # one black pixel in an all-255 batch
+        planes[1, :, 40, 77] = 0
+    sums, want = _exact_mean(planes)
+    x = torch.from_numpy(planes)
+    assert tk.y_fixed_sums(x).tolist() == sums
+    got = tk.y_dc_mean_reference(x)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(tk.y_dc_mean(x), got)  # the wrapper's CPU path
+    if content == "one_dark_pixel":
+        assert got[1] < got[0] == got[2]
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
 def test_y_dc_mean_matches_jax(rng, h, w):
     planes = natural_frames(rng, 2, h + 3, w + 5).transpose(0, 3, 1, 2).copy()
     want = np.asarray(jk._y_dc_mean(jnp.asarray(planes), h // 8 * 8, w // 8 * 8))
@@ -267,9 +329,8 @@ def test_plain_versions_take_the_interleaved_view(rng):
     b = tk.fused_dct_qim_mark(view.contiguous(), wm2d, ALPHA)
     assert torch.equal(a, b) and a.stride() == view.stride()
     assert np.array_equal(view.numpy(), frames.transpose(0, 3, 1, 2))  # input untouched
-    means = tk.y_dc_mean(view)
-    assert torch.equal(tk.fused_dct_qim_extract(a, ALPHA, means),
-                       tk.fused_dct_qim_extract(a, ALPHA))
+    assert torch.equal(tk.fused_dct_qim_extract(a, ALPHA),
+                       tk.fused_dct_qim_extract(a.contiguous(), ALPHA))
 
 
 @pytest.mark.parametrize("bad", ["height", "width", "bits", "means", "dtype"])
@@ -284,7 +345,7 @@ def test_kernel_wrappers_reject_malformed_input(bad):
         elif bad == "bits":
             tk.fused_dct_qim_mark(planes, torch.zeros(4, 2), ALPHA)
         elif bad == "means":
-            tk.fused_dct_qim_extract(planes, ALPHA, means[:1])
+            tk.fused_dct_qim_mark(planes, wm2d, ALPHA, means[:1])
         else:
             tk.y_dc_mean(planes.float())
 

@@ -153,7 +153,7 @@ def _wrapper_calls(rng):
         "dtcwt_legall_synthesis": ((planes16,), tds.dtcwt_legall_synthesis_reference),
         "dtcwt_legall_synthesis_ll": ((planes16[:, :4],), tds.dtcwt_legall_synthesis_ll_reference),
         "fused_dct_qim_mark": ((planes, bits8, 20.0, means), tdq.fused_dct_qim_mark_reference),
-        "fused_dct_qim_extract": ((planes, 20.0, means), tdq.fused_dct_qim_extract_reference),
+        "fused_dct_qim_extract": ((planes, 20.0), tdq.fused_dct_qim_extract_reference),
         "y_dc_mean": ((planes,), tdq.y_dc_mean_reference),
         "qim_triplet_soa": ((m,), tqim.qim_triplet_soa_reference),
         "qim_decode_soa": ((m, SCALE), tqim.qim_decode_soa_reference),

@@ -22,10 +22,18 @@ KERNELS = (fused_mark_planar, fused_extract_planar, qim_triplet_soa, qim_decode_
            dtcwt_qshift_synthesis_ll, dtcwt_legall_synthesis, dtcwt_legall_synthesis_ll)
 
 
+# the extract's second kernel (fused_dct_qim.cu decide_kernel), counted apart
+EXTRACT_DECIDE = "fused_dct_qim_extract.decide"
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    fused_dct_qim_extract.decide_launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """{wrapper name: its kernel's launches}, and the extract's second kernel's
+    under ``EXTRACT_DECIDE``."""
+    return {**{k.__name__: k.launches for k in KERNELS},
+            EXTRACT_DECIDE: fused_dct_qim_extract.decide_launches}

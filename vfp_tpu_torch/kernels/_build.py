@@ -44,9 +44,10 @@ SIGNATURES = {
     "vfp_qim_embed_soa": [_P, _P, _P, _I, _I, _F, _P, _P],
     "vfp_fused_mark_planar": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "vfp_fused_extract_planar": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
-    "vfp_y_dc_mean": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "vfp_y_dc_mean": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "vfp_fused_dct_qim_mark": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    "vfp_fused_dct_qim_extract": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
+    "vfp_fused_dct_qim_extract": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "vfp_dct_qim_decide": [_P, _P, _I, _P, _I, _I, _F, _P],
     "vfp_dtcwt_level1_ll_y": [_P, _P, _I, _I, _I, _P, _P],
     "vfp_dtcwt_level1_analysis": [_P, _P, _I, _I, _I, _P, _P],
     "vfp_dtcwt_level1_ll_color": [_P, _P, _I, _I, _I, _P, _P],

@@ -1,5 +1,5 @@
-"""Single-launch DCT-QIM embed and extract on u8 planes, and the Y-mean pre-pass
-(CUDA: ``csrc/fused_dct_qim.cu``).
+"""Single-launch DCT-QIM embed, extract on u8 planes that reads each frame
+once, and the one-launch Y mean (CUDA: ``csrc/fused_dct_qim.cu``).
 
 Replaces the Pallas kernels ``fused_dct_qim_mark`` and ``fused_dct_qim_extract``
 of ``vfp_tpu/kernels/fused_dct_qim.py`` and its XLA pre-pass ``_y_dc_mean``.
@@ -14,10 +14,15 @@ keeps one thread per tile.  Both read the planes through their strides
 (the codec passes the interleaved view of its frame batch, no copy).
 
 The luminance mask needs each frame's mean Y over the 8-aligned crop (the
-mean of the blocks' DC / 8), a reduction across tiles: ``y_dc_mean`` is its
-own launch, a fixed-order sum in float64 with no atomics.  The mark and
-extract wrappers take precomputed ``means`` (so a comparison can feed one
-set of means to a kernel and its plain version) or compute them with it.
+mean of the blocks' DC / 8).  Every Y value is a multiple of 2^-27 below
+2^8 (``Y_SCALE``, from the smallest Y coefficient's exponent), so a frame's
+sum of Y * 2^27 in int64 is exact in any order: ``y_dc_mean`` is one launch
+that reduces with atomics and still equals its plain version bit for bit.
+The mark takes precomputed ``means`` (so a comparison can feed one set to
+a kernel and its plain version) or ``y_dc_mean``'s; the extract, as the
+Pallas one, takes each frame's mean itself: its first launch sums the Y
+values its own row pass computes, a second, small launch decides the bits,
+so the frame is read once.
 
 The plain versions (``*_reference``) repeat the kernels' arithmetic in the
 kernels' order: separable DCT sums as left folds, IEEE division by tensors
@@ -29,7 +34,9 @@ inverts the whole DCT and takes the colour roundtrip: marked pixels near a
 already document.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
-the kernel for a CUDA tensor; ``<wrapper>.launches`` counts the launches.
+the kernel for a CUDA tensor; ``<wrapper>.launches`` counts its kernel's
+launches, and ``fused_dct_qim_extract.decide_launches`` those of the
+extract's second kernel.
 """
 
 from __future__ import annotations
@@ -44,7 +51,25 @@ from ..ops.dct import dct_matrix
 from . import _build
 
 COEFF = (2, 1)  # the U coefficient that carries the bit
-MEAN_SLOTS = 64  # partial sums per frame of the CUDA Y mean: its first stage's blocks
+EXTRACT_BLOCK = 128  # tiles a block of the CUDA extract (kThreads in the .cu)
+
+
+def _y_scale() -> float:
+    """2^27: Y * 2^27 is an integer for every u8 pixel.  Y's coefficients are
+    non-negative float32 and its offset is 0, so each product and each
+    rounded sum of the lincomb is a multiple of the smallest coefficient's
+    ulp (float32 keeps 24 significant bits)."""
+    m = M_FWD[0]
+    assert (m >= 0).all() and OFF_FWD[0] == 0, (M_FWD[0], OFF_FWD[0])
+    _, exp = np.frexp(m[m > 0])  # m = f * 2^exp with f in [0.5, 1)
+    return float(2.0 ** (24 - int(exp.min())))
+
+
+Y_SCALE = _y_scale()
+# The kernels form row 4 of D's products from row 0's with these signs
+# (csrc/fused_dct_qim.cu:dct8), which holds bit for bit for the DCT-II.
+DCT_SIGN4 = np.array([1, -1, -1, 1, 1, -1, -1, 1], np.float32)
+assert np.array_equal(dct_matrix(8)[4], dct_matrix(8)[0] * DCT_SIGN4)
 
 
 @lru_cache(maxsize=None)
@@ -58,24 +83,16 @@ def _basis() -> np.ndarray:
 @lru_cache(maxsize=None)
 def _params_host() -> np.ndarray:
     """The kernels' constants as one float32 array in the order of ``Params``
-    in the .cu: D (64), basis (64), M_FWD[0] (3), M_FWD[1] (3), OFF_FWD[0],
-    OFF_FWD[1], M_BWD[:, 1] (3)."""
+    in the .cu: D (64), basis (64), M_FWD[0] (3), M_FWD[1] (3), OFF_FWD[1],
+    M_BWD[:, 1] (3).  Y's zero offset is left out (``_y_scale`` asserts it)."""
     return np.ascontiguousarray(np.concatenate([
-        dct_matrix(8).reshape(-1), _basis().reshape(-1), M_FWD[0], M_FWD[1], OFF_FWD[:2],
+        dct_matrix(8).reshape(-1), _basis().reshape(-1), M_FWD[0], M_FWD[1], OFF_FWD[1:2],
         M_BWD[:, 1],
     ]).astype(np.float32))
 
 
 def _strides_host(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.stride(), dtype=np.int64)
-
-
-def _packed(t: torch.Tensor) -> bool:
-    """Whether ``t`` is the [B, 3, H, W] view of an interleaved frame batch with
-    8-byte aligned tile rows, which the extract kernel moves as 8-byte words
-    (the mark's launcher picks its staging from the strides itself)."""
-    sb, sc, sh, sw = t.stride()
-    return sc == 1 and sw == 3 and sb % 8 == 0 and sh % 8 == 0 and t.data_ptr() % 8 == 0
 
 
 def _check_planes(planes: torch.Tensor, name: str) -> None:
@@ -170,11 +187,21 @@ def _qim_inputs(planes: torch.Tensor, means: torch.Tensor, alpha: float):
 
 # -- y_dc_mean ----------------------------------------------------------------
 
-def y_dc_mean_reference(planes: torch.Tensor) -> torch.Tensor:
-    """[B, 3, H, W] u8 -> [B] f32 mean of Y over the 8-aligned crop, summed in float64."""
+def y_fixed_sums(planes: torch.Tensor) -> torch.Tensor:
+    """[B, 3, H, W] u8 -> [B] int64: each frame's sum of Y * ``Y_SCALE`` over
+    the 8-aligned crop, exact (each term is an integer below 2^35)."""
     h8, w8 = planes.shape[2] // 8 * 8, planes.shape[3] // 8 * 8
     y = _lincomb(planes[:, :, :h8, :w8], 0)
-    return y.to(torch.float64).mean(dim=(1, 2)).to(torch.float32)
+    return (y.to(torch.float64) * Y_SCALE).to(torch.int64).sum(dim=(1, 2))
+
+
+def y_dc_mean_reference(planes: torch.Tensor) -> torch.Tensor:
+    """[B, 3, H, W] u8 -> [B] f32 mean of Y over the 8-aligned crop, from the
+    exact fixed-point sum by the kernels' float64 steps: S -> double,
+    * 2^-27, IEEE division by the pixel count, -> float32."""
+    count = (planes.shape[2] // 8 * 8) * (planes.shape[3] // 8 * 8)
+    sums = y_fixed_sums(planes).to(torch.float64) * (1.0 / Y_SCALE)
+    return true_div(sums, float(count)).to(torch.float32)
 
 
 def y_dc_mean(planes: torch.Tensor) -> torch.Tensor:
@@ -188,10 +215,11 @@ def y_dc_mean(planes: torch.Tensor) -> torch.Tensor:
         return y_dc_mean_reference(planes)
     b, _, h, w = planes.shape
     means = torch.empty(b, dtype=torch.float32, device=planes.device)
-    partial = torch.empty((b, MEAN_SLOTS), dtype=torch.float64, device=planes.device)
+    # the frames' fixed-point sums and the kernel's arrival counts start at 0
+    totals = torch.zeros(2 * b, dtype=torch.int64, device=planes.device)
     xs = _strides_host(planes)
     _build.launch("vfp_y_dc_mean", planes.device, planes.data_ptr(), xs.ctypes.data,
-                  partial.data_ptr(), means.data_ptr(), b, h // 8 * 8, w // 8 * 8, MEAN_SLOTS,
+                  totals.data_ptr(), means.data_ptr(), b, h // 8 * 8, w // 8 * 8,
                   _params_host().ctypes.data)
     y_dc_mean.launches += 1
     return means
@@ -200,15 +228,12 @@ def y_dc_mean(planes: torch.Tensor) -> torch.Tensor:
 y_dc_mean.launches = 0
 
 
-def _means_for(planes: torch.Tensor, means, name: str) -> torch.Tensor:
-    if means is None:
-        return y_dc_mean(planes)
+def _check_means(planes: torch.Tensor, means: torch.Tensor, name: str) -> None:
     if means.shape != (planes.shape[0],):
         raise ValueError(f"{name}: want means [{planes.shape[0]}], got {tuple(means.shape)}")
     if planes.is_cuda and (means.device != planes.device or means.dtype != torch.float32
                            or not means.is_contiguous()):
         raise ValueError(f"{name}: means must be contiguous float32 on the planes' device")
-    return means
 
 
 # -- fused_dct_qim_mark ---------------------------------------------------------
@@ -245,7 +270,9 @@ def fused_dct_qim_mark(planes: torch.Tensor, wm2d: torch.Tensor, alpha: float = 
     nbh, nbw = h // 8, w // 8
     if wm2d.shape != (nbh, nbw):
         raise ValueError(f"fused_dct_qim_mark: want bits [{nbh}, {nbw}], got {tuple(wm2d.shape)}")
-    means = _means_for(planes, means, "fused_dct_qim_mark")
+    if means is None:
+        means = y_dc_mean(planes)
+    _check_means(planes, means, "fused_dct_qim_mark")
     if not planes.is_cuda:
         return fused_dct_qim_mark_reference(planes, wm2d, alpha, means)
     if wm2d.device != planes.device or wm2d.dtype != torch.float32 or not wm2d.is_contiguous():
@@ -266,32 +293,36 @@ fused_dct_qim_mark.launches = 0
 
 # -- fused_dct_qim_extract --------------------------------------------------------
 
-def fused_dct_qim_extract_reference(planes: torch.Tensor, alpha: float = 20.0,
-                                    means: torch.Tensor | None = None) -> torch.Tensor:
-    if means is None:
-        means = y_dc_mean_reference(planes)
-    v, step = _qim_inputs(planes, means, alpha)
+def fused_dct_qim_extract_reference(planes: torch.Tensor, alpha: float = 20.0) -> torch.Tensor:
+    v, step = _qim_inputs(planes, y_dc_mean_reference(planes), alpha)
     # floor-mod, as jnp.mod: round(v / step) = -3 has parity 1
     return (torch.remainder(torch.round(v / step), 2.0) == 1.0).to(torch.float32)
 
 
-def fused_dct_qim_extract(planes: torch.Tensor, alpha: float = 20.0,
-                          means: torch.Tensor | None = None) -> torch.Tensor:
+def fused_dct_qim_extract(planes: torch.Tensor, alpha: float = 20.0) -> torch.Tensor:
     """u8 planes [B, 3, H, W] (any strides, H, W % 8 == 0) -> decoded bits
-    [B, H/8, W/8] (f32 0/1).  ``means`` [B] defaults to ``y_dc_mean(planes)``."""
+    [B, H/8, W/8] (f32 0/1), each frame's Y mean, equal to
+    ``y_dc_mean(planes)``, taken in the same read of the frame."""
     _check_planes(planes, "fused_dct_qim_extract")
+    if not planes.is_cuda:
+        return fused_dct_qim_extract_reference(planes, alpha)
     b, _, h, w = planes.shape
     nbh, nbw = h // 8, w // 8
-    means = _means_for(planes, means, "fused_dct_qim_extract")
-    if not planes.is_cuda:
-        return fused_dct_qim_extract_reference(planes, alpha, means)
-    bits = torch.empty((b, nbh, nbw), dtype=torch.float32, device=planes.device)
+    dev = planes.device
+    # pass 1's outputs, pass 2's inputs: v, tex, dc a tile; a Y sum a block
+    tiles = torch.empty((3, b, nbh * nbw), dtype=torch.float32, device=dev)
+    parts = -(-nbh * nbw // EXTRACT_BLOCK)
+    partial = torch.empty((b, parts), dtype=torch.int64, device=dev)
     xs = _strides_host(planes)
-    _build.launch("vfp_fused_dct_qim_extract", planes.device, planes.data_ptr(), xs.ctypes.data,
-                  bits.data_ptr(), means.data_ptr(), b, nbh, nbw, float(alpha),
-                  int(_packed(planes)), _params_host().ctypes.data)
+    _build.launch("vfp_fused_dct_qim_extract", dev, planes.data_ptr(), xs.ctypes.data,
+                  tiles.data_ptr(), partial.data_ptr(), b, nbh, nbw, _params_host().ctypes.data)
     fused_dct_qim_extract.launches += 1
+    bits = torch.empty((b, nbh, nbw), dtype=torch.float32, device=dev)
+    _build.launch("vfp_dct_qim_decide", dev, tiles.data_ptr(), partial.data_ptr(), parts,
+                  bits.data_ptr(), b, nbh * nbw, float(alpha))
+    fused_dct_qim_extract.decide_launches += 1
     return bits
 
 
 fused_dct_qim_extract.launches = 0
+fused_dct_qim_extract.decide_launches = 0
