@@ -49,7 +49,13 @@ Phases, each printing its lines:
    pipeline API on 48 frames of 1280x720 plus a 4-level ``Transform2d``
    round trip of a 1080p batch (the full q-shift
    analysis and the full syntheses), each equal to the plain kernel path on
-   the card.  The counts must show every kernel ran and no plain version may
+   the card; then the HLS fingerprinting workflow through the CLI
+   (``hls-mark --copies 3`` of 180 1080p frames at 30 fps, three 2 s
+   segments, then ``leak`` -> ``trace`` of pattern 201 with the manifests
+   and of 120 blind; 36 marks, 58 extracts, PSNR > 40 dB, the first batch
+   of a variant equal to the plain version, and ``MultiMarker.submit`` /
+   ``collect`` with four handles in flight equal to ``mark_all``).  The
+   counts must show every kernel ran and no plain version may
    see a CUDA tensor, and the watermark plane's spectrum
    (``dtcwt_level1_analysis`` on it) must run once per path: 11 launches of
    that kernel over all paths;
@@ -72,7 +78,9 @@ Phases, each printing its lines:
    to its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
-   split into upload, device and download on the host clock.
+   split into upload, device and download on the host clock, and the
+   whole ``FrameMarker.mark`` and ``MultiMarker.mark_all`` (3 variants)
+   calls of a 1080p batch.
 
 Then one JSON line per the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits nonzero.
@@ -1281,6 +1289,155 @@ def run_dtcwt_depth_path(device, cfg, workdir: Path, source_1080p: Path) -> dict
     return collections.Counter(counts) + collections.Counter(transform_counts)
 
 
+def run_hls_path(device, cfg, workdir: Path) -> dict:
+    """The HLS fingerprinting workflow through the port's CLI on a 1920x1080,
+    30 fps .rawv of 180 frames (three 2 s segments of 60): ``hls-mark
+    --copies 3``, ``leak --pattern 201`` -> ``trace`` with the manifests,
+    then ``leak --pattern 120`` -> ``trace`` blind.  Each intermediate is
+    deleted once the workflow no longer needs it.  Checks the printed
+    results, the launches (the marks: 3 segments x 4 batches x 3 variants;
+    the extracts: verify packs 540 frames across files into 34 batches, each
+    trace 180 into 12), the PSNR of a variant against its source segment,
+    its first batch against ``fused_mark_planar_reference`` with that
+    variant's own watermark, and ``MultiMarker.submit``/``collect`` with
+    four handles in flight against ``mark_all``.  Returns the launch counts
+    of the workflow."""
+    import ast
+    import shutil
+
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.fingerprint import marker, payload_for_segment
+    from vfp_tpu_torch.io import RawVideoWriter
+    from vfp_tpu_torch.kernels.fused_embed import fused_mark_planar_reference
+    from vfp_tpu_torch.pipeline import MultiMarker
+    from vfp_tpu_torch.wm import DwtDctSvd, Shuffler, block_grid
+
+    h, w, b = cfg["h"], cfg["w"], cfg["b"]
+    n, fps, copies, seg_frames = 180, 30, 3, 60
+    root = workdir / "hls"
+    root.mkdir()
+    print(f"hls: {shutil.disk_usage(root).free / 1e9:.1f} GB free on the work disk "
+          f"before the phase")
+    rng = np.random.RandomState(12)
+    src = root / "source.rawv"
+    with RawVideoWriter(src, w, h, fps=fps) as writer:
+        for i in range(0, n, b):
+            writer.write_batch(natural_frames(rng, min(b, n - i), h, w))
+    out = root / "out"
+    flags = ["--batch-size", str(b), "--device", str(device)]
+    verify_s = []
+    verify_segments = marker.verify_segments
+
+    def timed_verify(*args, **kwargs):  # the CLI's verify, timed apart
+        t0 = time.perf_counter()
+        res = verify_segments(*args, **kwargs)
+        torch.cuda.synchronize()
+        verify_s.append(time.perf_counter() - t0)
+        return res
+
+    submit_s = []
+    submit = MultiMarker.submit
+
+    def timed_submit(self, frames):  # the submitting thread's share of hls-mark
+        t0 = time.perf_counter()
+        handle = submit(self, frames)
+        submit_s.append(time.perf_counter() - t0)
+        return handle
+
+    open_s = []
+    open_writer = marker.open_writer
+
+    def timed_open(*args, **kwargs):  # opening a variant's writer, on the same thread
+        t0 = time.perf_counter()
+        writer = open_writer(*args, **kwargs)
+        open_s.append(time.perf_counter() - t0)
+        return writer
+
+    codec = DwtDctSvd()
+    variant = (0, 1)  # segment 0, copy 1
+    fresh_counts()
+    marker.verify_segments = timed_verify
+    MultiMarker.submit = timed_submit
+    marker.open_writer = timed_open
+    try:
+        with NoPlainOnDevice():
+            text = _cli_lines(cli, ["hls-mark", str(src), str(out), "--copies", str(copies),
+                                    *flags])
+            assert f"created {n // seg_frames} segments" in text, text
+            assert "All segments were watermarked successfully!" in text, text
+            stats = ast.literal_eval(text.split("mark_segments stats: ", 1)[1].splitlines()[0])
+            source_seg = _read_rawv(out / "segments" / "segment_000.rawv")
+            marked = _read_rawv(out / "marked_segments" /
+                                f"marked_seg{variant[0]}_copy{variant[1]}.rawv")
+            psnr = _psnr(marked, source_seg)
+            source_seg, marked = np.array(source_seg[:b]), np.array(marked[:b])
+            for p in (src, out / "segments", out / "hls"):  # the leak needs none of these
+                shutil.rmtree(p) if p.is_dir() else p.unlink()
+            traces = {}
+            for pattern, blind in (("201", False), ("120", True)):
+                leaked = root / f"leak_{pattern}.rawv"
+                text = _cli_lines(cli, ["leak", str(out / "segment_copies.json"), "--pattern",
+                                        pattern, "--output-file", str(leaked), *flags[2:]])
+                assert f"pattern: {pattern}" in text, text
+                manifests = [] if blind else ["--payload-file",
+                                              str(out / "segment_payloads.json")]
+                t0 = time.perf_counter()
+                text = _cli_lines(cli, ["trace", str(leaked), str(root / f"det_{pattern}"),
+                                        *manifests, "--max-copies", str(copies), *flags[2:]])
+                traces[pattern] = time.perf_counter() - t0
+                assert f"Copy fingerprint: {pattern}" in text, text
+                assert "Success rate: 100.00%" in text, text
+                leaked.unlink()
+                shutil.rmtree(root / f"det_{pattern}")
+    finally:
+        marker.verify_segments = verify_segments
+        MultiMarker.submit = submit
+        marker.open_writer = open_writer
+    counts = kernels.launch_counts()
+    n_variants = copies * n
+    want = {"fused_mark_planar": (n // seg_frames) * -(-seg_frames // b) * copies,
+            "fused_extract_planar": -(-n_variants // b) + 2 * -(-n // b)}
+    assert_counts(counts, want, "hls")
+    counts = {k: counts[k] for k in want}
+    assert psnr > 40.0, psnr
+
+    wm = Shuffler(key=0).generate_wm(payload_for_segment(*variant), codec.wm_capacity((h, w, 3)))
+    (nbh, nbw), _ = block_grid((h, w))
+    wm2d = torch.as_tensor(np.asarray(wm, np.float32).reshape(-1)[: nbh * nbw].reshape(nbh, nbw),
+                           device=device)
+    x = torch.as_tensor(source_seg, device=device).permute(0, 3, 1, 2)
+    want_px = fused_mark_planar_reference(x, wm2d, 15.0, 1).permute(0, 2, 3, 1).cpu().numpy()
+    same = float((want_px == marked).mean())
+    assert same >= 0.995, same
+
+    wms = [Shuffler(key=0).generate_wm(payload_for_segment(0, c), codec.wm_capacity((h, w, 3)))
+           for c in range(copies)]
+    mm = MultiMarker(codec, wms, b, device=device)
+    batches = [natural_frames(rng, b - i % 2, h, w) for i in range(4)]
+    handles = [mm.submit(f) for f in batches]  # four in flight before the first collect
+    outs = [mm.collect(hd) for hd in handles]
+    for f, o in zip(batches, outs):
+        assert np.array_equal(o, mm.mark_all(f)), "submit/collect differs from mark_all"
+
+    stage = stats["stage_seconds"]
+    print(f"hls: hls-mark {n} frames of {w}x{h} at {fps} fps, {copies} copies: "
+          f"{n_variants / stats['wall_seconds']:.1f} variant-frames/s of mark_segments "
+          f"({n_variants} in {stats['wall_seconds']} s); stats {stats}; {len(submit_s)} "
+          f"submits {sum(submit_s):.3f} s (first {submit_s[0]:.3f}, median "
+          f"{float(np.median(submit_s)):.3f}); {len(open_s)} writers opened in "
+          f"{sum(open_s):.3f} s")
+    print(f"hls: verify {n_variants} frames in {verify_s[0]:.3f} s "
+          f"({n_variants / verify_s[0]:.1f} frames/s); trace 201 (manifests) "
+          f"{n / traces['201']:.1f} frames/s, trace 120 (blind) {n / traces['120']:.1f} "
+          f"frames/s, {n} frames each (CLI wall, re-segmenting included)")
+    print(f"hls: Copy fingerprint 201 and blind 120 recovered, 100% success; PSNR "
+          f"{psnr:.2f} dB of segment {variant[0]} copy {variant[1]} vs its source, {same:.6f} "
+          f"of its first batch's pixels equal to the plain version; 4 submits in flight equal "
+          f"mark_all; launches {counts}; card {nvidia_smi_line()}")
+    return counts
+
+
 # -- phase 5: timings -------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -2023,9 +2180,11 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
 def time_batch_stages(device, cfg, reps: int = 5) -> None:
     """Host clock around one 16-frame batch of FrameMarker/FrameExtractor's
     work, split at its synchronising boundaries: upload (pinned staging +
-    H2D), device compute, download.  Median of ``reps`` after a warm-up.
-    1080p for every codec, 1920x804 (path 1) and float frames (path 2) for
-    ``dtcwtKey``."""
+    H2D), device compute, download (``.cpu()``).  Median of ``reps`` after a
+    warm-up.  1080p for every codec, 1920x804 (path 1) and float frames
+    (path 2) for ``dtcwtKey``.  Then two whole calls of the flagship codec
+    at 1080p: ``FrameMarker.mark`` and ``MultiMarker.mark_all`` with 3
+    variants."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
     from vfp_tpu_torch.wm import DctQim, DeCorrShuffler, DeShuffler, DtcwtKey, DwtDctSvd
 
@@ -2070,6 +2229,32 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
         up, dev, down = (1e3 * float(np.median(col)) for col in zip(*runs[1:]))
         print(f"batch stages {name} @ {b}x{host.shape[1]}x{host.shape[2]}: upload {up:.3f} ms, "
               f"device {dev:.3f} ms, download {down:.3f} ms (host clock, median of {reps})")
+    # whole calls, as a pipeline makes them: the host frames in, the marked
+    # frames on the host out (FrameMarker and MultiMarker exist in the parent
+    # commit too, so --package-root times the transfers before and after)
+    from vfp_tpu_torch.pipeline import FrameMarker, MultiMarker
+    from vfp_tpu_torch.wm import Shuffler
+
+    codec = DwtDctSvd()
+    wms = [np.asarray(Shuffler(key=k).generate_wm(np.array([int(c) for c in PAYLOAD]),
+                                                  codec.wm_capacity((h, w, 3))), np.float32)
+           for k in range(3)]
+    calls = {"FrameMarker.mark": (FrameMarker(codec, wms[0], b, device=device).mark, 1),
+             "MultiMarker.mark_all (3 variants)": (
+                 MultiMarker(codec, wms, b, device=device).mark_all, 3)}
+    for name, (call, variants) in calls.items():
+        runs = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(frames)  # ends with the marked frames on the host
+            runs.append(time.perf_counter() - t0)
+        ms = 1e3 * float(np.median(runs[1:]))
+        split = device_split(lambda call=call: call(frames), calls=3)
+        print(f"batch call {name} @ {b}x{h}x{w}: {ms:.3f} ms whole call "
+              f"({variants * b / ms * 1e3:.1f} variant-frames/s; host clock, median of {reps}); "
+              f"device ms a call: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + " (profiler)")
 
 
 def main(argv=None) -> int:
@@ -2147,6 +2332,7 @@ def main(argv=None) -> int:
         counts.update(run_dtcwt_scope_path(device, cfg, Path(tmp)))
         counts.update(run_dtcwt_float_path(device, cfg))
         counts.update(run_dtcwt_depth_path(device, cfg, Path(tmp), smooth_1080p))
+        counts.update(run_hls_path(device, cfg, Path(tmp)))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 
     assert all(counts[k] > 0 for k in (*REPLACES, EXTRACT_DECIDE)), counts  # every kernel

@@ -640,3 +640,92 @@ def test_two_mark_calls_with_one_plane_compute_its_spectrum_once(cuda_device):
     counts = kernels.launch_counts()
     assert counts["dtcwt_level1_analysis"] == 1 and counts["dtcwt_level1_ll_y"] == 2, counts
     assert first.shape == second.shape == (2, 72, 128, 3)
+
+
+# -- submit/collect and the HLS workflow on the card ------------------------
+
+def _markers(device, h, w, batch_size=4):
+    from vfp_tpu_torch.pipeline import FrameExtractor, MultiMarker
+
+    wms = [Shuffler(key=0).generate_wm(p, (1, h * w // 64)) for p in (PAYLOAD, 1 - PAYLOAD)]
+    deg = DeShuffler(key=0, threshold="fixed").set_shape((len(PAYLOAD),))
+    return (MultiMarker(DwtDctSvd(), wms, batch_size, device=device),
+            FrameExtractor(DwtDctSvd(), deg, batch_size, device=device))
+
+
+@pytest.mark.cuda
+def test_staging_is_reused_and_held_outputs_stay_valid(cuda_device):
+    """Eight batches of two shapes submitted before any collect: one staging
+    buffer per shape, refilled in turn, and every output equal to a fresh
+    call made afterwards (a destination reused too early would differ)."""
+    from vfp_tpu_torch.pipeline.transfer import STAGING
+
+    rng = np.random.RandomState(21)
+    shapes = [(64, 96), (72, 128)]
+    mms = {s: _markers(cuda_device, *s) for s in shapes}
+    batches = [(shapes[i % 2], natural_frames(rng, 4 - (i // 2) % 2, *shapes[i % 2]))
+               for i in range(8)]
+    before = set(STAGING._buffers)
+    handles = [mms[s][0].submit(b) for s, b in batches]
+    assert all(h.done is not None for h in handles)  # each waits on its own event
+    staged = {s: STAGING._buffers[(cuda_device, (4, *s, 3))] for s in shapes}
+    outs = [mms[s][0].collect(h) for (s, _), h in zip(batches, handles)]
+    for (s, b), o in zip(batches, outs):
+        assert o.shape == (2, len(b), *s, 3)
+        np.testing.assert_array_equal(o, mms[s][0].mark_all(b))
+        np.testing.assert_array_equal(mms[s][1].extract(o[0]), np.tile(PAYLOAD, (len(b), 1)))
+        np.testing.assert_array_equal(mms[s][1].collect(mms[s][1].submit(o[1])),
+                                      np.tile(1 - PAYLOAD, (len(b), 1)))
+    assert set(STAGING._buffers) - before <= {(cuda_device, (4, *s, 3)) for s in shapes}
+    assert all(STAGING._buffers[(cuda_device, (4, *s, 3))] is staged[s] for s in shapes)
+
+
+@pytest.mark.cuda
+def test_collect_from_another_thread(cuda_device):
+    import threading
+
+    rng = np.random.RandomState(22)
+    mm, fx = _markers(cuda_device, 64, 96)
+    frames = [natural_frames(rng, 3, 64, 96) for _ in range(4)]
+    handles = [mm.submit(f) for f in frames]
+    got = {}
+
+    def collect():
+        got["outs"] = [mm.collect(h) for h in handles]
+        got["bits"] = fx.collect(fx.submit(got["outs"][0][0]))
+
+    t = threading.Thread(target=collect)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and len(got["outs"]) == 4
+    for f, o in zip(frames, got["outs"]):
+        np.testing.assert_array_equal(o, mm.mark_all(f))
+    np.testing.assert_array_equal(got["bits"], np.tile(PAYLOAD, (3, 1)))
+
+
+@pytest.mark.cuda
+def test_mark_segments_then_verify_on_the_card(cuda_device, tmp_path):
+    from vfp_tpu_torch import fingerprint
+    from vfp_tpu_torch.fingerprint.marker import verify_segments
+    from vfp_tpu_torch.io import RawVideoWriter
+
+    src = tmp_path / "src.rawv"
+    with RawVideoWriter(src, 96, 64, fps=6) as w:
+        w.write_batch(natural_frames(np.random.RandomState(23), 18, 64, 96))
+    segs = fingerprint.segment_video(src, tmp_path / "segments", 2.0)
+    kernels.reset_launch_counts()
+    stats: dict = {}
+    marked, payloads, copies = fingerprint.mark_segments(
+        segs, tmp_path / "marked_segments", copies=3, batch_size=8, stats=stats,
+        device=cuda_device)
+    verified = verify_segments(marked, batch_size=4, device=cuda_device)
+    counts = kernels.launch_counts()
+    assert all(ok and f == 1.0 for _, f, ok in verified), verified
+    # marks: 2 + 1 batches x 3 variants; verify: 54 frames packed in 4s
+    assert counts["fused_mark_planar"] == 9 and counts["fused_extract_planar"] == 14, counts
+    assert stats["stage_seconds"]["device_full"] >= 0.0
+    fingerprint.write_manifests(tmp_path, payloads, copies)
+    leaked, _ = fingerprint.generate_leak(tmp_path / "segment_copies.json", pattern="20")
+    result = fingerprint.trace_leak(leaked, tmp_path / "det", tmp_path / "segment_payloads.json",
+                                    device=cuda_device)
+    assert result.fingerprint == "20" and result.success_rate == 1.0

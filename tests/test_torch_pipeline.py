@@ -83,6 +83,54 @@ def test_frame_extractor_partial_batch_matches_jax(rng):
     np.testing.assert_array_equal(got, np.tile(PAYLOAD, (3, 1)))
 
 
+@pytest.mark.parametrize("k", [4, 3, 1])
+def test_multi_marker_submit_collect_matches_mark_all_and_jax(rng, k):
+    frames = natural_frames(rng, k, H, W)  # k < batch 4: padded, then cut back
+    wms = [spread_wm(H, W, payload=PAYLOAD), spread_wm(H, W, payload=1 - PAYLOAD)]
+    jmm = jpipe.MultiMarker(JaxCodec(), wms, batch_size=4)
+    want = jmm.collect(jmm.submit(frames))
+    mm = tpipe.MultiMarker(DwtDctSvd(), wms, batch_size=4, device="cpu")
+    got = mm.collect(mm.submit(frames))
+    assert got.shape == want.shape == (2, k, H, W, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, mm.mark_all(frames))
+    assert (got == want).mean() >= 0.999
+    np.testing.assert_array_equal(
+        tpipe.FrameMarker(DwtDctSvd(), wms[1], batch_size=4, device="cpu").mark(frames), got[1])
+
+
+@pytest.mark.parametrize("k", [4, 3, 1])
+def test_frame_extractor_submit_collect_matches_extract_and_jax(rng, k):
+    frames = jpipe.FrameMarker(JaxCodec(), spread_wm(H, W), batch_size=4).mark(
+        natural_frames(rng, k, H, W))
+    jfx = jpipe.FrameExtractor(JaxCodec(), JaxDeShuffler(0, "fixed").set_shape((8,)),
+                               batch_size=4)
+    want = jfx.collect(jfx.submit(frames))
+    fx = tpipe.FrameExtractor(DwtDctSvd(), DeShuffler(0, "fixed").set_shape((8,)),
+                              batch_size=4, device="cpu")
+    got = fx.collect(fx.submit(frames))
+    assert got.dtype == np.uint8 and got.shape == (k, 8)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, fx.extract(frames))
+    np.testing.assert_array_equal(got, np.tile(PAYLOAD, (k, 1)))
+
+
+def test_outputs_held_across_submits_stay_valid(rng):
+    """Six batches submitted before any is collected, and every output held
+    while the next ones are made: each equals a fresh call (the aliasing guard)."""
+    wms = [spread_wm(H, W, payload=PAYLOAD), spread_wm(H, W, payload=1 - PAYLOAD)]
+    mm = tpipe.MultiMarker(DwtDctSvd(), wms, batch_size=4, device="cpu")
+    fx = tpipe.FrameExtractor(DwtDctSvd(), DeShuffler(0, "fixed").set_shape((8,)),
+                              batch_size=4, device="cpu")
+    batches = [natural_frames(rng, 4 - i % 2, H, W) for i in range(6)]
+    handles = [mm.submit(b) for b in batches]
+    outs = [mm.collect(h) for h in handles]
+    bits = [fx.collect(h) for h in [fx.submit(o[0]) for o in outs]]
+    for b, o, p in zip(batches, outs, bits):
+        np.testing.assert_array_equal(o, mm.mark_all(b))
+        np.testing.assert_array_equal(p, fx.extract(o[0]))
+        np.testing.assert_array_equal(p, np.tile(PAYLOAD, (len(b), 1)))
+
+
 def test_cached_bit_extractor_is_keyed_by_codec_and_device():
     a = tpipe.cached_bit_extractor(DwtDctSvd(), 0, 8, device="cpu")
     assert tpipe.cached_bit_extractor(DwtDctSvd(), 0, 8, device=torch.device("cpu")) is a
@@ -153,11 +201,11 @@ def test_cli_never_drops_to_the_cpu(source_video, tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_cv2(source_video, tmp_path):
-    """A fresh interpreter runs the port's CLI end to end, every codec, without
-    importing jax, cv2 or anything of the JAX package."""
+    """A fresh interpreter runs the port's CLI end to end, every codec and the
+    HLS workflow, without importing jax, cv2 or anything of the JAX package."""
     code = f"""
 import sys
-import vfp_tpu_torch, vfp_tpu_torch.kernels, vfp_tpu_torch.pipeline
+import vfp_tpu_torch, vfp_tpu_torch.fingerprint, vfp_tpu_torch.kernels, vfp_tpu_torch.pipeline
 from vfp_tpu_torch.cli import main
 for codec in ("dwtDctSvd", "dct"):
     out = {str(tmp_path)!r} + "/m_" + codec + ".rawv"
@@ -166,6 +214,11 @@ for codec in ("dwtDctSvd", "dct"):
 out = {str(tmp_path)!r} + "/m_dtcwtKey.rawv"
 main(["mark", {str(source_video)!r}, out, "--codec", "dtcwtKey", "--device", "cpu"])
 main(["detect", out, "--codec", "dtcwtKey", "--device", "cpu"])
+hls = {str(tmp_path)!r} + "/hls"
+main(["hls-mark", {str(source_video)!r}, hls, "--copies", "2", "--device", "cpu"])
+main(["leak", hls + "/segment_copies.json", "--pattern", "1", "--device", "cpu"])
+main(["trace", hls + "/leaked_video.rawv", hls + "/det", "--payload-file",
+      hls + "/segment_payloads.json", "--device", "cpu"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "vfp_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
@@ -175,6 +228,7 @@ print("NO_JAX_OK")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO_JAX_OK" in r.stdout and r.stdout.count("matches expected payload: True") == 2
     assert "watermark present in" in r.stdout
+    assert "Copy fingerprint: 1" in r.stdout and "Success rate: 100.00%" in r.stdout
 
 
 def _imported_modules(path: Path):

@@ -1,9 +1,13 @@
-"""CLI of the PyTorch/CUDA port: mark and detect with the ported codecs.
+"""CLI of the PyTorch/CUDA port: mark and detect with the ported codecs, and
+the HLS fingerprinting workflow.
 
     python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct|dtcwtKey]
                                 [--payload 01100101] [--key 0] [--device cuda]
     python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct|dtcwtKey]
                                 [--payload-len 8 | --payload BITS] [--key 0]
+    python -m vfp_tpu_torch.cli hls-mark INPUT OUTDIR --copies 3 [--segment-duration 2]
+    python -m vfp_tpu_torch.cli leak COPIES_JSON [--pattern 012] [--random-seed N]
+    python -m vfp_tpu_torch.cli trace LEAKED OUTDIR [--payload-file F] [--max-copies 3]
 
 The same subcommands, flags and printed lines as ``python -m vfp_tpu.cli``
 for the DWT+DCT+SVD codec, the perceptual DCT-QIM codec (``--codec dct``)
@@ -13,32 +17,26 @@ plane, the payload ignored; detect prints per-file presence), plus
 its CUDA kernels.  The device defaults to ``cuda`` and is never changed
 silently: ``--device cuda`` without a GPU raises; pass ``--device cpu`` to
 run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
-computes in float32.  Input and output are ``.rawv`` files.
+computes in float32.  Input and output are ``.rawv`` files, segments,
+variants and leaks included (the JAX CLI writes ``.avi``/``.mp4`` there).
+``hls-mark`` also prints ``mark_segments``' stage seconds.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import shutil
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 def _payload_bits(s: str) -> np.ndarray:
     return np.array([int(c) for c in s])
-
-
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs a CUDA GPU and none is available; "
-                           "pass --device cpu to run on the CPU")
-    if device.type == "cuda":
-        # QIM bins need full float32 products on the codecs' tensor paths
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
 
 
 def cmd_mark(args):
@@ -47,7 +45,7 @@ def cmd_mark(args):
     from ..utils import make_codec
     from ..wm import CorrShuffler, Shuffler
 
-    device = _device(args.device)
+    device = resolve_device(args.device)
     codec = make_codec(args.codec)
     reader = open_reader(args.input)
     generator = CorrShuffler(key=args.key) if _is_dtcwt_key(args.codec) else Shuffler(key=args.key)
@@ -68,7 +66,7 @@ def _is_dtcwt_key(name: str) -> bool:
 def _detect_presence(args, codec, device):
     """Per-frame normalised correlations with the keyed plane, as vfp_tpu.cli."""
     from ..io import open_reader
-    from ..pipeline.embedder import upload_batch
+    from ..pipeline.transfer import upload_batch
     from ..wm import DeCorrShuffler
 
     deg = DeCorrShuffler(key=args.key)
@@ -95,7 +93,7 @@ def cmd_detect(args):
     from ..utils import make_codec
     from ..wm import DeShuffler
 
-    device = _device(args.device)
+    device = resolve_device(args.device)
     codec = make_codec(args.codec)
     if _is_dtcwt_key(args.codec):
         return _detect_presence(args, codec, device)
@@ -116,6 +114,139 @@ def cmd_detect(args):
         print(f"matches expected payload: {ok}")
         if not ok:
             raise SystemExit(1)
+
+
+def cmd_hls_mark(args):
+    from ..fingerprint import mark_segments, segment_video, write_hls_playlists
+    from ..fingerprint.marker import verify_segments, write_manifests
+
+    device = resolve_device(args.device)
+    base = Path(args.output_dir)
+    if args.clean and base.exists():
+        shutil.rmtree(base)
+    segments = segment_video(args.input, base / "segments", args.segment_duration)
+    print(f"created {len(segments)} segments")
+    stats = {}
+    marked, payloads, copies = mark_segments(
+        segments, base / "marked_segments", copies=args.copies, key=args.key,
+        batch_size=args.batch_size, quality=args.quality, resume=args.resume,
+        stats=stats, device=device,
+    )
+    print(f"mark_segments stats: {stats}")
+    failed = []
+    for m, (pattern, freq, ok) in zip(
+            marked, verify_segments(marked, key=args.key, batch_size=args.batch_size,
+                                    device=device)):
+        if not ok or freq < 0.5:
+            failed.append(
+                {
+                    "segment": Path(m.file).name,
+                    "segment_number": m.segment_number,
+                    "copy_index": m.copy_index,
+                    "expected_pattern": m.payload,
+                    "detected_pattern": pattern.tolist() if pattern is not None else None,
+                    "frequency": freq,
+                }
+            )
+    master, playlist, seg_map, variants = write_hls_playlists(
+        marked, base / "hls", copies=args.copies, segment_duration=args.segment_duration
+    )
+    write_manifests(base, payloads, copies, seg_map, failed)
+    print("\n===== WATERMARK VERIFICATION RESULTS =====")
+    if failed:
+        print(f"Failed to properly watermark {len(failed)} segments:")
+        for f in failed:
+            print(f"  Segment {f['segment_number']} copy {f['copy_index']} ({f['segment']})")
+    else:
+        print("All segments were watermarked successfully!")
+    print(f"master playlist: {master}")
+
+
+def cmd_leak(args):
+    from ..fingerprint import generate_leak
+
+    resolve_device(args.device)
+    leaked, info = generate_leak(
+        args.copies_file, args.output_file, args.pattern, args.random_seed,
+        create_hls=args.create_hls, segment_duration=args.segment_duration,
+    )
+    print(f"leaked video: {leaked}")
+    print(f"pattern: {info['pattern_string']}")
+    if "custom_hls_playlist" in info:
+        print(f"custom HLS playlist: {info['custom_hls_playlist']}")
+    if args.detect:
+        base = Path(args.copies_file).parent
+        ns = argparse.Namespace(
+            input=str(leaked), output_dir=str(base / "detection"),
+            payload_file=str(base / "segment_payloads.json"),
+            copies_file=None, clean=False,
+            segment_duration=args.segment_duration, max_copies=10, key=0,
+            device=args.device,
+        )
+        cmd_trace(ns)
+    if args.serve:
+        # after --create-hls, serve the playback bundle over HTTP with CORS
+        # headers (reference: tests/generate_leak.py:577-611)
+        if "custom_hls_playlist" not in info:
+            print("--serve requires --create-hls (no HLS bundle was created)")
+            return
+        import functools
+        from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+        hls_dir = Path(args.copies_file).parent / "hls"
+
+        class _CorsHandler(SimpleHTTPRequestHandler):
+            def end_headers(self):
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.send_header("Access-Control-Allow-Methods", "GET, OPTIONS")
+                self.send_header("Access-Control-Allow-Headers", "Content-Type")
+                self.send_header("Cache-Control",
+                                 "no-store, no-cache, must-revalidate")
+                super().end_headers()
+
+            def do_OPTIONS(self):
+                self.send_response(200)
+                self.end_headers()
+
+        handler = functools.partial(_CorsHandler, directory=str(hls_dir))
+        with ThreadingHTTPServer(("", args.serve_port), handler) as httpd:
+            print(f"Serving HLS playback from {hls_dir} on port {args.serve_port}")
+            print(f"Open http://localhost:{args.serve_port}/index.html  (Ctrl+C stops)")
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                print("\nServer stopped by user.")
+
+
+def cmd_trace(args):
+    from ..fingerprint import trace_leak
+
+    device = resolve_device(args.device)
+    out_dir = Path(args.output_dir)
+    copies_file = getattr(args, "copies_file", None)
+    # reference quirk preserved: a relative 'detection[/...]' output dir is
+    # relocated next to the copies file when one is given
+    # (reference: tests/detect_watermarks.py:286-292)
+    if copies_file and (args.output_dir == "detection"
+                        or args.output_dir.startswith("detection/")):
+        out_dir = Path(copies_file).resolve().parent / args.output_dir
+    if getattr(args, "clean", False) and out_dir.exists():
+        shutil.rmtree(out_dir)
+    result = trace_leak(
+        args.input, out_dir, args.payload_file,
+        segment_duration=args.segment_duration, max_copies=args.max_copies, key=args.key,
+        device=device,
+    )
+    print("\n===== WATERMARK DETECTION RESULTS =====")
+    for s in result.segments:
+        print(f"Segment {s.segment_number}: copy={s.detected_copy_index} freq={s.match_frequency:.2f}")
+    print("\n===== DETECTION SUMMARY =====")
+    print(f"Total segments: {len(result.segments)}")
+    print(f"Success rate: {result.success_rate * 100:.2f}%")
+    print("\n===== FINGERPRINT SEQUENCE =====")
+    print(f"Copy sequence: {result.copy_sequence}")
+    if result.fingerprint is not None:
+        print(f"Copy fingerprint: {result.fingerprint}")
 
 
 def main(argv=None):
@@ -153,6 +284,57 @@ def main(argv=None):
     d.add_argument("--batch-size", type=int, default=16)
     d.add_argument("--device", default="cuda", help="torch device (default cuda)")
     d.set_defaults(fn=cmd_detect)
+
+
+    h = sub.add_parser(
+        "hls-mark", help="segment, mark N variants, build HLS",
+        description="Segment INPUT into .rawv segments, mark each in --copies variants on "
+                    "--device, verify them and write the HLS playlists and manifests.  "
+                    "vfp_tpu.cli's multi-process marking (--workers, --distributed, "
+                    "--coordinator, --num-processes, --process-id) is not ported yet: it "
+                    "waits for the port of parallel/.")
+    h.add_argument("input"), h.add_argument("output_dir")
+    h.add_argument("--copies", type=int, default=1)
+    h.add_argument("--segment-duration", type=float, default=2.0)
+    h.add_argument("--clean", action="store_true")
+    h.add_argument("--resume", action="store_true",
+                   help="skip segment variants whose marked files already exist")
+    h.add_argument("--key", type=int, default=0)
+    h.add_argument("--batch-size", type=int, default=16)
+    h.add_argument("--quality", type=int, default=95)
+    h.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    h.set_defaults(fn=cmd_hls_mark)
+
+    l = sub.add_parser("leak", help="splice a leaked copy from variants")
+    l.add_argument("copies_file")
+    l.add_argument("--output-file", default=None)
+    l.add_argument("--pattern", default=None)
+    l.add_argument("--random-seed", type=int, default=None)
+    l.add_argument("--segment-duration", type=float, default=2.0)
+    l.add_argument("--serve", action="store_true",
+                   help="after --create-hls, serve the playback bundle over "
+                        "HTTP with CORS headers until interrupted")
+    l.add_argument("--serve-port", type=int, default=8000)
+    l.add_argument("--create-hls", action="store_true",
+                   help="emit a per-pattern HLS playlist + CORS server + player page")
+    l.add_argument("--detect", action="store_true")
+    l.add_argument("--device", default="cuda",
+                   help="torch device of --detect's trace (default cuda)")
+    l.set_defaults(fn=cmd_leak)
+
+    t = sub.add_parser("trace", help="recover the fingerprint from a leak")
+    t.add_argument("input"), t.add_argument("output_dir")
+    t.add_argument("--payload-file", default=None)
+    t.add_argument("--copies-file", default=None,
+                   help="segment_copies.json; relocates a relative "
+                        "'detection' output dir next to it (reference quirk)")
+    t.add_argument("--clean", action="store_true",
+                   help="remove the output dir before tracing")
+    t.add_argument("--segment-duration", type=float, default=2.0)
+    t.add_argument("--max-copies", type=int, default=3)
+    t.add_argument("--key", type=int, default=0)
+    t.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    t.set_defaults(fn=cmd_trace)
 
     args = p.parse_args(argv)
     if args.verbose:

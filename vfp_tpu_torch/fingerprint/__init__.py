@@ -1,0 +1,12 @@
+"""HLS per-segment fingerprinting (port of ``vfp_tpu/fingerprint``): mark N
+variants per segment, assemble a unique variant sequence per recipient,
+trace leaks back to the recipient.  Segments, variants and leaks are
+``.rawv`` files; every entry point that touches the card takes ``device=``
+(default ``"cuda"``, raising without a GPU)."""
+
+from .payloads import payload_for_segment, decode_segment_copy, pattern_string  # noqa: F401
+from .segmenter import segment_video, frames_per_segment  # noqa: F401
+from .marker import mark_segments, verify_segment, write_manifests, MarkedSegment  # noqa: F401
+from .hls import write_hls_playlists, view_playlist, pattern_for_view  # noqa: F401
+from .leak import select_copies, concatenate_segments, generate_leak, create_custom_hls  # noqa: F401
+from .trace import trace_leak  # noqa: F401

@@ -1,0 +1,52 @@
+"""Video segmentation on a fixed-duration grid (port of
+``vfp_tpu/fingerprint/segmenter.py``, its frame-exact branch).
+
+Every segment gets exactly round(duration * fps) frames, chunked through the
+reader/writer stack, so a leak re-segments onto the marking grid exactly.
+Segments are ``segment_NNN.rawv``: the port reads and writes ``.rawv`` only
+(exact uint8 RGB; the card has no cv2 or ffmpeg), where the JAX package
+writes MJPEG ``.avi`` segments without ffmpeg and ``.mp4`` with it.  No
+ffmpeg branch and no audio sidecars.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+from ..io import open_reader, open_writer
+
+
+def frames_per_segment(fps: float, segment_duration: float) -> int:
+    return max(1, int(round(fps * segment_duration)))
+
+
+def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quality: int = 95):
+    """Split into segment_000.rawv, ... ; returns the sorted list of paths."""
+    segments_dir = Path(segments_dir)
+    segments_dir.mkdir(parents=True, exist_ok=True)
+    reader = open_reader(input_file)
+    n_per = frames_per_segment(reader.fps, segment_duration)
+    paths = []
+    idx = 0
+    try:
+        while True:
+            got = 0
+            writer = None
+            while got < n_per:
+                batch = reader.read_batch(min(16, n_per - got))
+                if batch is None:
+                    break
+                if writer is None:
+                    p = segments_dir / f"segment_{idx:03d}.rawv"
+                    writer = open_writer(p, reader.width, reader.height, reader.fps, quality)
+                    paths.append(p)
+                writer.write_batch(batch)
+                got += len(batch)
+            if writer is not None:
+                writer.close()
+            if got < n_per:
+                break
+            idx += 1
+    finally:
+        reader.close()
+    return sorted(paths)

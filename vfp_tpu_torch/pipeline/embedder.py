@@ -5,6 +5,11 @@ Frames move in ``[B, H, W, 3]`` batches; a reader thread decodes batch k+1
 and a writer thread encodes batch k-1 while the device marks batch k.  The
 JAX package's low-link transport is not ported: it exists for a TPU behind a
 slow relay.  Every class takes the device it runs on.
+
+``MultiMarker.submit`` enqueues a batch's upload, marks and downloads and
+returns a handle; ``collect`` waits on that handle alone, so the writer
+thread of ``fingerprint.marker`` collects while the next batches are
+submitted (transfers: ``transfer.py``).
 """
 
 from __future__ import annotations
@@ -18,22 +23,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .transfer import Pending, download, upload_batch
+
 logger = logging.getLogger(__name__)
 
 _SENTINEL = None
-
-
-def upload_batch(frames: np.ndarray, batch_size: int, device: torch.device) -> torch.Tensor:
-    """[k, H, W, 3] u8 -> [batch_size, H, W, 3] on ``device``, padded with
-    copies of the last frame so every batch has one shape.  On a CUDA device
-    the frames go through pinned host memory."""
-    k = len(frames)
-    host = torch.empty((max(batch_size, k), *frames.shape[1:]), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    h = host.numpy()
-    h[:k] = frames
-    h[k:] = frames[-1:]
-    return host.to(device, non_blocking=True)
 
 
 class FrameMarker:
@@ -45,11 +39,10 @@ class FrameMarker:
         self.wm = torch.as_tensor(np.asarray(wm, np.float32).reshape(-1), device=self.device)
         self.batch_size = batch_size
 
-    @torch.inference_mode()
     def mark(self, frames: np.ndarray) -> np.ndarray:
-        k = len(frames)
-        x = upload_batch(frames, self.batch_size, self.device)
-        return self.codec.mark_frames(x, self.wm)[:k].cpu().numpy()
+        """[k, H, W, 3] -> [k, H, W, 3] uint8."""
+        return _submit_marks(self.codec, frames, self.wm[None], self.batch_size,
+                             self.device).wait()[0]
 
 
 class MultiMarker:
@@ -67,13 +60,27 @@ class MultiMarker:
     def n_variants(self) -> int:
         return len(self.wms)
 
-    @torch.inference_mode()
+    def submit(self, frames: np.ndarray) -> Pending:
+        """Enqueue the upload, every variant's mark and the downloads, and
+        return without waiting on the device (on the CPU: mark now)."""
+        return _submit_marks(self.codec, frames, self.wms, self.batch_size, self.device)
+
+    def collect(self, handle: Pending) -> np.ndarray:
+        """[V, k, H, W, 3] uint8 of a ``submit``, once its event has passed."""
+        return handle.wait()
+
     def mark_all(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] -> [V, k, H, W, 3] uint8."""
-        k = len(frames)
-        x = upload_batch(frames, self.batch_size, self.device)
-        out = torch.stack([self.codec.mark_frames(x, w) for w in self.wms])
-        return out[:, :k].cpu().numpy()
+        return self.collect(self.submit(frames))
+
+
+@torch.inference_mode()
+def _submit_marks(codec, frames: np.ndarray, wms: torch.Tensor, batch_size: int,
+                  device: torch.device) -> Pending:
+    """One upload of the batch, one mark per watermark, each variant
+    downloaded into its slice of one host array [V, k, H, W, 3]."""
+    x = upload_batch(frames, batch_size, device)
+    return download([codec.mark_frames(x, wm) for wm in wms], len(frames))
 
 
 @dataclass

@@ -18,7 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .embedder import upload_batch
+from .transfer import Pending, download, upload_batch
 
 logger = logging.getLogger(__name__)
 
@@ -34,13 +34,22 @@ class FrameExtractor:
         self.batch_size = batch_size
         self.device = torch.device(device)
 
-    @torch.inference_mode()
     def extract(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] u8 -> [k, payload_len] u8 payloads."""
-        k = len(frames)
+        return self.collect(self.submit(frames))
+
+    @torch.inference_mode()
+    def submit(self, frames: np.ndarray) -> Pending:
+        """Enqueue the upload, the decode and the download of the payloads
+        alone, and return without waiting on the device (on the CPU: decode
+        now)."""
         x = upload_batch(frames, self.batch_size, self.device)
-        bits = self.codec.extract_frames(x)
-        return self.degenerator.degenerate_batch(bits)[:k].cpu().numpy()
+        payloads = self.degenerator.degenerate_batch(self.codec.extract_frames(x))
+        return download([payloads], len(frames))
+
+    def collect(self, handle: Pending) -> np.ndarray:
+        """[k, payload_len] u8 payloads of a ``submit``, once its event has passed."""
+        return handle.wait()[0]
 
 
 def cached_bit_extractor(codec, key, payload_len: int, batch_size: int = 16,
