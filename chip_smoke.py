@@ -54,10 +54,19 @@ Phases, each printing its lines:
    segments, then ``leak`` -> ``trace`` of pattern 201 with the manifests
    and of 120 blind; 36 marks, 58 extracts, PSNR > 40 dB, the first batch
    of a variant equal to the plain version, and ``MultiMarker.submit`` /
-   ``collect`` with four handles in flight equal to ``mark_all``).  The
+   ``collect`` with four handles in flight equal to ``mark_all``); then
+   the port's HTTP service on a thread (``serve``: ``/upload`` of 180 1080p
+   frames at 30 fps, 3 copies, three views and their playlists against
+   ``pattern_for_view``, ``/hls``, ``/download-view``, ``/detect`` of user 1's
+   segment 2 alone and twice at once; 36 marks, 4 extracts a detect, PSNR
+   > 40 dB, the service's stages timed apart); then ``mark --codec dtcwtImg
+   --wm-image`` -> ``detect --out-dir`` on the 48 smooth frames at 1080p and
+   1920x804 (``dtcwtimg``: the first batch equal to the plain kernel path
+   on the card, PSNR > 30 dB, the PNGs equal to the planes' images, the
+   payload's agreement > 0.8 at 1080p).  The
    counts must show every kernel ran and no plain version may
    see a CUDA tensor, and the watermark plane's spectrum
-   (``dtcwt_level1_analysis`` on it) must run once per path: 11 launches of
+   (``dtcwt_level1_analysis`` on it) must run once per path: 13 launches of
    that kernel over all paths;
 5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
@@ -1438,6 +1447,313 @@ def run_hls_path(device, cfg, workdir: Path) -> dict:
     return counts
 
 
+def _http(base, path, data=None, headers=None):
+    """(status, body, headers) of one request; an HTTP error status is
+    returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _multipart(name: str, payload: bytes):
+    boundary = "vfpchipsmokeboundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{name}\"\r\nContent-Type: application/octet-stream\r\n\r\n").encode()
+    return (body + payload + f"\r\n--{boundary}--\r\n".encode(),
+            {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+
+def run_serve_path(device, cfg, workdir: Path) -> dict:
+    """The fingerprinting HTTP service of the port on a thread
+    (``make_server(..., num_copies=3, segment_duration=2.0, device="cuda")``),
+    driven over HTTP: ``/upload`` of 180 natural 1920x1080 frames at 30 fps
+    (3 segments, 9 variants, 36 ``fused_mark_planar``), ``/start-view`` for
+    three users (view numbers 0, 1, 2), their playlists against
+    ``pattern_for_view``, one ``/hls`` file, ``/download-view``, ``/detect`` of
+    user 1's segment 2 (copy 1: views 0, 1, 2 play [0,0,0], [0,0,1],
+    [0,0,2], so exactly one match, user 1, at frequency 1.0; 4
+    ``fused_extract_planar``), then two ``/detect`` requests at once from two
+    threads (equal responses; the handler threads share the cached
+    extractor and the pinned staging buffer), the PSNR of a variant, and
+    the three pages.  The service's stages are timed apart (``split``: the
+    seconds inside each wrapped function, summed over threads).  Returns
+    the launch counts of the phase."""
+    import shutil
+    import threading
+
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.fingerprint import pattern_for_view
+    from vfp_tpu_torch.io import RawVideoWriter
+    from vfp_tpu_torch.serve import app as app_mod, service as service_mod
+    from vfp_tpu_torch.serve.app import make_server
+
+    split = collections.defaultdict(float)
+    saved = []
+
+    def timed_stage(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[name] += time.perf_counter() - t0
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapper)
+
+    h, w, b = cfg["h"], cfg["w"], cfg["b"]
+    n, fps, copies, seg_frames = 180, 30, 3, 60
+    root = workdir / "serve"
+    root.mkdir()
+    rng = np.random.RandomState(13)
+    src = root / "source.rawv"
+    with RawVideoWriter(src, w, h, fps=fps) as writer:
+        for i in range(0, n, b):
+            writer.write_batch(natural_frames(rng, min(b, n - i), h, w))
+    body, headers = _multipart("source.rawv", src.read_bytes())
+    upload_gb = len(body) / 1e9
+    src.unlink()
+    data_dir = root / "data"
+    srv = make_server("127.0.0.1", 0, data_dir, num_copies=copies, segment_duration=2.0,
+                      device=device)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    t = {}
+    splits = {}
+    counts = collections.Counter()
+    for mod, name in ((app_mod, "parse_multipart"), (service_mod, "_check_upload"),
+                      (service_mod, "segment_video"), (service_mod, "mark_segments"),
+                      (service_mod, "write_hls_playlists"), (service_mod, "_read_all"),
+                      (service_mod, "concatenate_segments")):
+        timed_stage(mod, name)
+
+    def timed(key, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _http(base, *args)
+        t[key] = time.perf_counter() - t0
+        return out
+
+    try:
+        with NoPlainOnDevice():
+            fresh_counts()
+            split.clear()
+            status, resp, _ = timed("upload", "/upload", body, headers)
+            splits["upload"] = dict(split)
+            assert status == 200, (status, resp[:500])
+            summary = json.loads(resp)
+            assert (summary["status"], summary["num_segments"], summary["total_variants"],
+                    summary["failed_segments"]) == ("success", n // seg_frames,
+                                                    copies * n // seg_frames, []), summary
+            marks = kernels.launch_counts()
+            assert_counts(marks, {"fused_mark_planar": (n // seg_frames) * -(-seg_frames // b)
+                                  * copies}, "serve upload")
+            counts.update(marks)
+            del body
+            views = []
+            for i, user in enumerate(("user0", "user1", "user2")):
+                status, resp, _ = timed(f"start_view{i}", "/start-view",
+                                        json.dumps({"username": user}).encode(),
+                                        {"Content-Type": "application/json"})
+                assert status == 200, resp
+                views.append(json.loads(resp))
+            assert [v["view_number"] for v in views] == [0, 1, 2], views
+            for i, v in enumerate(views):
+                status, m3u8, hdrs = timed(f"playlist{i}", f"/view/{v['view_id']}")
+                assert status == 200 and hdrs["Cache-Control"] == "no-cache", hdrs
+                names = [ln[len("/hls/"):] for ln in m3u8.decode().splitlines()
+                         if ln.startswith("/hls/")]
+                seq = [int(re.search(r"copy(\d+)", nm).group(1)) for nm in names]
+                assert seq == pattern_for_view(v["view_number"], copies, n // seg_frames), names
+            status, seg, _ = timed("hls", f"/hls/{names[0]}")
+            assert status == 200 and seg == (data_dir / "hls" / names[0]).read_bytes()
+            status, spliced, hdrs = timed("download", f"/download-view/{views[1]['view_id']}")
+            assert status == 200 and len(spliced) == 24 + n * h * w * 3, (status, len(spliced))
+            assert hdrs["Content-Disposition"].endswith(f'view_{views[1]["view_id"]}.rawv"')
+            del spliced
+            leak = data_dir / "hls" / "marked_seg002_copy1.rawv"
+            leak_body, leak_headers = _multipart(leak.name, leak.read_bytes())
+            fresh_counts()
+            split.clear()
+            status, resp, _ = timed("detect", "/detect", leak_body, leak_headers)
+            splits["detect"] = dict(split)
+            assert status == 200, resp
+            found = json.loads(resp)
+            assert_counts(kernels.launch_counts(), {"fused_extract_planar": -(-seg_frames // b)},
+                          "serve detect")
+            counts.update(kernels.launch_counts())
+            assert (found["status"], found["segment_number"], found["copy_index"],
+                    found["frequency"]) == ("success", 2, 1, 1.0), found
+            assert [(m["username"], m["frequency"]) for m in found["matches"]] == [
+                ("user1", 1.0)], found
+            fresh_counts()
+            results = [None, None]
+
+            def post(k):
+                results[k] = _http(base, "/detect", leak_body, leak_headers)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pair = [threading.Thread(target=post, args=(k,)) for k in range(2)]
+            for th in pair:
+                th.start()
+            for th in pair:
+                th.join(timeout=600)
+            t["detect_pair"] = time.perf_counter() - t0
+            assert not any(th.is_alive() for th in pair)
+            assert all(r[0] == 200 for r in results), results
+            assert json.loads(results[0][1]) == json.loads(results[1][1]) == found
+            assert_counts(kernels.launch_counts(),
+                          {"fused_extract_planar": 2 * -(-seg_frames // b)}, "serve detect pair")
+            counts.update(kernels.launch_counts())
+            for page in ("/", "/view", "/detect"):
+                status, html, _ = _http(base, page)
+                assert status == 200 and b"<html>" in html, (page, status)
+        psnr = _psnr(_read_rawv(data_dir / "hls" / "marked_seg000_copy1.rawv"),
+                     _read_rawv(data_dir / "segments" / "segment_000.rawv"))
+        assert psnr > 40.0, psnr
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    n_variants = copies * n
+    starts = ", ".join(f"{t['start_view%d' % i] * 1e3:.3f}" for i in range(3))
+    gets = ", ".join(f"{t['playlist%d' % i] * 1e3:.3f}" for i in range(3))
+    print(f"serve: /upload {n} frames of {w}x{h} at {fps} fps, {copies} copies: "
+          f"{t['upload']:.3f} s ({n_variants / t['upload']:.1f} variant-frames/s; the "
+          f"{upload_gb:.2f} GB request body sent over localhost included); /start-view "
+          f"{starts} ms; playlist GET {gets} ms; /hls GET of one "
+          f"variant ({len(seg) / 1e6:.1f} MB) {t['hls'] * 1e3:.3f} ms; /download-view "
+          f"{t['download']:.3f} s; /detect of {seg_frames} frames {t['detect']:.3f} s "
+          f"({seg_frames / t['detect']:.1f} frames/s), two at once {t['detect_pair']:.3f} s "
+          f"({2 * seg_frames / t['detect_pair']:.1f} frames/s); host clock around each request; "
+          f"card {nvidia_smi_line()}")
+    for key in ("upload", "detect"):
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in splits[key].items())
+        rest = ("the body sent and read, its temporary file" if key == "upload" else
+                "the body sent and read, its temporary file, the 4 extract batches, the vote")
+        print(f"serve: /{key} {t[key]:.3f} s, of which (s, server side) {parts}; the rest "
+              f"{t[key] - sum(splits[key].values()):.3f} s ({rest})")
+    print(f"serve: 3 segments, 9 variants, views 0/1/2 play pattern_for_view; detect of "
+          f"user1's segment 2 matched user1 alone at frequency 1.0, twice at once equal; "
+          f"PSNR {psnr:.2f} dB of segment 0 copy 1; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def run_dtcwt_img_path(device, cfg, workdir: Path) -> dict:
+    """``cli mark --codec dtcwtImg --wm-image <gray PNG>`` then ``cli detect
+    --codec dtcwtImg --out-dir`` on the 48-frame smooth 1920x1080 file of the
+    ``dtcwtKey`` phase (the fused masks and delta) and the 1920x804 one of
+    the scope phase (the glue and the three syntheses).  Checks the launch
+    counts (the same kernels per shape as ``dtcwtKey``), the first batch
+    against the same codec under ``plain_kernels()`` on the card (marked u8
+    >= 99.5% equal, recovered planes within 1e-4), the PSNR, the 48 PNGs
+    the CLI wrote against the planes' unscrambled images and, at 1080p, the
+    agreement (> 0.8) of ``degenerate(mean plane, antialias=True)`` with
+    the payload image.  Returns the launch counts of the mark and detect
+    runs."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.io import read_png_gray, write_png_gray
+    from vfp_tpu_torch.wm import BlockShuffler, DeBlockShuffler, DtcwtImg
+
+    n, b, w = cfg["frames"], cfg["b"], cfg["w"]
+    batches = -(-n // b)
+    rng = np.random.RandomState(19)
+    payload = ((rng.rand(27, 48) > 0.5) * 255).astype(np.uint8)
+    png = workdir / "payload.png"
+    write_png_gray(png, payload)
+    codec = DtcwtImg()
+    counts = collections.Counter()
+    for h in (cfg["h"], cfg["scope_h"]):
+        source = workdir / f"smooth_{w}x{h}.rawv"
+        out, det = workdir / f"marked_img_{w}x{h}.rawv", workdir / f"img_{w}x{h}"
+        flags = ["--codec", "dtcwtImg", "--batch-size", str(b), "--device", str(device)]
+        fused = h % 8 == 0
+        fresh_counts()
+        with NoPlainOnDevice():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark_lines = _cli_lines(cli, ["mark", str(source), str(out), *flags,
+                                          "--wm-image", str(png)])
+            mark_s = time.perf_counter() - t0
+        mark = kernels.launch_counts()
+        want = (DTCWT if fused else ("dtcwt_level1_ll_y", "dtcwt_qshift_hp",
+                                     "dtcwt_qshift_synthesis", "dtcwt_qshift_synthesis_ll",
+                                     "dtcwt_legall_synthesis_ll"))
+        assert_counts(mark, {**{k: batches for k in want}, "dtcwt_level1_analysis": 1},
+                      f"dtcwtImg mark {h}")
+        fresh_counts()
+        with NoPlainOnDevice():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det_lines = _cli_lines(cli, ["detect", str(out), *flags, "--out-dir", str(det),
+                                         "--wm-height", "27", "--wm-width", "48"])
+            det_s = time.perf_counter() - t0
+        found = kernels.launch_counts()
+        want = ({k: batches for k in DTCWT_DETECT} if fused else
+                {"dtcwt_level1_ll_color": batches, "dtcwt_qshift_ll": batches,
+                 "dtcwt_qshift_hp": 2 * batches, "dtcwt_legall_synthesis_hp": batches})
+        assert_counts(found, want, f"dtcwtImg detect {h}")
+        assert f"recovered {n} watermark images" in det_lines, det_lines
+        counts.update(mark)
+        counts.update(found)
+
+        src, marked = _read_rawv(source), _read_rawv(out)
+        assert marked.shape == (n, h, w, 3), marked.shape
+        psnr = _psnr(marked, src)
+        wm = torch.as_tensor(BlockShuffler(0).generate_wm(payload.astype(np.float32),
+                                                          codec.wm_capacity((h, w, 3))),
+                             dtype=torch.float32, device=device)
+        first = torch.as_tensor(np.array(marked[:b]), device=device)
+        with torch.inference_mode():
+            planes = torch.cat([codec.extract_frames(torch.as_tensor(np.array(marked[i:i + b]),
+                                                                     device=device))
+                                for i in range(0, n, b)]).cpu().numpy()
+            with plain_kernels():
+                want_px = codec.mark_frames(torch.as_tensor(np.array(src[:b]), device=device),
+                                            wm).cpu().numpy()
+                want_planes = codec.extract_frames(first).cpu().numpy()
+        same = float((want_px == marked[:b]).mean())
+        plane_err = float(np.abs(planes[:b] - want_planes).max())
+        assert same >= 0.995 and plane_err <= 1e-4, (same, plane_err)
+        deg = DeBlockShuffler(0).set_shape(payload.shape)
+        for i in range(n):
+            want_png = np.clip(deg.degenerate(planes[i]), 0, 255).astype(np.uint8)
+            assert np.array_equal(read_png_gray(det / f"wm_{i:04d}.png"), want_png), i
+        rec = deg.degenerate(planes.mean(0), antialias=True)
+        agreement = float(((rec > rec.mean()) == (payload > 127)).mean())
+        if h == cfg["h"]:
+            assert agreement > 0.8, agreement
+        # the JAX DtcwtImg gives about 33 dB on this content too: its alpha 1.5 over
+        # the +-255 block watermark, not the port, sets the level
+        assert psnr > 30.0, psnr
+        print(f"dtcwtimg {w}x{h}: {mark_lines.strip().splitlines()[0]!r}, CLI mark {mark_s:.3f} s "
+              f"({n / mark_s:.1f} frames/s), CLI detect --out-dir {det_s:.3f} s "
+              f"({n / det_s:.1f} frames/s; host clock around the CLI call, PNG writes "
+              f"included); PSNR {psnr:.2f} dB; first batch {same:.6f} of pixels equal to the "
+              f"plain kernel path on the card, planes within {plane_err:.3g} (largest "
+              f"{float(np.abs(want_planes).max()):.1f}); {n} PNGs equal to the planes' images; "
+              f"agreement of the mean plane (antialias) with the payload {agreement:.4f}; "
+              f"launches mark { {k: v for k, v in mark.items() if v} }, detect "
+              f"{ {k: v for k, v in found.items() if v} }; card "
+              f"{nvidia_smi_line()}")
+        out.unlink()
+    return counts
+
+
 # -- phase 5: timings -------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -2333,12 +2649,15 @@ def main(argv=None) -> int:
         counts.update(run_dtcwt_float_path(device, cfg))
         counts.update(run_dtcwt_depth_path(device, cfg, Path(tmp), smooth_1080p))
         counts.update(run_hls_path(device, cfg, Path(tmp)))
+        counts.update(run_serve_path(device, cfg, Path(tmp)))
+        counts.update(run_dtcwt_img_path(device, cfg, Path(tmp)))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 
     assert all(counts[k] > 0 for k in (*REPLACES, EXTRACT_DECIDE)), counts  # every kernel
     # the spectrum once per distinct plane: 1080p and 1920x804 CLI mark 1 each,
-    # the float path 1, path 3 two per batch and 1, the round trip 1
-    assert counts["dtcwt_level1_analysis"] == 11, counts
+    # the float path 1, path 3 two per batch and 1, the round trip 1, the
+    # dtcwtImg CLI marks 1 each
+    assert counts["dtcwt_level1_analysis"] == 13, counts
     times = time_kernels(device, cfg)
     sweep, sweep_errs = redesign_sweep(device, cfg)
     for name, err in sweep_errs.items():

@@ -193,8 +193,16 @@ def test_make_codec_reads_the_shared_config():
 
 @pytest.mark.parametrize("name", ["dtcwt_img", "DTCWTIMG", "dtcwtImg"])
 def test_make_codec_refuses_unported_codecs(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        make_codec(name)
+    """Every codec of vfp_tpu is ported: the image codec's names build
+    DtcwtImg from ``alpha_img``, and only unknown names are refused."""
+    from vfp_tpu_torch.wm import DtcwtImg
+
+    cfg = VfpConfig()
+    cfg.codec.alpha_img = 2.5
+    assert make_codec(name, cfg) == DtcwtImg(alpha=2.5)
+    assert make_codec(name, cfg) == DtcwtImg.from_reference(cfg.make_codec("dtcwtImg"))
+    with pytest.raises(ValueError, match="unknown codec"):
+        make_codec(name + "x")
 
 
 @pytest.mark.parametrize("name", ["dtcwt_key", "dtcwtKey"])

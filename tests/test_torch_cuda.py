@@ -5,7 +5,9 @@ jax (the GPU machine has none), so it runs there without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: the DT-CWT masks, the delta synthesis, the six full-transform
+Tolerances: the DT-CWT image codec's mask normalisation equal; its
+extract on the card against the CPU's kernel path within 3e-5 of the
+planes' largest magnitude; the DT-CWT masks, the delta synthesis, the six full-transform
 DT-CWT kernels, the level-1 u8 lowpasses, the flagship and DCT-QIM marks,
 the DCT-QIM extract and the Y mean (an exact fixed-point sum) and, at the tile edges, the highpass-only LeGall synthesis
 equal (max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and
@@ -27,8 +29,9 @@ from vfp_tpu_torch.kernels import dtcwt_delta as tdd, dtcwt_level1 as tdl, dtcwt
 from vfp_tpu_torch.kernels import dtcwt_synthesis as tds
 from vfp_tpu_torch.kernels import fused_dct_qim as tdq, fused_embed as tfe, qim as tqim
 from vfp_tpu_torch.ops.color import bgr_to_yuv
-from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeCorrShuffler, DeShuffler, DtcwtKey,
-                              DwtDctSvd, Shuffler, block_grid, clear_wm_cache)
+from vfp_tpu_torch.wm import (BlockShuffler, CorrShuffler, DctQim, DeCorrShuffler, DeShuffler,
+                              DtcwtImg, DtcwtKey, DwtDctSvd, Shuffler, block_grid,
+                              clear_wm_cache)
 
 from torch_parity import PAYLOAD, cuda_device, natural_frames  # noqa: F401
 
@@ -278,6 +281,54 @@ def test_dtcwt_key_off_the_fused_geometry_takes_the_kernels(cuda_device, h, w):
     assert (marked.cpu() == want_marked).float().mean() >= 0.999
     torch.testing.assert_close(planes.cpu(), plain.extract_frames(marked.cpu().to(frames.dtype)),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dtcwt_img_mask_normalisation_is_exact_on_the_card(cuda_device):
+    """The image codec's glue: the 0 -> 0.01 guard, then m / max(12, amax)
+    per subband plane, a division by a tensor: equal on the card and on the
+    CPU (no reciprocal multiply), for peaks above and below 12."""
+    rng = np.random.RandomState(3)
+    m = torch.as_tensor(rng.randint(0, 30, (3, 6, 17, 30)).astype(np.float32))
+    m[0, 1] = 0
+    m[1, 4] = torch.as_tensor(rng.randint(0, 6, (17, 30)).astype(np.float32))
+    codec = DtcwtImg()
+    for guard in (False, True):
+        got = codec._finish_masks(m.to(cuda_device), zero_guard=guard).cpu()
+        torch.testing.assert_close(got, codec._finish_masks(m, zero_guard=guard), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(240, 320), (204, 328), (239, 317)])
+def test_dtcwt_img_on_the_card_takes_the_kernels(cuda_device, h, w):
+    """DtcwtImg marks and extracts on the card through the same kernels as
+    DtcwtKey (fused at 240x320, the glue and the three syntheses at 204x328,
+    bgr_to_yuv and level 1 lowpass-only at 239x317), equal to the plain
+    kernel path on the CPU: marked u8 >= 99.9%, planes within 3e-5 of their
+    largest magnitude (the normalised masks scale them to about 1,600)."""
+    rng = np.random.RandomState(h * w)
+    frames = torch.as_tensor(natural_frames(rng, 2, h, w), device=cuda_device)
+    codec = DtcwtImg()
+    payload = (rng.rand(27, 48) > 0.5).astype(np.float32) * 255
+    wm = torch.as_tensor(BlockShuffler(5).generate_wm(payload, codec.wm_capacity((h, w, 3))),
+                         dtype=torch.float32, device=cuda_device)
+    clear_wm_cache()
+    kernels.reset_launch_counts()
+    marked = codec.mark_frames(frames, wm)
+    planes = codec.extract_frames(marked)
+    counts = kernels.launch_counts()
+    fused = h % 8 == 0 and w % 8 == 0
+    u8_even = h % 2 == 0 and w % 2 == 0
+    want = {"dtcwt_level1_ll_y": u8_even, "dtcwt_level1_ll_color": u8_even,
+            "dtcwt_qshift_masks": fused, "dtcwt_delta_synthesis": fused,
+            "dtcwt_qshift_synthesis": not fused, "dtcwt_legall_synthesis_hp": True}
+    for name, ran in want.items():
+        assert (counts[name] > 0) == ran, (name, counts)
+    plain = DtcwtImg(backend="kernel")
+    assert (marked.cpu() == plain.mark_frames(frames.cpu(), wm.cpu())).float().mean() >= 0.999
+    ref = plain.extract_frames(marked.cpu())
+    err = float((planes.cpu() - ref).abs().max())
+    assert err <= 3e-5 * float(ref.abs().max()), (err, float(ref.abs().max()))
 
 
 @pytest.mark.cuda

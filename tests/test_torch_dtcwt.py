@@ -409,8 +409,9 @@ def test_codec_config_and_reference():
     with pytest.raises(ValueError):
         DtcwtKey(backend="pallas")
     assert DtcwtKey.from_reference(jcodecs.DtcwtKey(nlevels=2)) == DtcwtKey(nlevels=2)
-    with pytest.raises(NotImplementedError):
-        DtcwtKey.from_reference(jcodecs.DtcwtImg())
+    # the image variant's mask normalisation carries across too
+    assert DtcwtKey.from_reference(jcodecs.DtcwtImg()) == DtcwtKey(alpha=1.5,
+                                                                   normalize_masks=True)
     with pytest.raises(ValueError):
         DtcwtKey(nlevels=1)
 

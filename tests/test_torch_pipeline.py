@@ -201,12 +201,17 @@ def test_cli_never_drops_to_the_cpu(source_video, tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_cv2(source_video, tmp_path):
-    """A fresh interpreter runs the port's CLI end to end, every codec and the
-    HLS workflow, without importing jax, cv2 or anything of the JAX package."""
+    """A fresh interpreter runs the port's CLI end to end, every codec, the
+    HLS workflow and the HTTP service, without importing jax, cv2, jinja2 or
+    anything of the JAX package."""
     code = f"""
-import sys
+import json, sys, threading, urllib.request
+import numpy as np
 import vfp_tpu_torch, vfp_tpu_torch.fingerprint, vfp_tpu_torch.kernels, vfp_tpu_torch.pipeline
+import vfp_tpu_torch.serve
 from vfp_tpu_torch.cli import main
+from vfp_tpu_torch.io import write_png_gray
+from vfp_tpu_torch.serve.app import make_server
 for codec in ("dwtDctSvd", "dct"):
     out = {str(tmp_path)!r} + "/m_" + codec + ".rawv"
     main(["mark", {str(source_video)!r}, out, "--codec", codec, "--device", "cpu"])
@@ -219,7 +224,26 @@ main(["hls-mark", {str(source_video)!r}, hls, "--copies", "2", "--device", "cpu"
 main(["leak", hls + "/segment_copies.json", "--pattern", "1", "--device", "cpu"])
 main(["trace", hls + "/leaked_video.rawv", hls + "/det", "--payload-file",
       hls + "/segment_payloads.json", "--device", "cpu"])
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "vfp_tpu"))
+png = {str(tmp_path)!r} + "/payload.png"
+write_png_gray(png, (np.arange(48 * 64).reshape(48, 64) % 256).astype(np.uint8))
+out = {str(tmp_path)!r} + "/m_dtcwtImg.rawv"
+main(["mark", {str(source_video)!r}, out, "--codec", "dtcwtImg", "--wm-image", png,
+      "--device", "cpu"])
+main(["detect", out, "--codec", "dtcwtImg", "--out-dir", {str(tmp_path)!r} + "/wms",
+      "--device", "cpu"])
+srv = make_server("127.0.0.1", 0, {str(tmp_path)!r} + "/serve", device="cpu")
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+base = "http://127.0.0.1:%d" % srv.server_address[1]
+body = (b"--b\\r\\nContent-Disposition: form-data; name=\\"file\\"; filename=\\"s.rawv\\"\\r\\n\\r\\n"
+        + open({str(source_video)!r}, "rb").read() + b"\\r\\n--b--\\r\\n")
+req = urllib.request.Request(base + "/upload", body,
+                             {{"Content-Type": "multipart/form-data; boundary=b"}})
+print("UPLOAD", json.loads(urllib.request.urlopen(req).read())["status"])
+page = urllib.request.urlopen(base + "/view").read()
+srv.shutdown()
+srv.server_close()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cv2", "vfp_tpu", "jinja2"))
 assert not bad, bad
 print("NO_JAX_OK")
 """
@@ -229,6 +253,7 @@ print("NO_JAX_OK")
     assert "NO_JAX_OK" in r.stdout and r.stdout.count("matches expected payload: True") == 2
     assert "watermark present in" in r.stdout
     assert "Copy fingerprint: 1" in r.stdout and "Success rate: 100.00%" in r.stdout
+    assert "recovered 10 watermark images" in r.stdout and "UPLOAD success" in r.stdout
 
 
 def _imported_modules(path: Path):

@@ -1,19 +1,26 @@
 """CLI of the PyTorch/CUDA port: mark and detect with the ported codecs, and
 the HLS fingerprinting workflow.
 
-    python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct|dtcwtKey]
-                                [--payload 01100101] [--key 0] [--device cuda]
-    python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct|dtcwtKey]
+    python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct|dtcwtKey|dtcwtImg]
+                                [--payload 01100101 | --wm-image GRAY.png]
+                                [--generator auto|shuffler|grayscale] [--key 0] [--device cuda]
+    python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct|dtcwtKey|dtcwtImg]
                                 [--payload-len 8 | --payload BITS] [--key 0]
+                                [--out-dir DIR --wm-height 64 --wm-width 64]
     python -m vfp_tpu_torch.cli hls-mark INPUT OUTDIR --copies 3 [--segment-duration 2]
     python -m vfp_tpu_torch.cli leak COPIES_JSON [--pattern 012] [--random-seed N]
     python -m vfp_tpu_torch.cli trace LEAKED OUTDIR [--payload-file F] [--max-copies 3]
+    python -m vfp_tpu_torch.cli serve [--host 0.0.0.0] [--port 8000] [--data-dir serve_data]
 
 The same subcommands, flags and printed lines as ``python -m vfp_tpu.cli``
-for the DWT+DCT+SVD codec, the perceptual DCT-QIM codec (``--codec dct``)
-and the DT-CWT key codec (``--codec dtcwtKey``: a keyed spread-spectrum
-plane, the payload ignored; detect prints per-file presence), plus
-``--device``.  On ``--device cuda`` every codec marks and detects through
+for the DWT+DCT+SVD codec, the perceptual DCT-QIM codec (``--codec dct``),
+the DT-CWT key codec (``--codec dtcwtKey``: a keyed spread-spectrum
+plane, the payload ignored; detect prints per-file presence) and the DT-CWT
+image codec (``--codec dtcwtImg``: a block-scrambled image payload from
+``--wm-image``; detect writes the recovered image of every frame to
+``--out-dir`` as ``wm_NNNN.png``), plus ``--device``.  Image payloads are
+8-bit grayscale PNGs (``io/images.py``; the JAX CLI reads any image cv2
+reads).  On ``--device cuda`` every codec marks and detects through
 its CUDA kernels.  The device defaults to ``cuda`` and is never changed
 silently: ``--device cuda`` without a GPU raises; pass ``--device cpu`` to
 run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
@@ -39,18 +46,33 @@ def _payload_bits(s: str) -> np.ndarray:
     return np.array([int(c) for c in s])
 
 
+def _generator(codec_name: str, key: int, generator: str = "auto"):
+    """The payload spreader paired with a codec, as vfp_tpu.cli pairs them:
+    CorrShuffler with dtcwtKey, BlockShuffler with dtcwtImg, GrayScale on
+    request, else Shuffler."""
+    from ..wm import BlockShuffler, CorrShuffler, GrayScale, Shuffler
+
+    if _is_dtcwt_key(codec_name):
+        return CorrShuffler(key=key)
+    if _is_dtcwt_img(codec_name):
+        return BlockShuffler(key=key)
+    return GrayScale(key=key) if generator == "grayscale" else Shuffler(key=key)
+
+
 def cmd_mark(args):
-    from ..io import open_reader, open_writer
+    from ..io import open_reader, open_writer, read_png_gray
     from ..pipeline import Embedder, FrameMarker
     from ..utils import make_codec
-    from ..wm import CorrShuffler, Shuffler
 
     device = resolve_device(args.device)
     codec = make_codec(args.codec)
+    if args.wm_image:
+        payload = read_png_gray(args.wm_image).astype(np.float32)
+    else:
+        payload = _payload_bits(args.payload)
     reader = open_reader(args.input)
-    generator = CorrShuffler(key=args.key) if _is_dtcwt_key(args.codec) else Shuffler(key=args.key)
-    wm = generator.generate_wm(
-        _payload_bits(args.payload), codec.wm_capacity((reader.height, reader.width, 3)))
+    generator = _generator(args.codec, args.key, args.generator)
+    wm = generator.generate_wm(payload, codec.wm_capacity((reader.height, reader.width, 3)))
     writer = open_writer(args.output, reader.width, reader.height, reader.fps, args.quality)
     stats = Embedder(reader, FrameMarker(codec, wm, args.batch_size, device=device), writer).start()
     print(f"marked {stats.frames} frames in {stats.seconds:.2f}s ({stats.fps:.1f} fps)")
@@ -60,6 +82,38 @@ def cmd_mark(args):
 
 def _is_dtcwt_key(name: str) -> bool:
     return name.lower() in ("dtcwtkey", "dtcwt_key")
+
+
+def _is_dtcwt_img(name: str) -> bool:
+    return name.lower() in ("dtcwtimg", "dtcwt_img")
+
+
+@torch.inference_mode()
+def _detect_images(args, codec, device):
+    """One recovered watermark image per frame, unscrambled by
+    DeBlockShuffler and written to --out-dir as wm_NNNN.png, as vfp_tpu.cli."""
+    from ..io import open_reader, write_png_gray
+    from ..pipeline.transfer import upload_batch
+    from ..wm import DeBlockShuffler
+
+    out_dir = Path(args.out_dir or "detected_wms")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    deg = DeBlockShuffler(key=args.key).set_shape((args.wm_height, args.wm_width))
+    reader = open_reader(args.input)
+    i = 0
+    try:
+        while True:
+            b = reader.read_batch(args.batch_size)
+            if b is None:
+                break
+            planes = codec.extract_frames(upload_batch(b, len(b), device)).cpu().numpy()
+            for p in planes:
+                rec = deg.degenerate(p)
+                write_png_gray(out_dir / f"wm_{i:04d}.png", np.clip(rec, 0, 255).astype(np.uint8))
+                i += 1
+    finally:
+        reader.close()
+    print(f"recovered {i} watermark images -> {out_dir}/")
 
 
 @torch.inference_mode()
@@ -97,6 +151,8 @@ def cmd_detect(args):
     codec = make_codec(args.codec)
     if _is_dtcwt_key(args.codec):
         return _detect_presence(args, codec, device)
+    if _is_dtcwt_img(args.codec):
+        return _detect_images(args, codec, device)
     expected = None
     if args.payload:
         expected = _payload_bits(args.payload)
@@ -249,6 +305,12 @@ def cmd_trace(args):
         print(f"Copy fingerprint: {result.fingerprint}")
 
 
+def cmd_serve(args):
+    from ..serve.app import run_server
+
+    run_server(host=args.host, port=args.port, data_dir=args.data_dir, device=args.device)
+
+
 def main(argv=None):
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s  %(message)s"
@@ -258,7 +320,7 @@ def main(argv=None):
     p.add_argument("--verbose", "-v", action="store_true", help="enable DEBUG logging")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    codecs = ["dwtDctSvd", "dct", "dtcwtKey"]
+    codecs = ["dwtDctSvd", "dct", "dtcwtKey", "dtcwtImg"]
     fast_dots_help = "accepted for vfp_tpu.cli's sake and ignored: the port computes in float32"
 
     m = sub.add_parser("mark", help="embed a payload into every frame")
@@ -266,6 +328,9 @@ def main(argv=None):
     m.add_argument("--codec", choices=codecs, default="dwtDctSvd")
     m.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     m.add_argument("--payload", default="01100101")
+    m.add_argument("--wm-image", default=None,
+                   help="watermark image payload: an 8-bit grayscale PNG")
+    m.add_argument("--generator", choices=["auto", "shuffler", "grayscale"], default="auto")
     m.add_argument("--key", type=int, default=0)
     m.add_argument("--batch-size", type=int, default=16)
     m.add_argument("--quality", type=int, default=95)
@@ -282,6 +347,9 @@ def main(argv=None):
     d.add_argument("--key", type=int, default=0)
     d.add_argument("--threshold", choices=["midpoint", "fixed"], default="fixed")
     d.add_argument("--batch-size", type=int, default=16)
+    d.add_argument("--out-dir", default=None, help="output dir for recovered images (dtcwtImg)")
+    d.add_argument("--wm-height", type=int, default=64)
+    d.add_argument("--wm-width", type=int, default=64)
     d.add_argument("--device", default="cuda", help="torch device (default cuda)")
     d.set_defaults(fn=cmd_detect)
 
@@ -335,6 +403,13 @@ def main(argv=None):
     t.add_argument("--key", type=int, default=0)
     t.add_argument("--device", default="cuda", help="torch device (default cuda)")
     t.set_defaults(fn=cmd_trace)
+
+    s = sub.add_parser("serve", help="run the fingerprinting HTTP service")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--data-dir", default="serve_data")
+    s.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    s.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)
     if args.verbose:

@@ -71,15 +71,12 @@ class VfpConfig:
             return cls.from_dict(json.load(f))
 
 
-_UNPORTED = ("dtcwtimg", "dtcwt_img")
-
-
 def make_codec(name: str, config: VfpConfig | None = None):
-    """'dwtDctSvd' | 'dct' | 'dtcwtKey' -> this package's codec, configured
+    """'dwtDctSvd' | 'dct' | 'dtcwtKey' | 'dtcwtImg' -> this package's codec, configured
     from ``config.codec`` (the JAX backend names map as pallas -> kernel,
     xla -> torch)."""
     from ..wm.dct_qim import DctQim
-    from ..wm.dtcwt_codecs import DtcwtKey
+    from ..wm.dtcwt_codecs import DtcwtImg, DtcwtKey
     from ..wm.dwt_dct_svd import REFERENCE_BACKENDS, DwtDctSvd
 
     c = (config or VfpConfig()).codec
@@ -91,7 +88,6 @@ def make_codec(name: str, config: VfpConfig | None = None):
         return DctQim(alpha=c.alpha_dct)
     if key in ("dtcwtkey", "dtcwt_key"):
         return DtcwtKey(alpha=c.alpha_key, step=c.step)
-    if key in _UNPORTED:
-        raise NotImplementedError(f"codec {name!r} is not ported to vfp_tpu_torch yet "
-                                  "(ROADMAP.md queue 1)")
+    if key in ("dtcwtimg", "dtcwt_img"):
+        return DtcwtImg(alpha=c.alpha_img, step=c.step)
     raise ValueError(f"unknown codec: {name}")

@@ -1,5 +1,6 @@
-"""DT-CWT keyed spread-spectrum watermark codec on frame batches (port of
-``vfp_tpu/wm/dtcwt_codecs.py``, the ``DtcwtKey`` variant).
+"""DT-CWT watermark codecs on frame batches (port of
+``vfp_tpu/wm/dtcwt_codecs.py``): the keyed spread-spectrum ``DtcwtKey`` and
+the image-payload ``DtcwtImg``.
 
 Marking: 6 per-subband perceptual masks from the 2x2-mean-filtered
 |level-2 Y highpasses|, rebinned to the level-3 grid and quantized by
@@ -35,7 +36,11 @@ so does this one.
 transform block and fused stage on the CUDA kernels (their plain versions
 for CPU tensors); ``"torch"`` (and ``"auto"`` for CPU tensors) runs the
 plain transform and the glue path everywhere, the JAX package's XLA path.
-The image variant (mask normalisation) is not ported yet.
+``DtcwtImg`` (``alpha=1.5``, ``normalize_masks=True``) runs the same kernels
+and glue; its masks are divided by ``max(12, amax)`` of each subband plane
+of each frame before they scale the delta (every mark path builds its delta
+in ``_delta_subs``) and, after the decoder's 0 -> 0.01 guard, before they
+divide the coefficients (every detect path decodes in ``_decode_coeffs``).
 """
 
 from __future__ import annotations
@@ -107,6 +112,7 @@ class _DtcwtBase:
     step: float = 5.0
     nlevels: int = 3
     backend: str = "auto"
+    normalize_masks: bool = False  # True for the image variant
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -117,16 +123,15 @@ class _DtcwtBase:
         object.__setattr__(self, "alpha", float(self.alpha))
         object.__setattr__(self, "step", float(self.step))
         object.__setattr__(self, "nlevels", int(self.nlevels))
+        object.__setattr__(self, "normalize_masks", bool(self.normalize_masks))
 
     @classmethod
     def from_reference(cls, obj):
         """This codec configured as a ``vfp_tpu`` DT-CWT codec (read by
-        attribute).  Its ``fast_dots`` is ignored: the port computes in
-        float32."""
-        if bool(obj.normalize_masks):
-            raise NotImplementedError("mask normalisation (DtcwtImg) is not ported yet "
-                                      "(ROADMAP.md queue 1)")
-        return cls(alpha=float(obj.alpha), step=float(obj.step), nlevels=int(obj.nlevels))
+        attribute), its mask normalisation included.  Its ``fast_dots`` is
+        ignored: the port computes in float32."""
+        return cls(alpha=float(obj.alpha), step=float(obj.step), nlevels=int(obj.nlevels),
+                   normalize_masks=bool(obj.normalize_masks))
 
     def wm_capacity(self, frame_shape):
         return infer_wm_shape(frame_shape)
@@ -184,9 +189,22 @@ class _DtcwtBase:
         """[B, 6, h2, w2] subband magnitudes -> [B, 6, h3, w3] masks."""
         return torch.ceil(true_div(rebin_mean(filter2d_mean2x2(mags), shape3), self.step))
 
+    def _finish_masks(self, masks: torch.Tensor, zero_guard: bool = False) -> torch.Tensor:
+        """The decoder's 0 -> 0.01 guard (``zero_guard``), then the image
+        variant's normalisation ``m / max(12, amax)`` of each [h3, w3] plane,
+        a division by a tensor (IEEE on every device).  The guard comes
+        first, so flat-luminance coefficients keep the reference's weight."""
+        if zero_guard:
+            masks = torch.where(masks == 0, torch.full_like(masks, 0.01), masks)
+        if self.normalize_masks:
+            peak = torch.amax(masks, dim=(-2, -1), keepdim=True)
+            masks = masks / torch.clamp(peak, min=12.0)
+        return masks
+
     def _delta_subs(self, masks: torch.Tensor, wm_hp: torch.Tensor) -> torch.Tensor:
         """[B, 6, h3, w3] masks + complex [h, w, 6] watermark spectrum -> the
         level-3 delta planes [B, 12, h3, w3] [lh*4, hl*4, hh*4]."""
+        masks = self._finish_masks(masks)
         wm_plane = _corner_replicate(wm_hp.permute(2, 0, 1), masks.shape[-2:])
         delta6 = (self.alpha * masks) * wm_plane[None]  # [B, 6, h3, w3] complex
         return c2q_subs(delta6.permute(0, 2, 3, 1))
@@ -290,10 +308,11 @@ class _DtcwtBase:
 
     def _decode_coeffs(self, u_hp3: torch.Tensor, masks: torch.Tensor, synthesis):
         """U's deepest highpasses [B, 12 (or 16), h3, w3] and masks [B, 6, h3,
-        w3] -> the recovered planes: the decoder's 0 -> 0.01 mask guard, q2c,
-        division by mask and alpha, the fold of the 4 corner replicas, c2q,
-        and ``synthesis`` (the highpass-only LeGall level-1 synthesis)."""
-        masks = torch.where(masks == 0, torch.full_like(masks, 0.01), masks)
+        w3] -> the recovered planes: the decoder's 0 -> 0.01 mask guard and
+        the image variant's normalisation, q2c, division by mask and alpha,
+        the fold of the 4 corner replicas, c2q, and ``synthesis`` (the
+        highpass-only LeGall level-1 synthesis)."""
+        masks = self._finish_masks(masks, zero_guard=True)
         coeff = q2c_planes(u_hp3) / masks.permute(0, 2, 3, 1).to(torch.complex64)
         coeff = coeff / torch.full_like(coeff, self.alpha)
         hh, ww = (u_hp3.shape[-2] + 1) // 2, (u_hp3.shape[-1] + 1) // 2
@@ -306,3 +325,12 @@ class DtcwtKey(_DtcwtBase):
     """Keyed spread-spectrum variant; pairs with CorrShuffler/DeCorrShuffler."""
 
     alpha: float = 10.0
+
+
+@dataclass(frozen=True)
+class DtcwtImg(_DtcwtBase):
+    """Visible-image variant: ``alpha=1.5`` and the masks normalised per
+    subband plane; pairs with BlockShuffler/DeBlockShuffler."""
+
+    alpha: float = 1.5
+    normalize_masks: bool = True

@@ -111,3 +111,46 @@ class DeShuffler:
         """Single-plane NumPy-compatible entry point (reference API shape)."""
         flat = torch.as_tensor(np.asarray(wm, np.float32)).reshape(1, -1)
         return self.degenerate_batch(flat)[0].numpy()
+
+
+class GrayScale:
+    """Image-payload spreader: binarise at 127, keyed shuffle, tile to capacity."""
+
+    wm_kind = "grayscale"
+
+    def __init__(self, key=None):
+        self.key = key
+
+    @staticmethod
+    def wm_type() -> str:
+        return "grayscale"
+
+    def generate_wm(self, payload: np.ndarray, capacity) -> np.ndarray:
+        total = int(np.prod(np.asarray(capacity)))
+        bits = (np.asarray(payload) > 127).astype(np.uint8).flatten()
+        np.random.RandomState(self.key).shuffle(bits)
+        return _tile_to(bits, total).reshape(capacity)
+
+
+class DeGrayScale:
+    """Inverse of :class:`GrayScale`: a 0/255 image of the payload's shape
+    (the midpoint threshold of the strided means)."""
+
+    def __init__(self, key=None):
+        self.key = key
+
+    def set_shape(self, payload_shape):
+        self.payload_shape = tuple(payload_shape)
+        self.payload_len = int(np.prod(np.asarray(payload_shape)))
+        return self
+
+    def degenerate_batch(self, wm: torch.Tensor) -> torch.Tensor:
+        """[..., total] float watermark plane(s) -> [..., *payload_shape]
+        uint8 images of 0 and 255, on the planes' device."""
+        means = despread_mean(wm, self.payload_len, wm.shape[-1])
+        bits = _threshold_mid(_unshuffle(means, self.key))
+        return (bits * 255).reshape(*wm.shape[:-1], *self.payload_shape)
+
+    def degenerate(self, wm) -> np.ndarray:
+        flat = torch.as_tensor(np.asarray(wm, np.float32)).reshape(1, -1)
+        return self.degenerate_batch(flat)[0].numpy()

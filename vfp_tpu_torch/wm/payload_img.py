@@ -1,13 +1,14 @@
-"""Keyed spread-spectrum plane for the DT-CWT key codec (port of the first half
-of ``vfp_tpu/wm/payload_img.py``): ``CorrShuffler`` makes a keyed +-1 plane
-resized to the codec's capacity, ``DeCorrShuffler`` detects it by
-normalised correlation.
+"""Keyed spread-spectrum and block-scrambled image payloads of the DT-CWT
+codecs (port of ``vfp_tpu/wm/payload_img.py``): ``CorrShuffler`` makes a
+keyed +-1 plane resized to the codec's capacity, ``DeCorrShuffler`` detects
+it by normalised correlation; ``BlockShuffler`` scrambles an image payload's
+blocks with a keyed permutation for ``DtcwtImg``, ``DeBlockShuffler``
+unscrambles a recovered plane back to the payload's shape.
 
-Generation is host-side NumPy: the keyed ``RandomState`` plane as in the JAX
-package, and the port's own copy of cv2's float32 INTER_LINEAR resize
-(``ops/filters.py:resize_linear``), computed once per shape.  The correlation
-runs batched on the planes' device.  ``BlockShuffler`` comes with the image
-codec (ROADMAP.md queue 1).
+Generation and unscrambling are host-side NumPy: the keyed ``RandomState``
+permutations as in the JAX package, and the port's own copies of cv2's
+float32 INTER_LINEAR and INTER_AREA resizes (``ops/filters.py``).  The
+correlation runs batched on the planes' device.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.filters import resize_linear
+from ..ops.filters import resize_area, resize_linear
 
 
 def _keyed_pm1_plane(key, shape=(1080, 1920)) -> np.ndarray:
@@ -74,3 +75,83 @@ class DeCorrShuffler:
     def degenerate(self, wm) -> bool:
         return bool(self.correlation_batch(torch.as_tensor(np.asarray(wm, np.float32))[None])[0]
                     > self.threshold)
+
+
+def _blocks(channel: np.ndarray, blk_shape):
+    """The whole [bh, bw] blocks of ``channel`` as [rows/bh * cols/bw, bh, bw]
+    in row-major block order, and the covered extent (rows, cols)."""
+    bh, bw = blk_shape
+    rows = channel.shape[0] // bh * bh
+    cols = channel.shape[1] // bw * bw
+    flat = (channel[:rows, :cols].reshape(rows // bh, bh, cols // bw, bw)
+            .transpose(0, 2, 1, 3).reshape(-1, bh, bw))
+    return flat, rows, cols
+
+
+def _unblocks(channel: np.ndarray, flat: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """``channel`` with its covered extent replaced by the blocks ``flat``."""
+    bh, bw = flat.shape[1:]
+    out = np.copy(channel)
+    out[:rows, :cols] = (flat.reshape(rows // bh, cols // bw, bh, bw)
+                         .transpose(0, 2, 1, 3).reshape(rows, cols))
+    return out
+
+
+class BlockShuffler:
+    """Keyed block-scrambled image payload: the image resized to ``shape``,
+    its whole ``blk_shape`` blocks permuted by the key, resized to the
+    codec's capacity and binarised to +-255 at 127."""
+
+    wm_kind = "grayscale"
+
+    def __init__(self, key=None, blk_shape=(35, 30)):
+        self.key = key
+        self.blk_shape = blk_shape
+
+    @staticmethod
+    def wm_type() -> str:
+        return "grayscale"
+
+    def randomize_channel(self, channel: np.ndarray, key, blk_shape=(8, 8)) -> np.ndarray:
+        flat, rows, cols = _blocks(channel, blk_shape)
+        np.random.RandomState(key).shuffle(flat)
+        return _unblocks(channel, flat, rows, cols)
+
+    def generate_wm(self, payload: np.ndarray, capacity, shape=(135, 240)) -> np.ndarray:
+        wm = resize_linear(np.asarray(payload, np.float32), shape)
+        wm = self.randomize_channel(wm, self.key, self.blk_shape)
+        wm = resize_linear(wm, capacity)
+        return np.where(wm > 127, 255, -255).astype(np.int32)
+
+
+class DeBlockShuffler:
+    """Inverse of :class:`BlockShuffler`: a recovered plane resized to
+    ``shape``, its blocks put back by the inverse permutation, resized to
+    the payload's shape."""
+
+    def __init__(self, key=None, blk_shape=(35, 30)):
+        self.key = key
+        self.blk_shape = blk_shape
+
+    def set_shape(self, payload_shape):
+        self.payload_shape = tuple(payload_shape)
+        return self
+
+    def derandomize_channel(self, channel: np.ndarray, key, blk_shape=(8, 8)) -> np.ndarray:
+        flat, rows, cols = _blocks(channel, blk_shape)
+        idx = np.arange(flat.shape[0])
+        np.random.RandomState(key).shuffle(idx)
+        res = np.zeros_like(flat)
+        res[idx] = flat
+        return _unblocks(channel, res, rows, cols)
+
+    def degenerate(self, wm, shape=(135, 240), antialias: bool = False) -> np.ndarray:
+        """Descramble a recovered plane back to the payload shape.
+        ``antialias=False`` resizes the descrambled plane with INTER_LINEAR,
+        as the reference; ``antialias=True`` with INTER_AREA, the block
+        average, which reads the image where INTER_LINEAR point-samples the
+        decoder's fine-scale ringing."""
+        x = resize_linear(np.asarray(wm, np.float32), shape)
+        x = self.derandomize_channel(x, self.key, self.blk_shape)
+        resize = resize_area if antialias else resize_linear
+        return resize(x, self.payload_shape)
