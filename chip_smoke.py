@@ -63,11 +63,18 @@ Phases, each printing its lines:
    --wm-image`` -> ``detect --out-dir`` on the 48 smooth frames at 1080p and
    1920x804 (``dtcwtimg``: the first batch equal to the plain kernel path
    on the card, PSNR > 30 dB, the PNGs equal to the planes' images, the
-   payload's agreement > 0.8 at 1080p).  The
+   payload's agreement > 0.8 at 1080p); then ``durability``: ``cli
+   durability`` on 180 smooth 1080p frames at 30 fps with the default codec,
+   ``--codec dct`` and ``--codec dtcwtKey`` (MJPEG ``.avi`` through the
+   native JPEG codec: the exit code against the report's verdict, 3 segment
+   pairs, the bit codecs' and ``dtcwtKey``'s 75% bar, launches counted from
+   the code, the wall split into JPEG encode, decode, file I/O and the
+   card's batch calls, one frame's JPEG ms and the pinned SHA-256 of its
+   q90 JPEG).  The
    counts must show every kernel ran and no plain version may
    see a CUDA tensor, and the watermark plane's spectrum
-   (``dtcwt_level1_analysis`` on it) must run once per path: 13 launches of
-   that kernel over all paths;
+   (``dtcwt_level1_analysis`` on it) must run once per distinct plane: 16
+   launches of that kernel over all paths;
 5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
    with CUDA events after warm-up, on two clocks: host-inclusive (events
@@ -87,7 +94,8 @@ Phases, each printing its lines:
    to its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
-   split into upload, device and download on the host clock, and the
+   split into upload, device and download (``transfer.download``, pinned)
+   on the host clock, and the
    whole ``FrameMarker.mark`` and ``MultiMarker.mark_all`` (3 variants)
    calls of a 1080p batch.
 
@@ -118,6 +126,9 @@ FULL = {"b": 16, "h": 1080, "w": 1920, "frames": 48, "narrow_w": 1918, "tail_h":
         "prime_w": 856, "prime_h": 480, "scope_h": 804, "depth_h": 720, "depth_w": 1280,
         "iters": 20}
 ALPHA = 20.0  # the DCT-QIM codec's default
+# SHA-256 of the port's q90 JPEG of natural_frames(RandomState(14), 1, 1080, 1920)[0],
+# equal to cv2.imencode's bytes (tests/test_torch_jpeg.py pins the same constant)
+JPEG_1080P_Q90_SHA256 = "8b3645f4734eba2d5dfbac6afd16a62eee1022dc8c4a1d565593f512166fd15e"
 REPLACES = {
     "fused_mark_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:239"),
     "fused_extract_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:338"),
@@ -1754,6 +1765,190 @@ def run_dtcwt_img_path(device, cfg, workdir: Path) -> dict:
     return counts
 
 
+class StageClock:
+    """Seconds spent inside patched functions, summed per stage; ``patch``
+    wraps an attribute for the ``with`` block and restores it after."""
+
+    def __init__(self):
+        self.s = collections.Counter()
+        self._undo = []
+
+    def patch(self, owner, name, stage, sync=False):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                self.s[stage] += time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+        return fn
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+
+def jpeg_codec_timings(rng, h, w, b) -> str:
+    """One 1080p frame's JPEG encode (q90) and decode ms, single-threaded and
+    as a batch of ``b`` on the codec's pool, and the pinned digest."""
+    import hashlib
+
+    from vfp_tpu_torch.native import jpeg
+
+    frames = natural_frames(rng, b, h, w)
+    digest = hashlib.sha256(jpeg.encode_jpeg(
+        natural_frames(np.random.RandomState(14), 1, h, w)[0], 90)).hexdigest()
+    assert digest == JPEG_1080P_Q90_SHA256, digest
+    one = jpeg.encode_jpeg(frames[0], 90)
+    assert np.array_equal(jpeg.decode_jpeg(one).shape, (h, w, 3))
+
+    def best(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return 1e3 * min(ts)
+
+    enc1 = best(lambda: jpeg.encode_jpeg(frames[0], 90))
+    dec1 = best(lambda: jpeg.decode_jpeg(one))
+    chunks = jpeg.encode_jpegs(frames, 90)
+    encb = best(lambda: jpeg.encode_jpegs(frames, 90))
+    decb = best(lambda: jpeg.decode_jpegs(chunks, h, w))
+    return (f"JPEG q90 {w}x{h} ({len(one)} bytes): encode {enc1:.2f} ms, decode {dec1:.2f} ms "
+            f"a frame on one thread; a batch of {b} on the pool ({jpeg.pool_size()} threads): "
+            f"encode {encb:.2f} ms ({encb / b:.2f} a frame), decode {decb:.2f} ms "
+            f"({decb / b:.2f} a frame); best of 3, host clock; the digest of the pinned "
+            f"frame's JPEG equals the pinned {JPEG_1080P_Q90_SHA256[:16]}...")
+
+
+def run_durability_path(device, cfg, workdir: Path) -> dict:
+    """``python -m vfp_tpu_torch.cli durability`` on 180 smooth 1080p frames
+    at 30 fps (three 2 s segments of 60): the default codec (``dwtDctSvd``,
+    quality 90), ``--codec dct`` and ``--codec dtcwtKey``, each with its
+    launch counts zeroed just before and read just after.  The experiment
+    writes MJPEG segments at quality 95, marks each segment, writes it at
+    quality 90, detects, splices the marked segments by chunk copy,
+    re-segments the splice at quality 95 and detects again: 3 JPEG encodes
+    and 4 decodes a frame, all on the host in the native codec.  Checks the
+    JSON report and the exit code (0 exactly when ``is_successful``), the
+    three segment pairs, the bit codecs' and ``dtcwtKey``'s verdicts, and the
+    launches counted from the code: marks once per batch of a segment (16
+    frames, ``dtcwtKey`` 8, the last batch padded), extracts once per batch
+    of a segment in each of the two detect passes, ``dtcwtKey``'s spectrum
+    once per segment key.  Prints the wall split into JPEG encode, JPEG
+    decode, file I/O and the card's batch calls (the marks' and the bit
+    detects' whole calls, the correlation detect's uploads and extracts),
+    and the codec's own timings.
+    Returns the launch counts of the three runs."""
+    import json
+    import shutil
+
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.io import MjpegAviReader, MjpegAviWriter, RawVideoWriter
+    from vfp_tpu_torch.native import NativeRawVideoReader, jpeg
+    from vfp_tpu_torch.pipeline import FrameExtractor, FrameMarker
+    from vfp_tpu_torch.wm import DtcwtKey
+    from vfp_tpu_torch.workflows import durability
+
+    h, w, b = cfg["h"], cfg["w"], cfg["b"]
+    n, fps, seg_frames = 180, 30, 60
+    segments = n // seg_frames
+    root = workdir / "durability"
+    root.mkdir()
+    rng = np.random.RandomState(14)
+    print(f"durability: {jpeg_codec_timings(rng, h, w, b)}; card {nvidia_smi_line()}")
+    src = root / "source.rawv"
+    with RawVideoWriter(src, w, h, fps=fps) as writer:
+        for i in range(0, n, b):
+            writer.write_batch(smooth_frames(rng, min(b, n - i), h, w))
+    codecs = {"dwtDctSvd": [], "dct": ["--codec", "dct"], "dtcwtKey": ["--codec", "dtcwtKey"]}
+    counts = collections.Counter()
+    for name, flags in codecs.items():
+        out = root / name
+        key = name == "dtcwtKey"
+        batches = segments * -(-seg_frames // (8 if key else b))  # run_durability_corr: 8
+        fresh_counts()
+        clock = StageClock()
+        with clock, NoPlainOnDevice():
+            clock.patch(jpeg, "encode_jpegs", "encode")
+            clock.patch(jpeg, "decode_jpegs", "decode")
+            clock.patch(MjpegAviReader, "read_batch", "avi read")  # decode included
+            clock.patch(MjpegAviWriter, "write_encoded", "file")
+            clock.patch(MjpegAviWriter, "close", "file")
+            clock.patch(NativeRawVideoReader, "read_batch", "file")
+            clock.patch(FrameMarker, "mark", "card")
+            clock.patch(FrameExtractor, "extract", "card")
+            clock.patch(durability, "upload_batch", "card", sync=True)
+            clock.patch(DtcwtKey, "extract_frames", "card", sync=True)  # the correlation detect
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                try:
+                    cli(["durability", str(src), str(out), "--device", str(device), *flags])
+                    code = 0
+                except SystemExit as e:
+                    code = e.code
+            wall = time.perf_counter() - t0
+        found = kernels.launch_counts()
+        report = json.loads(text.getvalue())
+        assert code == (0 if report["is_successful"] else 1), (name, code)
+        assert report["segment_pairs"] == segments and report["original_total"] == segments
+        for r in report["original_results"] + report["reencoded_results"]:
+            assert r["segment"].endswith(".avi"), r["segment"]
+        if name == "dct":
+            # the DCT-QIM codec's mark does not survive this channel on this content,
+            # in the JAX package as here (PERF.md, PR 14): its verdict is printed, and
+            # segment 0 (the all-zero payload) is held on both passes
+            assert report["segment_preservation"]["0"]["preserved"], report
+        else:
+            assert code == 0 and report["is_successful"], (name, report)
+            assert report["original_success_rate"] == 1.0, (name, report)
+        if key:
+            want = {**{k: batches for k in DTCWT[:3]}, "dtcwt_level1_analysis": segments,
+                    **{k: 2 * batches for k in DTCWT_DETECT}}
+            want["dtcwt_qshift_masks"] = 3 * batches  # the marks' and both detect passes'
+        elif name == "dct":
+            want = {"fused_dct_qim_mark": batches, "y_dc_mean": batches,
+                    "fused_dct_qim_extract": 2 * batches, kernels.EXTRACT_DECIDE: 2 * batches}
+        else:
+            want = {"fused_mark_planar": batches, "fused_extract_planar": 2 * batches}
+        assert_counts(found, want, f"durability {name}")
+        counts.update({k: found[k] for k in want})
+        s = clock.s
+        file_s = s["file"] + s["avi read"] - s["decode"]
+        rest = wall - s["encode"] - s["decode"] - file_s - s["card"]
+        verdicts = [(p["original_success"], p["reencoded_success"])
+                    for p in report["segment_preservation"].values()]
+        extra = (f", mean correlations {[round(r['mean_correlation'], 4) for r in report['original_results']]} -> "
+                 f"{[round(r['mean_correlation'], 4) for r in report['reencoded_results']]}"
+                 if key else "")
+        print(f"durability {name}: exit {code}, is_successful {report['is_successful']}, "
+              f"original {report['original_success']}/{segments} (avg frequency "
+              f"{report['original_avg_frequency']:.4f}), re-encoded "
+              f"{report['reencoded_success']}/{segments} (avg frequency "
+              f"{report['reencoded_avg_frequency']:.4f}), segments (original, re-encoded) "
+              f"{verdicts}{extra}; wall_seconds {report['wall_seconds']:.3f} (CLI {wall:.3f}): "
+              f"JPEG encode {s['encode']:.3f}, JPEG decode {s['decode']:.3f}, file I/O "
+              f"{file_s:.3f}, the card's batch calls {s['card']:.3f}, the rest {rest:.3f} s; "
+              f"{3 * n} encodes and {4 * n} decodes of {w}x{h}; launches "
+              f"{ {k: v for k, v in found.items() if v} }; card {nvidia_smi_line()}")
+        shutil.rmtree(out)
+    src.unlink()
+    return counts
+
+
 # -- phase 5: timings -------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -2496,12 +2691,14 @@ def redesign_sweep(device, cfg, occupancy: bool = True) -> tuple[dict, dict]:
 def time_batch_stages(device, cfg, reps: int = 5) -> None:
     """Host clock around one 16-frame batch of FrameMarker/FrameExtractor's
     work, split at its synchronising boundaries: upload (pinned staging +
-    H2D), device compute, download (``.cpu()``).  Median of ``reps`` after a
+    H2D), device compute, download (``pipeline/transfer.py:download``, the
+    pipeline's own: a non-blocking copy into pinned memory, waited on).  Median of ``reps`` after a
     warm-up.  1080p for every codec, 1920x804 (path 1) and float frames
     (path 2) for ``dtcwtKey``.  Then two whole calls of the flagship codec
     at 1080p: ``FrameMarker.mark`` and ``MultiMarker.mark_all`` with 3
     variants."""
     from vfp_tpu_torch.pipeline.embedder import upload_batch
+    from vfp_tpu_torch.pipeline.transfer import download
     from vfp_tpu_torch.wm import DctQim, DeCorrShuffler, DeShuffler, DtcwtKey, DwtDctSvd
 
     rng = np.random.RandomState(5)
@@ -2539,7 +2736,7 @@ def time_batch_stages(device, cfg, reps: int = 5) -> None:
             y = compute(x)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            y.cpu().numpy()
+            download([y], b).wait()
             t3 = time.perf_counter()
             runs.append((t1 - t0, t2 - t1, t3 - t2))
         up, dev, down = (1e3 * float(np.median(col)) for col in zip(*runs[1:]))
@@ -2651,13 +2848,14 @@ def main(argv=None) -> int:
         counts.update(run_hls_path(device, cfg, Path(tmp)))
         counts.update(run_serve_path(device, cfg, Path(tmp)))
         counts.update(run_dtcwt_img_path(device, cfg, Path(tmp)))
+        counts.update(run_durability_path(device, cfg, Path(tmp)))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 
     assert all(counts[k] > 0 for k in (*REPLACES, EXTRACT_DECIDE)), counts  # every kernel
     # the spectrum once per distinct plane: 1080p and 1920x804 CLI mark 1 each,
     # the float path 1, path 3 two per batch and 1, the round trip 1, the
-    # dtcwtImg CLI marks 1 each
-    assert counts["dtcwt_level1_analysis"] == 13, counts
+    # dtcwtImg CLI marks 1 each, durability's dtcwtKey run 1 per segment key
+    assert counts["dtcwt_level1_analysis"] == 16, counts
     times = time_kernels(device, cfg)
     sweep, sweep_errs = redesign_sweep(device, cfg)
     for name, err in sweep_errs.items():

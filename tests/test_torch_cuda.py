@@ -780,3 +780,67 @@ def test_mark_segments_then_verify_on_the_card(cuda_device, tmp_path):
     result = fingerprint.trace_leak(leaked, tmp_path / "det", tmp_path / "segment_payloads.json",
                                     device=cuda_device)
     assert result.fingerprint == "20" and result.success_rate == 1.0
+
+
+@pytest.mark.cuda
+def test_mjpeg_avi_round_trip_to_the_card(cuda_device, tmp_path):
+    """An MJPEG .avi written by the port, read back by its reader (the native
+    JPEG codec), uploads to the card and comes back unchanged, and a segment
+    of it verifies on the card as its decoded frames do on the CPU."""
+    from vfp_tpu_torch.fingerprint.marker import _read_all, verify_segment
+    from vfp_tpu_torch.io import MjpegAviReader, open_writer
+    from vfp_tpu_torch.native import decode_jpeg, encode_jpeg
+    from vfp_tpu_torch.pipeline import FrameMarker
+    from vfp_tpu_torch.pipeline.transfer import download, upload_batch
+    from vfp_tpu_torch.workflows.durability import payload_for_segment_8bit
+
+    frames = natural_frames(np.random.RandomState(31), 12, 64, 96)
+    codec = DwtDctSvd()
+    payload = payload_for_segment_8bit(5)
+    wm = Shuffler(key=0).generate_wm(payload, codec.wm_capacity((64, 96, 3)))
+    marked = FrameMarker(codec, wm, 8, device=cuda_device).mark(frames)
+    path = tmp_path / "seg.avi"
+    with open_writer(path, 96, 64, 6.0, 95) as w:
+        w.write_batch(marked)
+    r = MjpegAviReader(path)
+    got = np.concatenate([r.read_batch(5), r.read_batch(5), r.read_batch(5)])
+    r.close()
+    want = np.stack([decode_jpeg(encode_jpeg(f, 95)) for f in marked])
+    assert np.array_equal(got, want)
+    x = upload_batch(got[:8], 8, cuda_device)
+    assert x.device.type == cuda_device.type
+    assert np.array_equal(download([x], 8).wait()[0], got[:8])
+    frames_back, fps = _read_all(path)
+    assert np.array_equal(frames_back, want) and fps == 6.0
+    pattern, freq, ok = verify_segment(path, payload, codec=codec, batch_size=8,
+                                       device=cuda_device)
+    cpu = verify_segment(path, payload, codec=codec, batch_size=8, device="cpu")
+    assert np.array_equal(pattern, cpu[0]) and freq == cpu[1] and ok == cpu[2]
+
+
+@pytest.mark.cuda
+def test_corr_batch_fn_on_the_card_matches_its_cpu_result(cuda_device):
+    """The durability experiment's correlation table on the card (DT-CWT detect
+    kernels, float32 einsum with TF32 off) against the CPU's kernel path,
+    within 1e-4; the table's argmax (the identified key) equal."""
+    from vfp_tpu_torch.workflows.durability import _corr_batch_fn
+
+    rng = np.random.RandomState(37)
+    codec = DtcwtKey()
+    h, w = 128, 192
+    cap = tuple(codec.wm_capacity((h, w, 3)))
+    refs = np.stack([DeCorrShuffler(key=k)._reference(cap) for k in range(5)]).astype(np.float32)
+    wm = torch.as_tensor(CorrShuffler(key=2).generate_wm(None, cap), device=cuda_device)
+    frames = torch.as_tensor(natural_frames(rng, 8, h, w), device=cuda_device)
+    kernels.reset_launch_counts()
+    clear_wm_cache()
+    marked = codec.mark_frames(frames, wm)
+    got = _corr_batch_fn(codec, refs.shape, device=cuda_device)(
+        marked, torch.as_tensor(refs, device=cuda_device)).cpu().numpy()
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 1 for k in DETECT_KERNELS), counts
+    want = _corr_batch_fn(codec, refs.shape, device="cpu")(marked.cpu(),
+                                                           torch.as_tensor(refs)).numpy()
+    assert got.shape == (8, 5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert (got.argmax(axis=1) == 2).all() and (want.argmax(axis=1) == 2).all()

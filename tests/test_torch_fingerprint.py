@@ -241,8 +241,25 @@ def test_corrupt_rawv_votes_none_as_jax(tmp_path, rng):
             tmarker._read_all(bad)
         with pytest.raises(IOError):
             jmarker._read_all(bad)
-    with pytest.raises(ValueError, match=".rawv"):
-        tmarker._read_all(tmp_path / "seg.avi")
+    for name in ("seg.mp4", "seg.y4m"):  # the containers the port does not read
+        with pytest.raises(ValueError, match=".rawv"):
+            tmarker._read_all(tmp_path / name)
+    frames = natural_frames(rng, 3, H, W)  # an MJPEG .avi segment is read
+    with tmarker.open_writer(tmp_path / "seg.avi", W, H, FPS, 95) as w:
+        w.write_batch(frames)
+    got, fps = tmarker._read_all(tmp_path / "seg.avi")
+    assert got.shape == frames.shape and fps == FPS
+    import cv2  # each frame as cv2 codes it: one JPEG generation at q95
+
+    for g, f in zip(got, frames):
+        ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(f[..., ::-1]),
+                               [cv2.IMWRITE_JPEG_QUALITY, 95])
+        np.testing.assert_array_equal(g, cv2.imdecode(enc, cv2.IMREAD_COLOR)[..., ::-1])
+    for bad in (tmp_path / "missing.avi", trunc.with_suffix(".avi")):
+        if bad.name != "missing.avi":
+            bad.write_bytes(b"RIFF" + bytes(4) + b"AVI ")
+        with pytest.raises(IOError):
+            tmarker._read_all(bad)
     good = _marked_file(tmp_path / "good.rawv", H, W, tfp.payload_for_segment(0, 0), rng, 4)
     files = [str(trunc), good, str(dims), str(empty)]
     got = tmarker.segment_majorities(files, 8, batch_size=8, **CPU)

@@ -63,12 +63,29 @@ def test_rawv_from_the_port_writer_reads_back_identically(tmp_path, frames, port
     assert got.tobytes() == frames.tobytes()
 
 
-def test_open_reader_and_writer_take_rawv_only(tmp_path):
-    for name in ("clip.mp4", "clip.y4m", "clip.avi"):
-        with pytest.raises(ValueError, match=r"\.rawv files only"):
+def test_open_reader_and_writer_take_rawv_only(tmp_path, frames):
+    """``.mp4`` and ``.y4m`` are refused; besides ``.rawv`` the port now reads
+    and writes MJPEG ``.avi`` (the JAX writer's bytes, each frame decoded as
+    ``cv2.imdecode`` decodes it)."""
+    for name in ("clip.mp4", "clip.y4m"):
+        with pytest.raises(ValueError, match=r"\.rawv and MJPEG \.avi files only"):
             tio.open_reader(tmp_path / name)
-        with pytest.raises(ValueError, match=r"\.rawv files only"):
+        with pytest.raises(ValueError, match=r"\.rawv and MJPEG \.avi files only"):
             tio.open_writer(tmp_path / name, W, H)
+    import cv2
+    from vfp_tpu.io.avi import iter_video_chunks
+
+    with tio.open_writer(tmp_path / "clip.avi", W, H, 24, 90) as w:
+        assert isinstance(w, tio.MjpegAviWriter)
+        w.write_batch(frames)
+    with jio.MjpegAviWriter(tmp_path / "jax.avi", W, H, 24, 90) as jw:
+        jw.write_batch(frames)
+    assert (tmp_path / "clip.avi").read_bytes() == (tmp_path / "jax.avi").read_bytes()
+    r = tio.open_reader(tmp_path / "clip.avi")
+    assert isinstance(r, tio.MjpegAviReader) and (r.width, r.height, r.fps) == (W, H, 24.0)
+    want = [cv2.imdecode(np.frombuffer(c, np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+            for c in iter_video_chunks(tmp_path / "jax.avi")]
+    np.testing.assert_array_equal(_read_all(r), np.stack(want))
 
 
 def test_open_uses_the_native_engine_where_it_builds(tmp_path, frames, monkeypatch):

@@ -202,7 +202,8 @@ def test_cli_never_drops_to_the_cpu(source_video, tmp_path, monkeypatch):
 
 def test_port_imports_neither_jax_nor_cv2(source_video, tmp_path):
     """A fresh interpreter runs the port's CLI end to end, every codec, the
-    HLS workflow and the HTTP service, without importing jax, cv2, jinja2 or
+    HLS workflow, the durability experiment (MJPEG .avi through the native
+    JPEG codec) and the HTTP service, without importing jax, cv2, jinja2 or
     anything of the JAX package."""
     code = f"""
 import json, sys, threading, urllib.request
@@ -224,6 +225,13 @@ main(["hls-mark", {str(source_video)!r}, hls, "--copies", "2", "--device", "cpu"
 main(["leak", hls + "/segment_copies.json", "--pattern", "1", "--device", "cpu"])
 main(["trace", hls + "/leaked_video.rawv", hls + "/det", "--payload-file",
       hls + "/segment_payloads.json", "--device", "cpu"])
+import vfp_tpu_torch.workflows, vfp_tpu_torch.io.avi
+for codec in ("dwtDctSvd", "dtcwtKey"):
+    try:
+        main(["durability", {str(source_video)!r}, {str(tmp_path)!r} + "/dur_" + codec,
+              "--codec", codec, "--segment-duration", "1", "--device", "cpu"])
+    except SystemExit as e:
+        print("DURABILITY_EXIT", e.code)
 png = {str(tmp_path)!r} + "/payload.png"
 write_png_gray(png, (np.arange(48 * 64).reshape(48, 64) % 256).astype(np.uint8))
 out = {str(tmp_path)!r} + "/m_dtcwtImg.rawv"
@@ -254,6 +262,8 @@ print("NO_JAX_OK")
     assert "watermark present in" in r.stdout
     assert "Copy fingerprint: 1" in r.stdout and "Success rate: 100.00%" in r.stdout
     assert "recovered 10 watermark images" in r.stdout and "UPLOAD success" in r.stdout
+    assert r.stdout.count("DURABILITY_EXIT") == 2 and r.stdout.count('"segment_pairs": 2') == 2
+    assert (tmp_path / "dur_dwtDctSvd" / "full.avi").exists()
 
 
 def _imported_modules(path: Path):

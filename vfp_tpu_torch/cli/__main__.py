@@ -10,6 +10,8 @@ the HLS fingerprinting workflow.
     python -m vfp_tpu_torch.cli hls-mark INPUT OUTDIR --copies 3 [--segment-duration 2]
     python -m vfp_tpu_torch.cli leak COPIES_JSON [--pattern 012] [--random-seed N]
     python -m vfp_tpu_torch.cli trace LEAKED OUTDIR [--payload-file F] [--max-copies 3]
+    python -m vfp_tpu_torch.cli durability INPUT OUTDIR [--codec dwtDctSvd|dct|dtcwtKey]
+                                [--segment-duration 2] [--quality 90] [--key 0] [--alpha A]
     python -m vfp_tpu_torch.cli serve [--host 0.0.0.0] [--port 8000] [--data-dir serve_data]
 
 The same subcommands, flags and printed lines as ``python -m vfp_tpu.cli``
@@ -24,16 +26,22 @@ reads).  On ``--device cuda`` every codec marks and detects through
 its CUDA kernels.  The device defaults to ``cuda`` and is never changed
 silently: ``--device cuda`` without a GPU raises; pass ``--device cpu`` to
 run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
-computes in float32.  Input and output are ``.rawv`` files, segments,
-variants and leaks included (the JAX CLI writes ``.avi``/``.mp4`` there).
-``hls-mark`` also prints ``mark_segments``' stage seconds.
+computes in float32.  Input and output are ``.rawv`` files (exact) or MJPEG
+``.avi`` files; segments, variants and leaks are ``.rawv`` (the JAX CLI
+writes ``.avi``/``.mp4`` there).  ``durability`` runs the JAX CLI's lossy
+experiment through MJPEG ``.avi`` (JPEGs coded as cv2 codes them), prints its
+JSON report and exits 0 when it passes, 1 when not; ``--container mp4`` is
+refused (no mp4v encoder).  ``hls-mark`` also prints ``mark_segments``'
+stage seconds.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import shutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -305,6 +313,35 @@ def cmd_trace(args):
         print(f"Copy fingerprint: {result.fingerprint}")
 
 
+def cmd_durability(args):
+    from ..workflows.durability import run_durability, run_durability_corr
+
+    device = resolve_device(args.device)
+    name, container, alpha = args.codec, args.container, args.alpha
+    if name == "dtcwtKey":
+        report = run_durability_corr(
+            args.input, args.output_dir, segment_duration=args.segment_duration,
+            quality=args.quality, key=args.key, container=container, device=device,
+        )
+    else:
+        if name == "dct":
+            from ..wm import DctQim
+
+            codec = DctQim(alpha=alpha) if alpha is not None else DctQim()
+        else:
+            from ..wm import DwtDctSvd
+
+            codec = (DwtDctSvd(scales=(0.0, alpha, 0.0))
+                     if alpha is not None else DwtDctSvd())
+        report = run_durability(
+            args.input, args.output_dir, segment_duration=args.segment_duration,
+            quality=args.quality, key=args.key, codec=codec, container=container,
+            device=device,
+        )
+    print(json.dumps(report, indent=2))
+    sys.exit(0 if report["is_successful"] else 1)
+
+
 def cmd_serve(args):
     from ..serve.app import run_server
 
@@ -403,6 +440,21 @@ def main(argv=None):
     t.add_argument("--key", type=int, default=0)
     t.add_argument("--device", default="cuda", help="torch device (default cuda)")
     t.set_defaults(fn=cmd_trace)
+
+    u = sub.add_parser("durability", help="mark -> re-encode -> re-detect experiment")
+    u.add_argument("input"), u.add_argument("output_dir")
+    u.add_argument("--segment-duration", type=float, default=2.0)
+    u.add_argument("--quality", type=int, default=90)
+    u.add_argument("--key", type=int, default=0)
+    u.add_argument("--codec", choices=["dwtDctSvd", "dct", "dtcwtKey"], default="dwtDctSvd",
+                   help="dtcwtKey runs the correlation-identification variant")
+    u.add_argument("--container", choices=["avi", "mp4"], default=None,
+                   help="lossy channel: avi = MJPEG at --quality (intra-only); mp4 (cv2 "
+                        "mp4v in vfp_tpu.cli) is refused: the port has no mp4v encoder")
+    u.add_argument("--alpha", type=float, default=None,
+                   help="embedding strength override (QIM scale for dwtDctSvd/dct)")
+    u.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    u.set_defaults(fn=cmd_durability)
 
     s = sub.add_parser("serve", help="run the fingerprinting HTTP service")
     s.add_argument("--host", default="0.0.0.0")

@@ -3,10 +3,12 @@
 
 (reference: tests/generate_leak.py:59-141,426-461)
 
-The splice is frame-level, through the reader/writer stack, into a
-``.rawv`` leak (``leaked_video.rawv`` by default): the port reads and writes
-``.rawv`` only, so the JAX module's stream-copy branches (ffmpeg concat,
-box-level MP4, MJPEG-AVI chunks) and its audio sidecars are not ported.
+A splice into an ``.avi`` of MJPEG ``.avi`` segments is a stream copy of
+their JPEG chunks (``io/avi.py``), as in the JAX module; any other splice is
+frame-level, through the reader/writer stack (the leak is
+``leaked_video.rawv`` by default).  The JAX module's ffmpeg concat, its
+box-level MP4 branches and its audio sidecars are not ported: the port
+writes no ``.mp4``.
 """
 
 from __future__ import annotations
@@ -46,8 +48,15 @@ def select_copies(segment_copies_info: dict, marked_dir, pattern: str | None = N
 
 
 def concatenate_segments(segment_files, output_file):
-    """Splice segments into one file, frame by frame (one generation of
-    exact ``.rawv`` frames, like a screen-recorder leak)."""
+    """Splice segments into one file: MJPEG ``.avi`` segments into an
+    ``.avi`` by chunk copy with no re-encode (the reference's ``-c copy``,
+    tests/generate_leak.py:126-136), anything else frame by frame through the
+    reader/writer stack (one generation, like a screen-recorder leak)."""
+    if str(output_file).endswith(".avi"):
+        from ..io.avi import splice_mjpeg_avis
+
+        if splice_mjpeg_avis(segment_files, output_file):
+            return output_file
     first = open_reader(segment_files[0])
     w, h, fps = first.width, first.height, first.fps
     first.close()

@@ -9,9 +9,10 @@ upload, marks and downloads on the card and returns, and a writer thread
 collects each handle and writes the variants, so the card works on later
 batches (across segment boundaries) while earlier ones are written.
 
-Variants are ``marked_segN_copyC.rawv``: the port reads and writes ``.rawv``
-only (the JAX module writes ``.mp4`` or MJPEG ``.avi`` and copies audio
-sidecars).  The JAX module's low-link packers are not ported.
+Variants are ``marked_segN_copyC.rawv`` (the JAX module writes ``.mp4`` or
+MJPEG ``.avi`` and copies audio sidecars); ``_read_all`` also reads MJPEG
+``.avi`` segments, as the durability experiment needs.  The JAX module's
+low-link packers are not ported.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from pathlib import Path
 
 import numpy as np
 
-from ..io import open_writer
-from ..io.readers import RAWV_MAGIC, require_rawv
+from ..io import open_reader, open_writer
+from ..io.readers import RAWV_MAGIC, require_supported
 from ..pipeline import MultiMarker, cached_bit_extractor
 from ..utils.device import resolve_device
 from ..wm import DwtDctSvd, Shuffler
@@ -48,13 +49,27 @@ class MarkedSegment:
 
 
 def _read_all(file):
-    """All frames of a ``.rawv`` segment as one [n, H, W, 3] array, and its fps.
+    """All frames of a segment as one [n, H, W, 3] array, and its fps.
 
-    One np.fromfile of the whole segment: a reader's per-open cost dominates
-    on the few-frame segments HLS produces.  A corrupt file (truncated
-    header, zero dims, no whole frame) raises IOError, which the pipelined
-    verify/trace callers take as (None, 0.0) for that file."""
-    require_rawv(file)
+    A ``.rawv`` segment is one np.fromfile: a reader's per-open cost
+    dominates on the few-frame segments HLS produces.  An MJPEG ``.avi``
+    goes through its reader (the native JPEG decoder).  A corrupt file
+    (truncated header, zero dims, no whole frame, bad JPEG data) raises
+    IOError, which the pipelined verify/trace callers take as (None, 0.0)
+    for that file."""
+    require_supported(file)
+    if str(file).endswith(".avi"):
+        reader = open_reader(file)
+        chunks = []
+        try:
+            fps = reader.fps
+            while (b := reader.read_batch(32)) is not None:
+                chunks.append(b)
+        finally:
+            reader.close()
+        if not chunks:
+            raise IOError(f"empty segment: {file}")
+        return np.concatenate(chunks), fps
     with open(file, "rb") as f:
         head = f.read(24)
         if head[:8] != RAWV_MAGIC:

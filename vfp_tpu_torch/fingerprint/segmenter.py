@@ -3,10 +3,11 @@
 
 Every segment gets exactly round(duration * fps) frames, chunked through the
 reader/writer stack, so a leak re-segments onto the marking grid exactly.
-Segments are ``segment_NNN.rawv``: the port reads and writes ``.rawv`` only
-(exact uint8 RGB; the card has no cv2 or ffmpeg), where the JAX package
-writes MJPEG ``.avi`` segments without ffmpeg and ``.mp4`` with it.  No
-ffmpeg branch and no audio sidecars.
+Segments are ``segment_NNN.rawv`` (exact uint8 RGB) by default, the files
+the HLS workflow and the service mark; ``container="avi"`` writes the JAX
+package's no-ffmpeg segments instead, ``segment_NNN.avi`` in MJPEG at
+``quality`` (the durability experiment's lossy channel).  No ffmpeg branch
+and no audio sidecars.
 """
 
 from __future__ import annotations
@@ -20,8 +21,12 @@ def frames_per_segment(fps: float, segment_duration: float) -> int:
     return max(1, int(round(fps * segment_duration)))
 
 
-def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quality: int = 95):
-    """Split into segment_000.rawv, ... ; returns the sorted list of paths."""
+def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quality: int = 95,
+                  container: str = "rawv"):
+    """Split into segment_000.<container>, ... (``rawv`` or ``avi``); returns
+    the sorted list of paths."""
+    if container not in ("rawv", "avi"):
+        raise ValueError(f"segments are .rawv or MJPEG .avi, not .{container}")
     segments_dir = Path(segments_dir)
     segments_dir.mkdir(parents=True, exist_ok=True)
     reader = open_reader(input_file)
@@ -37,7 +42,7 @@ def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quali
                 if batch is None:
                     break
                 if writer is None:
-                    p = segments_dir / f"segment_{idx:03d}.rawv"
+                    p = segments_dir / f"segment_{idx:03d}.{container}"
                     writer = open_writer(p, reader.width, reader.height, reader.fps, quality)
                     paths.append(p)
                 writer.write_batch(batch)

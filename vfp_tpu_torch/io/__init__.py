@@ -1,18 +1,28 @@
-"""Frame I/O of the port: ``.rawv`` readers and writers (exact uint8 RGB).
+"""Frame I/O of the port: exact ``.rawv`` and MJPEG ``.avi`` readers and
+writers.
 
-Copied from the ``.rawv`` half of ``vfp_tpu/io/``; the other containers
-there need cv2 or an ffmpeg binary, which the GPU machine lacks, and
-``.y4m`` is lossy 4:2:0.  All readers yield frames in file byte order (RGB)
-and all writers take the same.  ``images.py`` reads and writes the image
-payloads: 8-bit grayscale PNG.
+Copied from ``vfp_tpu/io/``: ``.rawv`` (exact uint8 RGB), and MJPEG ``.avi``
+(``avi.py``'s RIFF walking and splice, ``MjpegAviWriter``,
+``MjpegAviReader``), whose JPEGs the native library codes as cv2 does.  The
+other containers there need cv2's mp4v encoder or an ffmpeg binary, which
+the GPU machine lacks, and ``.y4m`` is lossy 4:2:0.  All readers yield
+frames in file byte order (RGB) and all writers take the same.
+``images.py`` reads and writes the image payloads: 8-bit grayscale PNG.
 """
 
 from .readers import (  # noqa: F401
     RAWV_MAGIC,
     ArrayReader,
     FrameReader,
+    MjpegAviReader,
     RawVideoReader,
     open_reader,
 )
-from .writers import ArrayWriter, FrameWriter, RawVideoWriter, open_writer  # noqa: F401
+from .writers import (  # noqa: F401
+    ArrayWriter,
+    FrameWriter,
+    MjpegAviWriter,
+    RawVideoWriter,
+    open_writer,
+)
 from .images import read_png_gray, write_png_gray  # noqa: F401
