@@ -70,10 +70,18 @@ Phases, each printing its lines:
    pairs, the bit codecs' and ``dtcwtKey``'s 75% bar, launches counted from
    the code, the wall split into JPEG encode, decode, file I/O and the
    card's batch calls, one frame's JPEG ms and the pinned SHA-256 of its
-   q90 JPEG).  The
+   q90 JPEG); then ``parallel``: the sharded steps of ``parallel/sharded.py``
+   on a world-1 NCCL mesh (the mark step with 3 variants of each codec equal
+   to three bare ``mark_frames``, the detect step's votes [0, 16, 0] through
+   an NCCL ``all_reduce``, the spatial step at W = 1920 equal to the
+   unsharded mark; host ms beside the bare calls'), ``hls-mark --workers 2``
+   and ``hls-mark --distributed`` as two processes at a localhost
+   coordinator on the hls phase's source (the manifests and every variant's
+   bytes equal to the hls phase's; the workers' 36 marks summed from what
+   they return), and ``test-frame`` on a 1080p PNG (the payload back).  The
    counts must show every kernel ran and no plain version may
    see a CUDA tensor, and the watermark plane's spectrum
-   (``dtcwt_level1_analysis`` on it) must run once per distinct plane: 16
+   (``dtcwt_level1_analysis`` on it) must run once per distinct plane: 19
    launches of that kernel over all paths;
 5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
@@ -110,6 +118,7 @@ import collections
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1309,7 +1318,10 @@ def run_dtcwt_depth_path(device, cfg, workdir: Path, source_1080p: Path) -> dict
     return collections.Counter(counts) + collections.Counter(transform_counts)
 
 
-def run_hls_path(device, cfg, workdir: Path) -> dict:
+HLS = {"n": 180, "fps": 30, "copies": 3, "seg_frames": 60}  # the hls and parallel phases
+
+
+def run_hls_path(device, cfg, workdir: Path) -> tuple[dict, dict]:
     """The HLS fingerprinting workflow through the port's CLI on a 1920x1080,
     30 fps .rawv of 180 frames (three 2 s segments of 60): ``hls-mark
     --copies 3``, ``leak --pattern 201`` -> ``trace`` with the manifests,
@@ -1320,8 +1332,9 @@ def run_hls_path(device, cfg, workdir: Path) -> dict:
     trace 180 into 12), the PSNR of a variant against its source segment,
     its first batch against ``fused_mark_planar_reference`` with that
     variant's own watermark, and ``MultiMarker.submit``/``collect`` with
-    four handles in flight against ``mark_all``.  Returns the launch counts
-    of the workflow."""
+    four handles in flight against ``mark_all``.  Keeps the source and
+    ``hls/out`` (the marked variants and manifests) for the parallel phase.  Returns the
+    launch counts of the workflow and ``mark_segments``' stats."""
     import ast
     import shutil
 
@@ -1334,7 +1347,7 @@ def run_hls_path(device, cfg, workdir: Path) -> dict:
     from vfp_tpu_torch.wm import DwtDctSvd, Shuffler, block_grid
 
     h, w, b = cfg["h"], cfg["w"], cfg["b"]
-    n, fps, copies, seg_frames = 180, 30, 3, 60
+    n, fps, copies, seg_frames = HLS["n"], HLS["fps"], HLS["copies"], HLS["seg_frames"]
     root = workdir / "hls"
     root.mkdir()
     print(f"hls: {shutil.disk_usage(root).free / 1e9:.1f} GB free on the work disk "
@@ -1392,7 +1405,7 @@ def run_hls_path(device, cfg, workdir: Path) -> dict:
                                 f"marked_seg{variant[0]}_copy{variant[1]}.rawv")
             psnr = _psnr(marked, source_seg)
             source_seg, marked = np.array(source_seg[:b]), np.array(marked[:b])
-            for p in (src, out / "segments", out / "hls"):  # the leak needs none of these
+            for p in (out / "segments", out / "hls"):  # the leak needs neither
                 shutil.rmtree(p) if p.is_dir() else p.unlink()
             traces = {}
             for pattern, blind in (("201", False), ("120", True)):
@@ -1455,7 +1468,7 @@ def run_hls_path(device, cfg, workdir: Path) -> dict:
           f"{psnr:.2f} dB of segment {variant[0]} copy {variant[1]} vs its source, {same:.6f} "
           f"of its first batch's pixels equal to the plain version; 4 submits in flight equal "
           f"mark_all; launches {counts}; card {nvidia_smi_line()}")
-    return counts
+    return counts, stats
 
 
 def _http(base, path, data=None, headers=None):
@@ -1946,6 +1959,260 @@ def run_durability_path(device, cfg, workdir: Path) -> dict:
               f"{ {k: v for k, v in found.items() if v} }; card {nvidia_smi_line()}")
         shutil.rmtree(out)
     src.unlink()
+    return counts
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    """Host-clock ms of ``fn()`` ending in a synchronise, median of ``reps``
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _same_hls_outputs(a: Path, b: Path) -> int:
+    """Whether two ``hls-mark`` output dirs hold the same manifests and the
+    same marked variants, byte for byte; returns the number of variants."""
+    for f in ("segment_payloads.json", "segment_copies.json"):
+        assert (a / f).read_text() == (b / f).read_text(), f
+    names = sorted(f.name for f in (a / "marked_segments").glob("*.rawv"))
+    assert names == sorted(f.name for f in (b / "marked_segments").glob("*.rawv")), names
+    for name in names:
+        with open(a / "marked_segments" / name, "rb") as fa, \
+                open(b / "marked_segments" / name, "rb") as fb:
+            while True:
+                ca, cb = fa.read(1 << 26), fb.read(1 << 26)
+                assert ca == cb, f"{name} differs"
+                if not ca:
+                    break
+    return len(names)
+
+
+def run_sharded_steps(device, cfg, rng, card: str) -> dict:
+    """``parallel/sharded.py`` on a world-1 NCCL mesh over the card: the mark
+    step with 3 variants for each codec against three bare ``mark_frames``,
+    the detect step (votes through a real NCCL ``all_reduce``) and the
+    spatial step at W = 1920, each path's launches counted just around it.
+    Prints the steps' host-clock ms beside the bare codec calls'."""
+    import torch.distributed as dist
+
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.fingerprint import payload_for_segment
+    from vfp_tpu_torch.parallel import make_mesh, sharded_detect_step, sharded_mark_step
+    from vfp_tpu_torch.parallel import sharded as sh
+    from vfp_tpu_torch.wm import (CorrShuffler, DctQim, DeShuffler, DtcwtKey, DwtDctSvd,
+                                  Shuffler, block_grid)
+
+    h, w, b = cfg["h"], cfg["w"], cfg["b"]
+    frames = natural_frames(rng, b, h, w)
+    mesh = make_mesh(1, 1, device=device)
+    assert dist.get_backend() == "nccl" and mesh.device_type == "cuda", dist.get_backend()
+    counts = collections.Counter()
+    lines = []
+    try:
+        x = sh.shard_batch(mesh, frames)
+        codecs = {"dwtDctSvd": DwtDctSvd(), "dct": DctQim(), "dtcwtKey": DtcwtKey()}
+        want_counts = {"dwtDctSvd": {"fused_mark_planar": 3},
+                       "dct": {"fused_dct_qim_mark": 3, "y_dc_mean": 3},
+                       "dtcwtKey": {**{k: 3 for k in DTCWT}}}  # a spectrum per plane
+        marked = {}
+        for name, codec in codecs.items():
+            cap = codec.wm_capacity((h, w, 3))
+            if name == "dtcwtKey":
+                planes = [CorrShuffler(key=k).generate_wm(None, cap) for k in range(3)]
+            else:
+                planes = [Shuffler(key=0).generate_wm(payload_for_segment(2, c), cap)
+                          for c in range(3)]
+            wms = np.stack([np.asarray(p, np.float32).reshape(-1) for p in planes])
+            step = sharded_mark_step(mesh, codec)
+            fresh_counts()
+            with NoPlainOnDevice():
+                out = sh.gather_marked(mesh, step(x, sh.shard_variants(mesh, wms)))
+                torch.cuda.synchronize()
+            assert_counts(kernels.launch_counts(), want_counts[name], f"sharded mark {name}")
+            counts.update(want_counts[name])
+            wdev = torch.as_tensor(wms, device=device)
+            with torch.inference_mode():
+                for v in range(3):
+                    assert torch.equal(out[v], codec.mark_frames(x, wdev[v])), (name, v)
+            assert out.shape == (3, b, h, w, 3) and out.dtype == torch.uint8
+            marked[name] = (out, wms)
+            wl = sh.shard_variants(mesh, wms)
+
+            def bare():
+                with torch.inference_mode():
+                    return [codec.mark_frames(x, wdev[v]) for v in range(3)]
+
+            ms = {"bare": _median_ms(bare), "step": _median_ms(lambda: step(x, wl)),
+                  "whole": _median_ms(lambda: sh.gather_marked(
+                      mesh, step(sh.shard_batch(mesh, frames), sh.shard_variants(mesh, wms))))}
+            lines.append(f"mark {name} x3 variants {ms['step']:.3f} ms (bare mark_frames x3 "
+                         f"{ms['bare']:.3f}; with shard_batch from the host and gather_marked "
+                         f"{ms['whole']:.3f})")
+
+        codec = codecs["dwtDctSvd"]
+        out, _ = marked["dwtDctSvd"]
+        deg = DeShuffler(key=0, threshold="fixed").set_shape((8,))
+        cands = np.stack([payload_for_segment(2, c) for c in range(3)]).astype(np.float32)
+        step = sharded_detect_step(mesh, codec, deg, 3)
+        fresh_counts()
+        with NoPlainOnDevice():
+            votes = step(out[1], cands)
+            torch.cuda.synchronize()
+        assert_counts(kernels.launch_counts(), {"fused_extract_planar": 1}, "sharded detect")
+        counts.update(fused_extract_planar=1)
+        assert votes.tolist() == [0, b, 0] and votes.is_cuda, votes
+
+        def bare_detect():
+            with torch.inference_mode():
+                return deg.degenerate_batch(codec.extract_frames(out[1]))
+
+        lines.append(f"detect C=3 {_median_ms(lambda: step(out[1], cands)):.3f} ms with its "
+                     f"all_reduce (bare extract_frames + degenerate_batch "
+                     f"{_median_ms(bare_detect):.3f}); votes {votes.tolist()}")
+
+        (nbh, nbw), _ = block_grid((h, w))
+        wm = marked["dwtDctSvd"][1][1]
+        wm2d = wm[: nbh * nbw].reshape(nbh, nbw)
+        step = sh.sharded_mark_spatial(mesh, codec, w)
+        fresh_counts()
+        with NoPlainOnDevice():
+            got = sh.gather_axis(mesh, step(sh.shard_axis(mesh, frames, 2),
+                                            sh.shard_axis(mesh, wm2d, 1)), 2)
+            torch.cuda.synchronize()
+        assert_counts(kernels.launch_counts(), {"fused_mark_planar": 1}, "sharded spatial")
+        counts.update(fused_mark_planar=1)
+        assert torch.equal(got, out[1]), "the spatial step differs from the unsharded mark"
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel: world-1 {dist.Backend.NCCL} mesh (data=1, variant=1) on "
+          f"{torch.cuda.get_device_name(0)}, {b} frames of {w}x{h}; host clock, median of 5 "
+          f"(card {card}): " + "; ".join(lines))
+    return counts
+
+
+def run_parallel_path(device, cfg, workdir: Path, hls_stats: dict) -> dict:
+    """``parallel/``: the sharded steps (``run_sharded_steps``), then the HLS
+    farm on the hls phase's source: ``hls-mark --copies 3 --workers 2`` (two
+    spawned worker processes on the card) and ``hls-mark --distributed
+    --num-processes 2 --coordinator 127.0.0.1:<port>`` (two processes of
+    the CLI on the card, rank 0 merging), each writing the hls phase's
+    manifests and marked bytes; the farm's launches summed from what its
+    workers return (36 marks) with the parent's verify (34 extracts), the
+    ranks' marks from their stats lines (36; rank 0's verify is not
+    counted); then
+    ``cli test-frame`` on a 1080p PNG written by the port's encoder.
+    Prints the times beside the hls phase's serial ``mark_segments`` wall.
+    Returns the launch counts of the phase."""
+    import ast
+    import shutil
+
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.io import write_png
+    from vfp_tpu_torch.parallel.mesh import free_port
+
+    card = nvidia_smi_line()
+    split = {}
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(15)
+    counts = run_sharded_steps(device, cfg, rng, card)
+    split["sharded steps"] = time.perf_counter() - t_phase
+
+    root = workdir / "parallel"
+    root.mkdir()
+    src = workdir / "hls" / "source.rawv"
+    serial = workdir / "hls" / "out"
+    split["comparing"] = 0.0
+    flags = ["--copies", str(HLS["copies"]), "--batch-size", str(cfg["b"]), "--device",
+             str(device)]
+    n_variants = HLS["copies"] * HLS["n"]
+    verify_extracts = -(-n_variants // cfg["b"])
+
+    fresh_counts()
+    t0 = time.perf_counter()
+    with NoPlainOnDevice():
+        text = _cli_lines(cli, ["hls-mark", str(src), str(root / "farm"), *flags,
+                                "--workers", "2"])
+    farm_wall = time.perf_counter() - t0
+    split["--workers 2"] = farm_wall
+    assert "All segments were watermarked successfully!" in text, text
+    stats = ast.literal_eval(text.split("mark_segments stats: ", 1)[1].splitlines()[0])
+    marks = HLS["n"] // HLS["seg_frames"] * -(-HLS["seg_frames"] // cfg["b"]) * HLS["copies"]
+    assert stats["launches"] == {"fused_mark_planar": marks}, stats["launches"]
+    assert_counts(kernels.launch_counts(), {"fused_extract_planar": verify_extracts}, "farm")
+    counts.update(fused_mark_planar=marks, fused_extract_planar=verify_extracts)
+    t0 = time.perf_counter()
+    n_files = _same_hls_outputs(root / "farm", serial)
+    assert n_files == HLS["copies"] * HLS["n"] // HLS["seg_frames"], n_files
+    shutil.rmtree(root / "farm")
+    split["comparing"] += time.perf_counter() - t0
+
+    port = free_port()
+    argv = [sys.executable, "-m", "vfp_tpu_torch.cli", "hls-mark", str(src), str(root / "dist"),
+            *flags, "--distributed", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([*argv, "--process-id", str(r)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dist_wall = time.perf_counter() - t0
+    split["--distributed"] = dist_wall
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}: {e[-3000:]}"
+    assert "All segments were watermarked successfully!" in outs[0][0], outs[0][0]
+    assert "rank 1: shard done" in outs[1][0], outs[1][0]
+    rank_stats = [ast.literal_eval(o.split("mark_segments stats: ", 1)[1].splitlines()[0])
+                  for o, _ in outs]
+    assert [(s["rank"], s["world"]) for s in rank_stats] == [(0, 2), (1, 2)], rank_stats
+    rank_marks = [s["launches"].get("fused_mark_planar", 0) for s in rank_stats]
+    assert sum(rank_marks) == marks and all(set(s["launches"]) == {"fused_mark_planar"}
+                                            for s in rank_stats), rank_stats
+    counts.update(fused_mark_planar=marks)
+    t0 = time.perf_counter()
+    assert _same_hls_outputs(root / "dist", serial) == n_files
+    shutil.rmtree(root / "dist")
+    split["comparing"] += time.perf_counter() - t0
+
+    h, w = cfg["h"], cfg["w"]
+    t0 = time.perf_counter()
+    png = root / "picture.png"
+    write_png(png, smooth_frames(rng, 1, h, w)[0])
+    fresh_counts()
+    with NoPlainOnDevice():
+        text = _cli_lines(cli, ["test-frame", str(png), str(root / "tf"), "--device", str(device)])
+    assert f"recovered payload: {PAYLOAD} (expected {PAYLOAD})" in text, text
+    assert_counts(kernels.launch_counts(), {"fused_mark_planar": 1, "fused_extract_planar": 1},
+                  "test-frame")
+    counts.update(fused_mark_planar=1, fused_extract_planar=1)
+    psnr = text.split("PSNR ", 1)[1].split(")")[0]
+    split["test-frame"] = time.perf_counter() - t0
+
+    print(f"parallel: hls-mark {HLS['n']} frames of {w}x{h}, {HLS['copies']} copies "
+          f"(card {card}): serial mark_segments (hls phase) {hls_stats['wall_seconds']} s; "
+          f"--workers 2: CLI {farm_wall:.3f} s, mark_segments_parallel {stats['wall_seconds']} s "
+          f"(workers' mark_segments {[s['wall_seconds'] for s in stats['workers']]} s), "
+          f"launches {stats['launches']} in the workers; --distributed 2 ranks: "
+          f"{dist_wall:.3f} s from the first spawn to the last exit, ranks' mark_segments "
+          f"{[s['wall_seconds'] for s in rank_stats]} s with {rank_marks} marks; both byte-equal to the hls phase's "
+          f"variants and manifests")
+    print(f"parallel: test-frame 1080p PNG: payload {PAYLOAD} recovered, PSNR {psnr}; the "
+          f"phase {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in split.items())}); launches {dict(counts)}")
+    shutil.rmtree(root)
     return counts
 
 
@@ -2845,17 +3112,20 @@ def main(argv=None) -> int:
         counts.update(run_dtcwt_scope_path(device, cfg, Path(tmp)))
         counts.update(run_dtcwt_float_path(device, cfg))
         counts.update(run_dtcwt_depth_path(device, cfg, Path(tmp), smooth_1080p))
-        counts.update(run_hls_path(device, cfg, Path(tmp)))
+        hls_counts, hls_stats = run_hls_path(device, cfg, Path(tmp))
+        counts.update(hls_counts)
         counts.update(run_serve_path(device, cfg, Path(tmp)))
         counts.update(run_dtcwt_img_path(device, cfg, Path(tmp)))
         counts.update(run_durability_path(device, cfg, Path(tmp)))
+        counts.update(run_parallel_path(device, cfg, Path(tmp), hls_stats))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 
     assert all(counts[k] > 0 for k in (*REPLACES, EXTRACT_DECIDE)), counts  # every kernel
     # the spectrum once per distinct plane: 1080p and 1920x804 CLI mark 1 each,
     # the float path 1, path 3 two per batch and 1, the round trip 1, the
-    # dtcwtImg CLI marks 1 each, durability's dtcwtKey run 1 per segment key
-    assert counts["dtcwt_level1_analysis"] == 16, counts
+    # dtcwtImg CLI marks 1 each, durability's dtcwtKey run 1 per segment key,
+    # the sharded dtcwtKey mark 1 per variant
+    assert counts["dtcwt_level1_analysis"] == 19, counts
     times = time_kernels(device, cfg)
     sweep, sweep_errs = redesign_sweep(device, cfg)
     for name, err in sweep_errs.items():

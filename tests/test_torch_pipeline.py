@@ -203,7 +203,8 @@ def test_cli_never_drops_to_the_cpu(source_video, tmp_path, monkeypatch):
 def test_port_imports_neither_jax_nor_cv2(source_video, tmp_path):
     """A fresh interpreter runs the port's CLI end to end, every codec, the
     HLS workflow, the durability experiment (MJPEG .avi through the native
-    JPEG codec) and the HTTP service, without importing jax, cv2, jinja2 or
+    JPEG codec), test-frame and the HTTP service, and imports the parallel
+    package, without importing jax, cv2, jinja2 or
     anything of the JAX package."""
     code = f"""
 import json, sys, threading, urllib.request
@@ -239,6 +240,10 @@ main(["mark", {str(source_video)!r}, out, "--codec", "dtcwtImg", "--wm-image", p
       "--device", "cpu"])
 main(["detect", out, "--codec", "dtcwtImg", "--out-dir", {str(tmp_path)!r} + "/wms",
       "--device", "cpu"])
+import vfp_tpu_torch.parallel, vfp_tpu_torch.ops, vfp_tpu_torch.utils
+from vfp_tpu_torch.io import write_png
+write_png({str(tmp_path)!r} + "/pic.png", np.full((64, 96, 3), 128, np.uint8))
+main(["test-frame", {str(tmp_path)!r} + "/pic.png", {str(tmp_path)!r} + "/tf", "--device", "cpu"])
 srv = make_server("127.0.0.1", 0, {str(tmp_path)!r} + "/serve", device="cpu")
 threading.Thread(target=srv.serve_forever, daemon=True).start()
 base = "http://127.0.0.1:%d" % srv.server_address[1]
@@ -262,6 +267,7 @@ print("NO_JAX_OK")
     assert "watermark present in" in r.stdout
     assert "Copy fingerprint: 1" in r.stdout and "Success rate: 100.00%" in r.stdout
     assert "recovered 10 watermark images" in r.stdout and "UPLOAD success" in r.stdout
+    assert "recovered payload: " in r.stdout and (tmp_path / "tf" / "diff.jpeg").exists()
     assert r.stdout.count("DURABILITY_EXIT") == 2 and r.stdout.count('"segment_pairs": 2') == 2
     assert (tmp_path / "dur_dwtDctSvd" / "full.avi").exists()
 
@@ -277,7 +283,8 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted((ROOT / "vfp_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rank_worker.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_port_file_imports_jax_or_the_jax_package(path):
     bad = sorted({m for m in _imported_modules(path) if m in ("jax", "jaxlib", "vfp_tpu")})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -4,10 +4,14 @@ the HLS fingerprinting workflow.
     python -m vfp_tpu_torch.cli mark INPUT OUTPUT [--codec dwtDctSvd|dct|dtcwtKey|dtcwtImg]
                                 [--payload 01100101 | --wm-image GRAY.png]
                                 [--generator auto|shuffler|grayscale] [--key 0] [--device cuda]
+                                [--profile DIR]
     python -m vfp_tpu_torch.cli detect INPUT [--codec dwtDctSvd|dct|dtcwtKey|dtcwtImg]
                                 [--payload-len 8 | --payload BITS] [--key 0]
                                 [--out-dir DIR --wm-height 64 --wm-width 64]
+    python -m vfp_tpu_torch.cli test-frame IMAGE OUT_DIR [--codec ...] [--payload BITS]
     python -m vfp_tpu_torch.cli hls-mark INPUT OUTDIR --copies 3 [--segment-duration 2]
+                                [--workers N | --distributed [--coordinator HOST:PORT
+                                 --num-processes N --process-id I]]
     python -m vfp_tpu_torch.cli leak COPIES_JSON [--pattern 012] [--random-seed N]
     python -m vfp_tpu_torch.cli trace LEAKED OUTDIR [--payload-file F] [--max-copies 3]
     python -m vfp_tpu_torch.cli durability INPUT OUTDIR [--codec dwtDctSvd|dct|dtcwtKey]
@@ -32,7 +36,12 @@ writes ``.avi``/``.mp4`` there).  ``durability`` runs the JAX CLI's lossy
 experiment through MJPEG ``.avi`` (JPEGs coded as cv2 codes them), prints its
 JSON report and exits 0 when it passes, 1 when not; ``--container mp4`` is
 refused (no mp4v encoder).  ``hls-mark`` also prints ``mark_segments``'
-stage seconds.
+stage seconds; its ``--workers`` processes mark on ``--device`` (the card
+by default, where the JAX CLI's workers run on the CPU), and its
+``--distributed`` ranks join a torch.distributed gloo group.  ``mark
+--profile`` writes a torch.profiler Chrome trace (the JAX CLI: an xprof
+directory).  ``test-frame`` writes its JPEGs as cv2.imwrite does, through
+the port's JPEG encoder.
 """
 
 from __future__ import annotations
@@ -82,7 +91,19 @@ def cmd_mark(args):
     generator = _generator(args.codec, args.key, args.generator)
     wm = generator.generate_wm(payload, codec.wm_capacity((reader.height, reader.width, 3)))
     writer = open_writer(args.output, reader.width, reader.height, reader.fps, args.quality)
-    stats = Embedder(reader, FrameMarker(codec, wm, args.batch_size, device=device), writer).start()
+
+    def run():
+        return Embedder(reader, FrameMarker(codec, wm, args.batch_size, device=device),
+                        writer).start()
+
+    if args.profile:
+        from ..utils import profile_trace
+
+        with profile_trace(args.profile, device):
+            stats = run()
+        print(f"profiler trace -> {args.profile}")
+    else:
+        stats = run()
     print(f"marked {stats.frames} frames in {stats.seconds:.2f}s ({stats.fps:.1f} fps)")
     if stats.stage_seconds:
         print(f"stages: {stats.stage_seconds}")
@@ -180,6 +201,73 @@ def cmd_detect(args):
             raise SystemExit(1)
 
 
+def _degenerator(codec_name: str, key: int, generator: str = "auto"):
+    """The inverse of ``_generator``'s spreader, with the fixed threshold for
+    the bit payloads, as vfp_tpu.cli pairs them."""
+    from ..wm import DeBlockShuffler, DeCorrShuffler, DeGrayScale, DeShuffler
+
+    if _is_dtcwt_key(codec_name):
+        return DeCorrShuffler(key=key)
+    if _is_dtcwt_img(codec_name):
+        return DeBlockShuffler(key=key)
+    return DeGrayScale(key=key) if generator == "grayscale" else DeShuffler(key=key,
+                                                                              threshold="fixed")
+
+
+@torch.inference_mode()
+def cmd_test_frame(args):
+    """One-image roundtrip, as vfp_tpu.cli's: mark the image, write the marked
+    image (``output.jpeg`` at --quality) and its amplified difference
+    (``diff.jpeg``), read the JPEG back, extract and report.  The JPEGs are
+    the bytes cv2.imwrite writes, through the port's encoder."""
+    from ..io import read_image_bgr, read_png_gray
+    from ..native.jpeg import decode_jpeg, encode_jpeg, encode_jpeg_gray
+    from ..utils import make_codec
+    from ..wm import DeCorrShuffler
+
+    device = resolve_device(args.device)
+    codec = make_codec(args.codec)
+    generator = _generator(args.codec, args.key, args.generator)
+    deg = _degenerator(args.codec, args.key, args.generator)
+    frame = read_image_bgr(args.image)
+    if args.wm_image:
+        payload = read_png_gray(args.wm_image).astype(np.float32)
+    else:
+        payload = _payload_bits(args.payload)
+    wm = generator.generate_wm(payload, codec.wm_capacity(frame.shape))
+    wm = torch.as_tensor(np.asarray(wm, np.float32), device=device)
+    marked = codec.mark_frames(torch.as_tensor(frame[None], device=device), wm)[0].cpu().numpy()
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # the codecs work on BGR as cv2 gives it; the JPEG coder takes file order
+    (out_dir / "output.jpeg").write_bytes(encode_jpeg(marked[..., ::-1], args.quality))
+    diff = np.clip((marked.astype(np.int32) - frame.astype(np.int32)) * 10 + 128, 0,
+                   255).astype(np.uint8)
+    (out_dir / "diff.jpeg").write_bytes(encode_jpeg(diff[..., ::-1]))
+    mse = np.mean((marked.astype(float) - frame.astype(float)) ** 2)
+    psnr = 10 * np.log10(255**2 / max(mse, 1e-12))
+    print(f"marked image -> {out_dir/'output.jpeg'} (PSNR {psnr:.1f} dB)")
+
+    readback = decode_jpeg((out_dir / "output.jpeg").read_bytes())[..., ::-1]
+    readback = torch.as_tensor(np.ascontiguousarray(readback)[None], device=device)
+    plane = codec.extract_frames(readback)[0].cpu().numpy()
+    if isinstance(deg, DeCorrShuffler):
+        print(f"watermark present: {deg.degenerate(plane)}")
+    elif args.wm_image:
+        deg.set_shape(payload.shape)
+        rec = np.asarray(deg.degenerate(plane), np.float32)
+        # cv2.imwrite of a float32 image: saturate_cast to u8 (cvRound: half to
+        # even), then a grayscale JPEG at cv2's default quality
+        u8 = np.clip(np.rint(rec), 0, 255).astype(np.uint8)
+        (out_dir / "degenerate.jpeg").write_bytes(encode_jpeg_gray(u8))
+        print(f"recovered watermark image -> {out_dir/'degenerate.jpeg'}")
+    else:
+        deg.set_shape(payload.shape)
+        rec = deg.degenerate(plane.flatten())
+        print(f"recovered payload: {''.join(map(str, rec))} "
+              f"(expected {''.join(map(str, payload))})")
+
+
 def cmd_hls_mark(args):
     from ..fingerprint import mark_segments, segment_video, write_hls_playlists
     from ..fingerprint.marker import verify_segments, write_manifests
@@ -191,12 +279,31 @@ def cmd_hls_mark(args):
     segments = segment_video(args.input, base / "segments", args.segment_duration)
     print(f"created {len(segments)} segments")
     stats = {}
-    marked, payloads, copies = mark_segments(
-        segments, base / "marked_segments", copies=args.copies, key=args.key,
-        batch_size=args.batch_size, quality=args.quality, resume=args.resume,
-        stats=stats, device=device,
-    )
+    common = dict(copies=args.copies, key=args.key, batch_size=args.batch_size,
+                  quality=args.quality, stats=stats)
+    if args.distributed:
+        # one process per host (or per card) against a shared output dir: the
+        # ranks split the segments and rank 0 merges the manifest shards
+        from ..parallel.farm import mark_segments_distributed
+
+        marked, payloads, copies = mark_segments_distributed(
+            segments, base / "marked_segments", coordinator_address=args.coordinator,
+            num_processes=args.num_processes, process_id=args.process_id, device=device,
+            **common)
+    elif args.workers > 1:
+        from ..parallel.farm import mark_segments_parallel
+
+        marked, payloads, copies = mark_segments_parallel(
+            segments, base / "marked_segments", workers=args.workers, worker_device=device,
+            **common)
+    else:
+        marked, payloads, copies = mark_segments(
+            segments, base / "marked_segments", resume=args.resume, device=device, **common)
     print(f"mark_segments stats: {stats}")
+    if args.distributed and stats["rank"] != 0:
+        print(f"rank {stats['rank']}: shard done ({len(marked)} marked segments); "
+              "rank 0 owns the merge")
+        return
     failed = []
     for m, (pattern, freq, ok) in zip(
             marked, verify_segments(marked, key=args.key, batch_size=args.batch_size,
@@ -354,7 +461,8 @@ def main(argv=None):
     )
     p = argparse.ArgumentParser(prog="vfp_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--verbose", "-v", action="store_true", help="enable DEBUG logging")
+    p.add_argument("--verbose", "-v", action="store_true",
+                   help="enable DEBUG logging (incl. @trace decorators)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     codecs = ["dwtDctSvd", "dct", "dtcwtKey", "dtcwtImg"]
@@ -372,6 +480,8 @@ def main(argv=None):
     m.add_argument("--batch-size", type=int, default=16)
     m.add_argument("--quality", type=int, default=95)
     m.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    m.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the run into DIR (Chrome trace JSON)")
     m.set_defaults(fn=cmd_mark)
 
     d = sub.add_parser("detect", help="extract per-frame payloads")
@@ -391,13 +501,25 @@ def main(argv=None):
     d.set_defaults(fn=cmd_detect)
 
 
+    tf = sub.add_parser("test-frame", help="single-image embed/extract roundtrip")
+    tf.add_argument("image", help="a PNG (8-bit gray, gray + alpha, RGB, RGBA) or baseline JPEG")
+    tf.add_argument("out_dir")
+    tf.add_argument("--codec", choices=codecs, default="dwtDctSvd")
+    tf.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
+    tf.add_argument("--payload", default="01100101")
+    tf.add_argument("--wm-image", default=None,
+                    help="watermark image payload: an 8-bit grayscale PNG")
+    tf.add_argument("--generator", choices=["auto", "shuffler", "grayscale"], default="auto")
+    tf.add_argument("--key", type=int, default=0)
+    tf.add_argument("--quality", type=int, default=95, help="output JPEG quality")
+    tf.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    tf.set_defaults(fn=cmd_test_frame)
+
     h = sub.add_parser(
         "hls-mark", help="segment, mark N variants, build HLS",
         description="Segment INPUT into .rawv segments, mark each in --copies variants on "
-                    "--device, verify them and write the HLS playlists and manifests.  "
-                    "vfp_tpu.cli's multi-process marking (--workers, --distributed, "
-                    "--coordinator, --num-processes, --process-id) is not ported yet: it "
-                    "waits for the port of parallel/.")
+                    "--device (in --workers processes, or one rank of --distributed), "
+                    "verify them and write the HLS playlists and manifests.")
     h.add_argument("input"), h.add_argument("output_dir")
     h.add_argument("--copies", type=int, default=1)
     h.add_argument("--segment-duration", type=float, default=2.0)
@@ -407,7 +529,20 @@ def main(argv=None):
     h.add_argument("--key", type=int, default=0)
     h.add_argument("--batch-size", type=int, default=16)
     h.add_argument("--quality", type=int, default=95)
-    h.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    h.add_argument("--device", default="cuda",
+                   help="torch device of the marking processes and the verify (default cuda)")
+    h.add_argument("--workers", type=int, default=1,
+                   help="single-host process farm: fan segments over N worker "
+                        "processes on --device (parallel/farm.py)")
+    h.add_argument("--distributed", action="store_true",
+                   help="multi-host farm via torch.distributed rank sharding (gloo); "
+                        "run the same command in every process against a shared "
+                        "output dir")
+    h.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port for --distributed; omit for torchrun's "
+                        "env:// variables (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE)")
+    h.add_argument("--num-processes", dest="num_processes", type=int, default=None)
+    h.add_argument("--process-id", dest="process_id", type=int, default=None)
     h.set_defaults(fn=cmd_hls_mark)
 
     l = sub.add_parser("leak", help="splice a leaked copy from variants")

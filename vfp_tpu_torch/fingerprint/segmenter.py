@@ -12,6 +12,7 @@ and no audio sidecars.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 from ..io import open_reader, open_writer
@@ -37,18 +38,23 @@ def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quali
         while True:
             got = 0
             writer = None
+            p = segments_dir / f"segment_{idx:03d}.{container}"
+            # written under a temporary name and renamed once whole: the ranks
+            # of ``hls-mark --distributed`` each segment into one shared
+            # directory, and none may read a segment another is rewriting
+            tmp = segments_dir / f".{os.getpid()}-{p.name}"
             while got < n_per:
                 batch = reader.read_batch(min(16, n_per - got))
                 if batch is None:
                     break
                 if writer is None:
-                    p = segments_dir / f"segment_{idx:03d}.{container}"
-                    writer = open_writer(p, reader.width, reader.height, reader.fps, quality)
+                    writer = open_writer(tmp, reader.width, reader.height, reader.fps, quality)
                     paths.append(p)
                 writer.write_batch(batch)
                 got += len(batch)
             if writer is not None:
                 writer.close()
+                os.replace(tmp, p)
             if got < n_per:
                 break
             idx += 1

@@ -7,7 +7,8 @@ Copied from ``vfp_tpu/io/``: ``.rawv`` (exact uint8 RGB), and MJPEG ``.avi``
 other containers there need cv2's mp4v encoder or an ffmpeg binary, which
 the GPU machine lacks, and ``.y4m`` is lossy 4:2:0.  All readers yield
 frames in file byte order (RGB) and all writers take the same.
-``images.py`` reads and writes the image payloads: 8-bit grayscale PNG.
+``images.py`` reads and writes PNG (the image payloads: 8-bit grayscale) and
+reads the picture of ``cli test-frame``.
 """
 
 from .readers import (  # noqa: F401
@@ -25,4 +26,4 @@ from .writers import (  # noqa: F401
     RawVideoWriter,
     open_writer,
 )
-from .images import read_png_gray, write_png_gray  # noqa: F401
+from .images import read_image_bgr, read_png_gray, write_png, write_png_gray  # noqa: F401

@@ -36,6 +36,7 @@ SIGNATURES = {
     "vfpio_writer_close": (_I, [_P]),
     "vfpjpeg_encode_bound": (_L, [_I, _I]),
     "vfpjpeg_encode": (_L, [_P, _I, _I, _I, _P, _L]),
+    "vfpjpeg_encode_gray": (_L, [_P, _I, _I, _I, _P, _L]),
     "vfpjpeg_decode_header": (_I, [ctypes.c_char_p, _L, ctypes.POINTER(_I), ctypes.POINTER(_I),
                                    ctypes.c_char_p, _I]),
     "vfpjpeg_decode": (_I, [ctypes.c_char_p, _L, _P, _I, _I, ctypes.c_char_p, _I]),

@@ -3,7 +3,7 @@
 // [IMWRITE_JPEG_QUALITY, q]) and cv2.imdecode(..., IMREAD_COLOR)).
 //
 // Encoder: baseline sequential, 8-bit, three components, 4:2:0 (Y 2x2,
-// Cb/Cr 1x1), the standard Annex K Huffman tables, no optimisation, no
+// Cb/Cr 1x1), or one (grayscale, as cv2 writes an [H, W] image), the standard Annex K Huffman tables, no optimisation, no
 // restart markers; markers SOI, APP0 JFIF 1.01, DQT x2, SOF0, DHT x4, SOS,
 // EOI.  Each stage follows the libjpeg-turbo source file named at it:
 // jcparam.c (quality scaling, baseline-clamped tables), jccolor.c (16-bit
@@ -26,6 +26,9 @@
 //   long vfpjpeg_encode(const unsigned char* rgb, int width, int height,
 //                       int quality, unsigned char* out, long cap)
 //        -> bytes written, or -1 on bad arguments / too small a buffer
+//   long vfpjpeg_encode_gray(const unsigned char* gray, int width, int height,
+//                            int quality, unsigned char* out, long cap)
+//        -> the same, for one component (a grayscale JPEG; the bound above holds)
 //   int  vfpjpeg_decode_header(const unsigned char* data, long len,
 //                              int* width, int* height, char* err, int errlen)
 //   int  vfpjpeg_decode(const unsigned char* data, long len, unsigned char* rgb,
@@ -551,6 +554,58 @@ long encode(const uint8_t* rgb, int W, int H, int quality, uint8_t* out, long ca
             encode_block(bw, cblk, last_dc[1], kEnc.dc[1], kEnc.ac[1]);
             forward_block(crplane.data(), cstride, mx * 8, my * 8, cdiv, cblk);
             encode_block(bw, cblk, last_dc[2], kEnc.dc[1], kEnc.ac[1]);
+        }
+    }
+    bw.flush();
+    s.word(0xFFD9);
+    return s.pos;
+}
+
+// one component (cv2.imencode of an [H, W] image: JCS_GRAYSCALE in and out):
+// the samples are Y as they are, one non-interleaved scan of whole blocks
+// (jcmaster.c per_scan_setup: no dummy blocks), edges replicated as above,
+// the luminance DQT and DHTs alone (jcmarker.c emits the tables in use)
+long encode_gray(const uint8_t* gray, int W, int H, int quality, uint8_t* out, long cap) {
+    int lq[64];
+    quant_table(kStdLumaQ, quality, lq);
+    Divisors ldiv;
+    for (int i = 0; i < 64; i++) {
+        Divisor l = compute_reciprocal((unsigned)lq[i] << 3);
+        ldiv.recip[i] = l.recip, ldiv.corr[i] = l.corr, ldiv.shift[i] = (uint32_t)l.shift;
+    }
+    const int ybw = (W + 7) / 8, ybh = (H + 7) / 8;
+    const int ystride = ybw * 8;
+    std::vector<uint8_t> yplane((size_t)ystride * ybh * 8);
+    for (int y = 0; y < ybh * 8; y++) {
+        uint8_t* row = yplane.data() + (size_t)y * ystride;
+        std::memcpy(row, gray + (size_t)(y < H ? y : H - 1) * W, W);
+        for (int x = W; x < ystride; x++) row[x] = row[W - 1];
+    }
+
+    ByteSink s{out, cap};
+    s.word(0xFFD8);
+    const uint8_t app0[16] = {0x00, 0x10, 'J', 'F', 'I', 'F', 0x00, 0x01, 0x01, 0x00,
+                              0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
+    s.word(0xFFE0);
+    s.bytes(app0, 16);
+    write_dqt(s, 0, lq);
+    const uint8_t sof[11] = {0x00, 0x0B, 8, (uint8_t)(H >> 8), (uint8_t)H, (uint8_t)(W >> 8),
+                             (uint8_t)W, 1, 1, 0x11, 0};
+    s.word(0xFFC0);
+    s.bytes(sof, 11);
+    write_dht(s, 0x00, kDcLumBits, kDcVals);
+    write_dht(s, 0x10, kAcLumBits, kAcLumVals);
+    const uint8_t sos[8] = {0x00, 0x08, 1, 1, 0x00, 0, 63, 0};
+    s.word(0xFFDA);
+    s.bytes(sos, 8);
+
+    BitWriter bw(s);
+    int last_dc = 0;
+    int16_t blk[64];
+    for (int by = 0; by < ybh; by++) {
+        for (int bx = 0; bx < ybw; bx++) {
+            forward_block(yplane.data(), ystride, bx * 8, by * 8, ldiv, blk);
+            encode_block(bw, blk, last_dc, kEnc.dc[0], kEnc.ac[0]);
         }
     }
     bw.flush();
@@ -1185,6 +1240,16 @@ long vfpjpeg_encode(const unsigned char* rgb, int width, int height, int quality
     if (!rgb || !out || width < 1 || height < 1 || width > 65535 || height > 65535) return -1;
     try {
         return encode(rgb, width, height, quality, out, cap);
+    } catch (...) {
+        return -1;
+    }
+}
+
+long vfpjpeg_encode_gray(const unsigned char* gray, int width, int height, int quality,
+                         unsigned char* out, long cap) {
+    if (!gray || !out || width < 1 || height < 1 || width > 65535 || height > 65535) return -1;
+    try {
+        return encode_gray(gray, width, height, quality, out, cap);
     } catch (...) {
         return -1;
     }

@@ -1,4 +1,5 @@
-"""Baseline JPEG of RGB frames over the native library's ``jpeg.cpp``.
+"""Baseline JPEG of RGB frames (and the encoder of gray images) over the
+native library's ``jpeg.cpp``.
 
 The port's counterpart of ``cv2.imencode('.jpg', bgr, [IMWRITE_JPEG_QUALITY,
 q])`` and ``cv2.imdecode(..., IMREAD_COLOR)``: the same bytes and the same
@@ -58,6 +59,24 @@ def encode_jpeg(frame: np.ndarray, quality: int = 95) -> bytes:
     n = lib.vfpjpeg_encode(f.ctypes.data, w, h, int(quality), buf.ctypes.data, cap)
     if n < 0:
         raise IOError(f"JPEG encode of a {w}x{h} frame failed")
+    return buf[:n].tobytes()
+
+
+def encode_jpeg_gray(image: np.ndarray, quality: int = 95) -> bytes:
+    """One [H, W] uint8 image -> a baseline one-component (grayscale) JPEG at
+    ``quality``: the bytes of ``cv2.imencode('.jpg', image)``."""
+    lib = load_vfpio()
+    g = np.ascontiguousarray(image, dtype=np.uint8)
+    if g.ndim != 2:
+        raise ValueError(f"want an [H, W] image, got {g.shape}")
+    h, w = g.shape
+    cap = lib.vfpjpeg_encode_bound(w, h)
+    if cap < 0:
+        raise ValueError(f"JPEG cannot hold a {w}x{h} image")
+    buf = np.empty(cap, np.uint8)
+    n = lib.vfpjpeg_encode_gray(g.ctypes.data, w, h, int(quality), buf.ctypes.data, cap)
+    if n < 0:
+        raise IOError(f"JPEG encode of a {w}x{h} image failed")
     return buf[:n].tobytes()
 
 

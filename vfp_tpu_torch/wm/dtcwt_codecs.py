@@ -255,8 +255,18 @@ class _DtcwtBase:
         """[B, H, W, 3] uint8 (or float) + watermark plane [h, w] (or
         flattened) -> marked uint8: round(clip(x + du * M_BWD[:, 1], 0, 255)),
         half to even."""
+        return self._mark(frames, self.wm_hp_device((frames.shape[1], frames.shape[2]), wm))
+
+    def mark_frames_hp(self, frames: torch.Tensor, wm_hp_ri: torch.Tensor) -> torch.Tensor:
+        """``mark_frames`` with the watermark spectrum precomputed: ``wm_hp_ri``
+        [2, h/2, w/2, 6] holds the real and imaginary planes of
+        ``wm_hp_device``'s spectrum, as the JAX codec's ``wm_hp_device`` gives
+        them.  The same kernels as ``mark_frames``, the spectrum's excepted."""
+        return self._mark(frames, torch.complex(wm_hp_ri[0].to(torch.float32),
+                                                wm_hp_ri[1].to(torch.float32)))
+
+    def _mark(self, frames: torch.Tensor, wm_hp: torch.Tensor) -> torch.Tensor:
         h, w = frames.shape[1], frames.shape[2]
-        wm_hp = self.wm_hp_device((h, w), wm)
         bwd = torch.as_tensor(M_BWD[:, 1], device=frames.device)
         f32 = frames.to(torch.float32)
         if self._u8_kernel_path(frames):

@@ -72,9 +72,22 @@ class DeCorrShuffler:
         """[B, h, w] -> [B, 1] uint8 presence flags."""
         return (self.correlation_batch(wm) > self.threshold).to(torch.uint8)[:, None]
 
-    def degenerate(self, wm) -> bool:
-        return bool(self.correlation_batch(torch.as_tensor(np.asarray(wm, np.float32))[None])[0]
-                    > self.threshold)
+    def correlation(self, wm, mode: str = "fast") -> float:
+        """The detection statistic of one recovered plane [h, w]: ``fast``, its
+        normalised correlation (``correlation_batch``); ``slow``, the maximum
+        of the full 2-D cross-correlation with the reference plane over h * w
+        (scipy's ``correlate2d``), the reference's exhaustive search."""
+        if mode == "slow":
+            from scipy.signal import correlate2d
+
+            plane = np.asarray(wm.cpu() if torch.is_tensor(wm) else wm)
+            c = correlate2d(plane, self._reference(plane.shape))
+            return float((c / (plane.shape[0] * plane.shape[1])).max())
+        return float(self.correlation_batch(torch.as_tensor(np.asarray(wm, np.float32))[None])[0])
+
+    def degenerate(self, wm, mode: str = "fast") -> bool:
+        """Presence of the keyed plane: ``correlation(wm, mode) > threshold``."""
+        return self.correlation(wm, mode) > self.threshold
 
 
 def _blocks(channel: np.ndarray, blk_shape):
