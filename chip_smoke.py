@@ -70,7 +70,16 @@ Phases, each printing its lines:
    pairs, the bit codecs' and ``dtcwtKey``'s 75% bar, launches counted from
    the code, the wall split into JPEG encode, decode, file I/O and the
    card's batch calls, one frame's JPEG ms and the pinned SHA-256 of its
-   q90 JPEG); then ``parallel``: the sharded steps of ``parallel/sharded.py``
+   q90 JPEG); then ``media``: the ffmpeg-free media layer, ``hls-mark
+   --copies 3`` of an MJPEG ``.mp4`` (180 smooth 1080p frames at 30 fps,
+   JPEG-coded by the port, with 6 s of synthetic audio) into ``.avi``
+   segments and variants with audio sidecars (every variant verified), ``leak``
+   -> ``leaked_video.mp4`` (its audio sample bytes equal to the source's) ->
+   ``trace`` (the fingerprint on 100% of segments; 36 marks, 46 extracts), and
+   ``mark`` -> ``detect`` of a 16-frame 1080p ``.y4m`` into a ``.y4m`` (the
+   payload recovered, as the JAX CLI recovers it); the wall split into JPEG
+   encode and decode, box mux, ``mark_segments``, trace and the card's batch
+   calls; then ``parallel``: the sharded steps of ``parallel/sharded.py``
    on a world-1 NCCL mesh (the mark step with 3 variants of each codec equal
    to three bare ``mark_frames``, the detect step's votes [0, 16, 0] through
    an NCCL ``all_reduce``, the spatial step at W = 1920 equal to the
@@ -120,6 +129,7 @@ import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -138,6 +148,13 @@ ALPHA = 20.0  # the DCT-QIM codec's default
 # SHA-256 of the port's q90 JPEG of natural_frames(RandomState(14), 1, 1080, 1920)[0],
 # equal to cv2.imencode's bytes (tests/test_torch_jpeg.py pins the same constant)
 JPEG_1080P_Q90_SHA256 = "8b3645f4734eba2d5dfbac6afd16a62eee1022dc8c4a1d565593f512166fd15e"
+# the media path: an MJPEG .mp4 of 180 smooth 1080p frames at 30 fps with 6 s of
+# synthetic audio, three 2 s segments, 3 copies; then a .y4m of 16 smooth 1080p
+# frames of its own seed, on which the JAX CLI's mark -> detect recovers the payload
+# as the port's does (tests/test_torch_media_workflow.py runs both on these frames)
+MEDIA = {"n": 180, "fps": 30, "copies": 3, "seg_frames": 60, "audio_s": 6.0, "quality": 95,
+         "y4m_frames": 16, "y4m_seed": 17, "pattern": "201"}
+AUDIO_RATE = 44100
 REPLACES = {
     "fused_mark_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:239"),
     "fused_extract_planar": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:338"),
@@ -1845,7 +1862,7 @@ def jpeg_codec_timings(rng, h, w, b) -> str:
             f"frame's JPEG equals the pinned {JPEG_1080P_Q90_SHA256[:16]}...")
 
 
-def run_durability_path(device, cfg, workdir: Path) -> dict:
+def run_durability_path(device, cfg, workdir: Path) -> tuple[dict, Path]:
     """``python -m vfp_tpu_torch.cli durability`` on 180 smooth 1080p frames
     at 30 fps (three 2 s segments of 60): the default codec (``dwtDctSvd``,
     quality 90), ``--codec dct`` and ``--codec dtcwtKey``, each with its
@@ -1863,7 +1880,8 @@ def run_durability_path(device, cfg, workdir: Path) -> dict:
     decode, file I/O and the card's batch calls (the marks' and the bit
     detects' whole calls, the correlation detect's uploads and extracts),
     and the codec's own timings.
-    Returns the launch counts of the three runs."""
+    Returns the launch counts of the three runs and the source, a .rawv of
+    180 smooth 1080p frames that the media phase codes as its title."""
     import json
     import shutil
 
@@ -1958,7 +1976,204 @@ def run_durability_path(device, cfg, workdir: Path) -> dict:
               f"{3 * n} encodes and {4 * n} decodes of {w}x{h}; launches "
               f"{ {k: v for k, v in found.items() if v} }; card {nvidia_smi_line()}")
         shutil.rmtree(out)
-    src.unlink()
+    return counts, src
+
+
+def _esds(mp4) -> bytes:
+    """An esds box for AAC-LC 44.1 kHz stereo (AudioSpecificConfig 0x1210)."""
+    dsi = bytes([0x05, 2, 0x12, 0x10])
+    dcd = (bytes([0x04, 13 + len(dsi), 0x40, 0x15, 0, 0x18, 0])
+           + struct.pack(">II", 128000, 128000) + dsi)
+    sl = bytes([0x06, 1, 0x02])
+    es = bytes([0x03, 3 + len(dcd) + len(sl), 0, 1, 0]) + dcd + sl
+    return mp4._full(b"esds", 0, 0, es)
+
+
+def mp4a_stsd(mp4, rate: int = AUDIO_RATE, channels: int = 2) -> bytes:
+    """The stsd box of one ``mp4a`` AudioSampleEntry with its esds."""
+    body = (b"\x00" * 6 + struct.pack(">H", 1) + b"\x00" * 8
+            + struct.pack(">HHHH", channels, 16, 0, 0) + struct.pack(">I", rate << 16)
+            + _esds(mp4))
+    entry = struct.pack(">I4s", 8 + len(body), b"mp4a") + body
+    return mp4._full(b"stsd", 0, 0, struct.pack(">I", 1) + entry)
+
+
+def audio_payloads(seconds: float, seed: int = 0) -> list:
+    """Seeded AAC-sized sample bytes, one 1024-sample frame at 44.1 kHz each:
+    the media layer never decodes audio, so random bytes exercise it fully."""
+    rng = np.random.RandomState(seed)
+    n = int(np.ceil(seconds * AUDIO_RATE / 1024))
+    return [rng.bytes(int(rng.randint(180, 420))) for _ in range(n)]
+
+
+def audio_track(mp4, payloads):
+    """A ``soun`` track of inline samples, built through ``mp4``'s Track (the
+    port's ``vfp_tpu_torch.io.mp4``, or the JAX package's in the tests)."""
+    tr = mp4.Track(handler=b"soun", timescale=AUDIO_RATE, stsd=mp4a_stsd(mp4), volume=0x0100)
+    for p in payloads:
+        tr.samples.append(mp4.Sample(src=None, offset=0, size=len(p), duration=1024, data=p))
+    return tr
+
+
+def sample_bytes(track) -> bytes:
+    """A track's sample bytes in order, read from their files."""
+    out = []
+    for s in track.samples:
+        if s.data is not None:
+            out.append(s.data)
+            continue
+        with open(s.src, "rb") as f:
+            f.seek(s.offset)
+            out.append(f.read(s.size))
+    return b"".join(out)
+
+
+def y4m_frames(h: int, w: int) -> np.ndarray:
+    """The media phase's ``.y4m`` content: ``MEDIA["y4m_frames"]`` smooth
+    frames of their own seed (the CPU tests run the JAX CLI on these)."""
+    return smooth_frames(np.random.RandomState(MEDIA["y4m_seed"]), MEDIA["y4m_frames"], h, w)
+
+
+def run_media_path(device, cfg, workdir: Path, frames_rawv: Path) -> dict:
+    """The ffmpeg-free media layer through the CLI on the card.  Source: the
+    durability phase's 180 ``smooth_frames`` of 1920x1080 at 30 fps
+    (``frames_rawv``), JPEG-coded by the port at q95 into an MJPEG ``.avi``
+    and remuxed with 6 s of synthetic AAC-sized audio into an ``.mp4``
+    (``io/mp4.py``).  (The grainy ``natural_frames`` lose the flagship mark
+    to the q95 JPEG of the variants, in the JAX package as here:
+    tests/test_torch_media_workflow.py shows it at 1080p.)  Then
+    ``hls-mark --copies 3``:
+    three 2 s MJPEG ``.avi`` segments with audio sidecars, 9 variants with
+    theirs, every one verified; ``leak --pattern 201`` -> ``leaked_video.mp4``
+    (the variants' JPEG chunks and the sidecars' audio remuxed, no decode),
+    whose audio sample bytes must equal the source's; ``trace`` with the
+    manifests -> ``Copy fingerprint: 201`` on 100% of segments.  The launches
+    are counted from the code: 3 segments x 4 batches x 3 variants of marks,
+    verify packs 540 frames into 34 extract batches, trace 180 into 12.  Then
+    ``mark`` of a 16-frame 1080p ``.y4m`` (``y4m_frames``) into a ``.y4m`` ->
+    ``detect --payload``, which must recover it, with its own counts.  Prints the wall
+    split (JPEG encode, JPEG decode, box mux, ``mark_segments``, trace, the
+    card's batch calls, y4m planes) and the card.  Returns the launch counts."""
+    import shutil
+
+    from vfp_tpu_torch import fingerprint, kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.io import MjpegAviWriter, Y4MWriter, mp4, y4m
+    from vfp_tpu_torch.native import jpeg
+    from vfp_tpu_torch.pipeline import FrameExtractor, MultiMarker
+
+    h, w, b = cfg["h"], cfg["w"], cfg["b"]
+    n, fps, copies, seg_frames = MEDIA["n"], MEDIA["fps"], MEDIA["copies"], MEDIA["seg_frames"]
+    segments, pattern, seg_s = n // seg_frames, MEDIA["pattern"], seg_frames / fps
+    root = workdir / "media"
+    root.mkdir()
+    flags = ["--batch-size", str(b), "--device", str(device)]
+    clock = StageClock()
+    with clock:
+        clock.patch(jpeg, "encode_jpegs", "encode")
+        clock.patch(jpeg, "decode_jpegs", "decode")
+        clock.patch(mp4, "write_mp4", "box mux")
+        clock.patch(fingerprint, "mark_segments", "mark_segments")
+        for cls in (MultiMarker, FrameExtractor):
+            clock.patch(cls, "submit", "card")
+            clock.patch(cls, "collect", "card")
+        t0 = time.perf_counter()
+        avi = root / "source.avi"
+        frames = _read_rawv(frames_rawv)
+        assert frames.shape == (n, h, w, 3), frames.shape
+        with MjpegAviWriter(avi, w, h, fps, MEDIA["quality"]) as writer:
+            for i in range(0, n, b):
+                writer.write_batch(frames[i: i + b])
+        del frames
+        audio = audio_payloads(MEDIA["audio_s"], seed=16)
+        src = root / "source.mp4"
+        mp4.write_mp4(src, [mp4.track_from_mjpeg_avi(avi), audio_track(mp4, audio)])
+        avi.unlink()
+        build_s = time.perf_counter() - t0
+        source_split = dict(clock.s)
+        clock.s.clear()
+
+        out = root / "out"
+        fresh_counts()
+        walls = {}
+        with NoPlainOnDevice():
+            t0 = time.perf_counter()
+            text = _cli_lines(cli, ["hls-mark", str(src), str(out), "--copies", str(copies),
+                                    "--segment-duration", str(seg_s), *flags])
+            walls["hls-mark"] = time.perf_counter() - t0
+            assert f"created {segments} segments" in text, text
+            assert "All segments were watermarked successfully!" in text, text
+            names = {p.name for p in (out / "segments").iterdir()}
+            assert names == {f"segment_{i:03d}{ext}" for i in range(segments)
+                             for ext in (".avi", ".audio.mp4")}, names
+            hls_names = {p.name for p in (out / "hls").iterdir()}
+            assert all(f"marked_seg{i:03d}_copy{c}{ext}" in hls_names for i in range(segments)
+                       for c in range(copies) for ext in (".avi", ".audio.mp4")), hls_names
+            t0 = time.perf_counter()
+            text = _cli_lines(cli, ["leak", str(out / "segment_copies.json"), "--pattern",
+                                    pattern, *flags[2:]])
+            walls["leak"] = time.perf_counter() - t0
+            leaked = out / "leaked_video.mp4"
+            assert f"leaked video: {leaked}" in text, text
+            leak = mp4.read_mp4(leaked)
+            assert leak.video().codec_fourcc() == b"jpeg" and len(leak.video().samples) == n
+            audio_equal = sample_bytes(leak.audio()) == b"".join(audio)
+            assert audio_equal, "the leak's audio differs from the source's"
+            t0 = time.perf_counter()
+            text = _cli_lines(cli, ["trace", str(leaked), str(root / "det"), "--payload-file",
+                                    str(out / "segment_payloads.json"), "--max-copies",
+                                    str(copies), "--segment-duration", str(seg_s), *flags[2:]])
+            walls["trace"] = time.perf_counter() - t0
+            assert f"Copy fingerprint: {pattern}" in text, text
+            assert "Success rate: 100.00%" in text, text
+        found = kernels.launch_counts()
+        n_variants = copies * n
+        want = {"fused_mark_planar": segments * -(-seg_frames // b) * copies,
+                "fused_extract_planar": -(-n_variants // b) + -(-n // b)}
+        assert_counts(found, want, "media")
+        counts = collections.Counter({k: found[k] for k in want})
+        split = dict(clock.s)
+        clock.s.clear()
+        shutil.rmtree(out)
+        shutil.rmtree(root / "det")
+
+        # a .y4m round trip at 1080p: 4:2:0 planes in and out, the flagship codec between
+        clock.patch(y4m, "_y4m_planes_to_rgb", "y4m planes")
+        clock.patch(y4m, "_rgb_to_y4m_planes", "y4m planes")
+        k = MEDIA["y4m_frames"]
+        y4m_in, y4m_out = root / "in.y4m", root / "out.y4m"
+        with Y4MWriter(y4m_in, w, h, fps) as writer:
+            writer.write_batch(y4m_frames(h, w))
+        fresh_counts()
+        with NoPlainOnDevice():
+            t0 = time.perf_counter()
+            text = _cli_lines(cli, ["mark", str(y4m_in), str(y4m_out), *flags])
+            assert f"marked {k} frames" in text, text
+            text = _cli_lines(cli, ["detect", str(y4m_out), "--payload", PAYLOAD, *flags])
+            walls["y4m"] = time.perf_counter() - t0
+        assert f"majority payload: {PAYLOAD}" in text, text
+        y4m_found = kernels.launch_counts()
+        y4m_want = {"fused_mark_planar": -(-k // b), "fused_extract_planar": -(-k // b)}
+        assert_counts(y4m_found, y4m_want, "media y4m")
+        counts.update({kk: y4m_found[kk] for kk in y4m_want})
+        y4m_planes = clock.s["y4m planes"]
+    shutil.rmtree(root)
+    print(f"media: source {n} frames of {w}x{h} at {fps} fps (the durability source) -> "
+          f"MJPEG q{MEDIA['quality']} .mp4 "
+          f"with {len(audio)} audio samples in {build_s:.3f} s (JPEG encode "
+          f"{source_split['encode']:.3f}, box mux {source_split['box mux']:.3f} s); card "
+          f"{nvidia_smi_line()}")
+    print(f"media: hls-mark {walls['hls-mark']:.3f} s (mark_segments "
+          f"{split['mark_segments']:.3f} s), leak {walls['leak']:.3f} s, trace "
+          f"{walls['trace']:.3f} s (CLI walls); summed over threads: JPEG encode "
+          f"{split['encode']:.3f} s, JPEG decode {split['decode']:.3f} s, box mux "
+          f"{split['box mux']:.3f} s, the card's batch calls (submit + collect, host clock) "
+          f"{split['card']:.3f} s; Copy fingerprint {pattern}, 100% of "
+          f"{segments} segments verified x{copies} and traced; the leak's audio equals the "
+          f"source's: {audio_equal}; launches {dict(counts)}; card {nvidia_smi_line()}")
+    print(f"media: y4m {k} frames of {w}x{h}: cli mark .y4m -> .y4m -> detect "
+          f"{walls['y4m']:.3f} s (y4m planes {y4m_planes:.3f} s), payload {PAYLOAD} "
+          f"recovered; launches {y4m_want}; card {nvidia_smi_line()}")
     return counts
 
 
@@ -3098,10 +3313,10 @@ def main(argv=None) -> int:
         time_batch_stages(device, cfg)
         print(f"batch stages above on {card}, package {Path(_build.__file__).parents[1]}")
         return 0
-
-    errs = check_kernels(device, cfg)
     workroot = ROOT / "build" / "chip_smoke"
     workroot.mkdir(parents=True, exist_ok=True)
+
+    errs = check_kernels(device, cfg)
     counts = collections.Counter()  # each path's launches, zeroed before it and read after
     with tempfile.TemporaryDirectory(dir=workroot) as tmp:
         flagship, source_1080p = run_main_path(device, cfg, Path(tmp))
@@ -3116,7 +3331,10 @@ def main(argv=None) -> int:
         counts.update(hls_counts)
         counts.update(run_serve_path(device, cfg, Path(tmp)))
         counts.update(run_dtcwt_img_path(device, cfg, Path(tmp)))
-        counts.update(run_durability_path(device, cfg, Path(tmp)))
+        durability, smooth_180 = run_durability_path(device, cfg, Path(tmp))
+        counts.update(durability)
+        counts.update(run_media_path(device, cfg, Path(tmp), smooth_180))
+        smooth_180.unlink()
         counts.update(run_parallel_path(device, cfg, Path(tmp), hls_stats))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 

@@ -181,10 +181,25 @@ def test_the_4gib_refusal(tmp_path):
 
 @pytest.mark.parametrize("name", ["clip.mp4", "clip.y4m", "clip.mkv", "clip"])
 def test_other_containers_are_refused(tmp_path, name):
-    with pytest.raises(ValueError, match=r"\.rawv and MJPEG \.avi files only"):
-        tio.open_reader(tmp_path / name)
-    with pytest.raises(ValueError, match=r"\.rawv and MJPEG \.avi files only"):
-        tio.open_writer(tmp_path / name, W, H)
+    """A suffix the port neither reads nor writes is refused both ways; an
+    ``.mp4`` is read (MJPEG video) but frames are never written to one, and
+    ``.y4m`` goes both ways."""
+    path = tmp_path / name
+    if name.endswith(".y4m"):
+        with tio.open_writer(path, W, H) as w:
+            assert isinstance(w, tio.Y4MWriter)
+        r = tio.open_reader(path)
+        assert isinstance(r, tio.Y4MReader)
+        r.close()
+        return
+    with pytest.raises(ValueError, match=r"writes frames to \.rawv, \.avi, \.y4m files only"):
+        tio.open_writer(path, W, H)
+    if name.endswith(".mp4"):
+        with pytest.raises(FileNotFoundError):  # the suffix is taken; there is no file
+            tio.open_reader(path)
+    else:
+        with pytest.raises(ValueError, match=r"reads \.rawv, \.avi, \.mp4, \.m4s, \.y4m files"):
+            tio.open_reader(path)
 
 
 def test_corrupt_avi_files_raise_ioerror(tmp_path):

@@ -124,7 +124,7 @@ def test_segment_grid_is_exact_and_matches_jax(source, tmp_path):
     assert [p.stem for p in jsegs] == [p.stem for p in segs]
     assert tfp.frames_per_segment(29.97, 2.0) == jfp.frames_per_segment(29.97, 2.0) == 60
     with pytest.raises(ValueError, match=".rawv"):
-        tfp.segment_video(tmp_path / "in.mp4", tmp_path / "x", 2.0)
+        tfp.segment_video(tmp_path / "in.mkv", tmp_path / "x", 2.0)
 
 
 def test_manifests_match_jax(trees):
@@ -241,7 +241,7 @@ def test_corrupt_rawv_votes_none_as_jax(tmp_path, rng):
             tmarker._read_all(bad)
         with pytest.raises(IOError):
             jmarker._read_all(bad)
-    for name in ("seg.mp4", "seg.y4m"):  # the containers the port does not read
+    for name in ("seg.mkv", "seg"):  # the containers the port does not read
         with pytest.raises(ValueError, match=".rawv"):
             tmarker._read_all(tmp_path / name)
     frames = natural_frames(rng, 3, H, W)  # an MJPEG .avi segment is read
@@ -433,9 +433,13 @@ def test_cli_workflow_never_drops_to_the_cpu(cmd, source, tmp_path, monkeypatch)
 
 
 def test_cli_workflow_refuses_other_containers(tmp_path):
-    src = tmp_path / "in.mp4"
+    src = tmp_path / "in.mkv"
     src.write_bytes(b"\x00" * 64)
     with pytest.raises(ValueError, match=".rawv"):
         port_cli(["hls-mark", str(src), str(tmp_path / "o"), "--device", "cpu"])
     with pytest.raises(ValueError, match=".rawv"):
         port_cli(["trace", str(src), str(tmp_path / "det"), "--device", "cpu"])
+    garbage = tmp_path / "in.mp4"  # a container the port reads, but not an MP4
+    garbage.write_bytes(b"\x00" * 64)
+    with pytest.raises(IOError, match="no moov"):
+        port_cli(["hls-mark", str(garbage), str(tmp_path / "o"), "--device", "cpu"])

@@ -64,13 +64,17 @@ def test_rawv_from_the_port_writer_reads_back_identically(tmp_path, frames, port
 
 
 def test_open_reader_and_writer_take_rawv_only(tmp_path, frames):
-    """``.mp4`` and ``.y4m`` are refused; besides ``.rawv`` the port now reads
-    and writes MJPEG ``.avi`` (the JAX writer's bytes, each frame decoded as
-    ``cv2.imdecode`` decodes it)."""
-    for name in ("clip.mp4", "clip.y4m"):
-        with pytest.raises(ValueError, match=r"\.rawv and MJPEG \.avi files only"):
+    """Frames are never written to ``.mp4`` (the JAX writer there is cv2's
+    mp4v) and other suffixes are refused both ways; besides ``.rawv`` the
+    port reads and writes MJPEG ``.avi`` (the JAX writer's bytes, each frame
+    decoded as ``cv2.imdecode`` decodes it) and ``.y4m`` (tests/test_torch_y4m.py),
+    and reads MJPEG ``.mp4`` (tests/test_torch_mp4.py)."""
+    with pytest.raises(ValueError, match=r"writes frames to \.rawv, \.avi, \.y4m files only"):
+        tio.open_writer(tmp_path / "clip.mp4", W, H)
+    for name in ("clip.mkv", "clip.webm"):
+        with pytest.raises(ValueError, match=r"reads \.rawv, \.avi, \.mp4, \.m4s, \.y4m files"):
             tio.open_reader(tmp_path / name)
-        with pytest.raises(ValueError, match=r"\.rawv and MJPEG \.avi files only"):
+        with pytest.raises(ValueError, match=r"writes frames to \.rawv, \.avi, \.y4m files"):
             tio.open_writer(tmp_path / name, W, H)
     import cv2
     from vfp_tpu.io.avi import iter_video_chunks

@@ -24,18 +24,23 @@ the DT-CWT key codec (``--codec dtcwtKey``: a keyed spread-spectrum
 plane, the payload ignored; detect prints per-file presence) and the DT-CWT
 image codec (``--codec dtcwtImg``: a block-scrambled image payload from
 ``--wm-image``; detect writes the recovered image of every frame to
-``--out-dir`` as ``wm_NNNN.png``), plus ``--device``.  Image payloads are
-8-bit grayscale PNGs (``io/images.py``; the JAX CLI reads any image cv2
-reads).  On ``--device cuda`` every codec marks and detects through
+``--out-dir`` as ``wm_NNNN.png``), plus ``--device``.  ``--wm-image`` is
+read as the JAX CLI's ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads it
+(``io/images.py:read_image_gray``: PNG of any 8-bit colour type, or a
+baseline JPEG's Y).  On ``--device cuda`` every codec marks and detects through
 its CUDA kernels.  The device defaults to ``cuda`` and is never changed
 silently: ``--device cuda`` without a GPU raises; pass ``--device cpu`` to
 run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
-computes in float32.  Input and output are ``.rawv`` files (exact) or MJPEG
-``.avi`` files; segments, variants and leaks are ``.rawv`` (the JAX CLI
-writes ``.avi``/``.mp4`` there).  ``durability`` runs the JAX CLI's lossy
+computes in float32.  Input is ``.rawv`` (exact), MJPEG ``.avi``,
+MJPEG-in-MP4 ``.mp4``/``.m4s`` or ``.y4m``; output is ``.rawv``, ``.avi`` or
+``.y4m`` (an ``.mp4`` whose video is not JPEG raises: the port has no
+mp4v/H.264 codec).  ``hls-mark`` segments a ``.rawv`` into ``.rawv`` and
+anything else into MJPEG ``.avi`` (the JAX CLI's choice without ffmpeg), with
+the source's audio in per-segment sidecars that ``leak`` muxes back into an
+``.mp4``.  ``durability`` runs the JAX CLI's lossy
 experiment through MJPEG ``.avi`` (JPEGs coded as cv2 codes them), prints its
 JSON report and exits 0 when it passes, 1 when not; ``--container mp4`` is
-refused (no mp4v encoder).  ``hls-mark`` also prints ``mark_segments``'
+refused (no mp4v encoder or decoder).  ``hls-mark`` also prints ``mark_segments``'
 stage seconds; its ``--workers`` processes mark on ``--device`` (the card
 by default, where the JAX CLI's workers run on the CPU), and its
 ``--distributed`` ranks join a torch.distributed gloo group.  ``mark
@@ -77,14 +82,14 @@ def _generator(codec_name: str, key: int, generator: str = "auto"):
 
 
 def cmd_mark(args):
-    from ..io import open_reader, open_writer, read_png_gray
+    from ..io import open_reader, open_writer, read_image_gray
     from ..pipeline import Embedder, FrameMarker
     from ..utils import make_codec
 
     device = resolve_device(args.device)
     codec = make_codec(args.codec)
     if args.wm_image:
-        payload = read_png_gray(args.wm_image).astype(np.float32)
+        payload = read_image_gray(args.wm_image).astype(np.float32)
     else:
         payload = _payload_bits(args.payload)
     reader = open_reader(args.input)
@@ -220,7 +225,7 @@ def cmd_test_frame(args):
     image (``output.jpeg`` at --quality) and its amplified difference
     (``diff.jpeg``), read the JPEG back, extract and report.  The JPEGs are
     the bytes cv2.imwrite writes, through the port's encoder."""
-    from ..io import read_image_bgr, read_png_gray
+    from ..io import read_image_bgr, read_image_gray
     from ..native.jpeg import decode_jpeg, encode_jpeg, encode_jpeg_gray
     from ..utils import make_codec
     from ..wm import DeCorrShuffler
@@ -231,7 +236,7 @@ def cmd_test_frame(args):
     deg = _degenerator(args.codec, args.key, args.generator)
     frame = read_image_bgr(args.image)
     if args.wm_image:
-        payload = read_png_gray(args.wm_image).astype(np.float32)
+        payload = read_image_gray(args.wm_image).astype(np.float32)
     else:
         payload = _payload_bits(args.payload)
     wm = generator.generate_wm(payload, codec.wm_capacity(frame.shape))
@@ -474,7 +479,7 @@ def main(argv=None):
     m.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     m.add_argument("--payload", default="01100101")
     m.add_argument("--wm-image", default=None,
-                   help="watermark image payload: an 8-bit grayscale PNG")
+                   help="watermark image payload, read as grayscale (PNG or baseline JPEG)")
     m.add_argument("--generator", choices=["auto", "shuffler", "grayscale"], default="auto")
     m.add_argument("--key", type=int, default=0)
     m.add_argument("--batch-size", type=int, default=16)
@@ -508,7 +513,7 @@ def main(argv=None):
     tf.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     tf.add_argument("--payload", default="01100101")
     tf.add_argument("--wm-image", default=None,
-                    help="watermark image payload: an 8-bit grayscale PNG")
+                    help="watermark image payload, read as grayscale (PNG or baseline JPEG)")
     tf.add_argument("--generator", choices=["auto", "shuffler", "grayscale"], default="auto")
     tf.add_argument("--key", type=int, default=0)
     tf.add_argument("--quality", type=int, default=95, help="output JPEG quality")
@@ -517,7 +522,8 @@ def main(argv=None):
 
     h = sub.add_parser(
         "hls-mark", help="segment, mark N variants, build HLS",
-        description="Segment INPUT into .rawv segments, mark each in --copies variants on "
+        description="Segment INPUT (.rawv segments for a .rawv, MJPEG .avi with audio "
+                    "sidecars otherwise), mark each in --copies variants on "
                     "--device (in --workers processes, or one rank of --distributed), "
                     "verify them and write the HLS playlists and manifests.")
     h.add_argument("input"), h.add_argument("output_dir")

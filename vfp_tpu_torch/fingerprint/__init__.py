@@ -1,7 +1,9 @@
 """HLS per-segment fingerprinting (port of ``vfp_tpu/fingerprint``): mark N
 variants per segment, assemble a unique variant sequence per recipient,
-trace leaks back to the recipient.  Segments, variants and leaks are
-``.rawv`` files; every entry point that touches the card takes ``device=``
+trace leaks back to the recipient.  Segments and variants are ``.rawv``
+files for a ``.rawv`` source and MJPEG ``.avi`` for any other, with the
+source's audio in per-segment sidecars; leaks are ``.mp4`` when the audio
+rides along.  Every entry point that touches the card takes ``device=``
 (default ``"cuda"``, raising without a GPU)."""
 
 from .payloads import payload_for_segment, decode_segment_copy, pattern_string  # noqa: F401

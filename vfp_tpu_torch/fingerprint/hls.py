@@ -3,15 +3,20 @@
 
 Per-recipient fingerprinting is pure playlist text assembly over
 already-marked variants: no media compute per view (reference:
-api/main.py:216-253).  The variants are listed as the marked ``.rawv``
-files themselves, copied into the HLS directory: the port has no ffmpeg
-remux to fMP4 ``.m4s`` fragments and no audio sidecars (``.rawv`` only).
+api/main.py:216-253).  An ``.mp4`` variant is fragmented at box level into
+a standalone fMP4 ``.m4s`` (the shape of the reference's ffmpeg
+``empty_moov+frag`` remux, api/main.py:113-124) with its audio sidecar muxed
+in; any other variant (``.rawv``, MJPEG ``.avi``) is copied into the HLS
+directory as it is, with its sidecar beside it, so downloads keep the audio.
+No ffmpeg.
 """
 
 from __future__ import annotations
 
 import shutil
 from pathlib import Path
+
+from ..io.mp4 import audio_sidecar, fragment_mp4, read_mp4
 
 
 def pattern_for_view(view_number: int, num_copies: int, num_segments: int) -> list:
@@ -83,8 +88,24 @@ def write_hls_playlists(marked, hls_dir, copies: int, segment_duration: float = 
     segment_map = {}
     for m in marked:
         src = Path(m.file)
-        name = f"marked_seg{m.segment_number:03d}_copy{m.copy_index}{src.suffix}"
-        shutil.copy2(src, hls_dir / name)
+        sidecar = audio_sidecar(src)
+        if src.suffix == ".mp4":
+            # box-level fragmenting to a standalone fMP4, zero re-encode; the
+            # sidecar's audio (if the segmenter made one) muxes into the .m4s
+            name = f"marked_seg{m.segment_number:03d}_copy{m.copy_index}.m4s"
+            extra = []
+            if sidecar.exists():
+                at = read_mp4(sidecar).audio()
+                if at is not None:
+                    extra.append(at)
+            fragment_mp4(src, hls_dir / name, extra_tracks=extra)
+        else:
+            name = f"marked_seg{m.segment_number:03d}_copy{m.copy_index}{src.suffix}"
+            shutil.copy2(src, hls_dir / name)
+            if sidecar.exists():
+                # audio rides into the serving dir so /download-view splices
+                # keep it (service.download_view -> concatenate_segments)
+                shutil.copy2(sidecar, audio_sidecar(hls_dir / name))
         variant_files[m.segment_number][m.copy_index] = name
         segment_map[name] = src.name
 

@@ -3,12 +3,16 @@
 
 (reference: tests/generate_leak.py:59-141,426-461)
 
-A splice into an ``.avi`` of MJPEG ``.avi`` segments is a stream copy of
-their JPEG chunks (``io/avi.py``), as in the JAX module; any other splice is
-frame-level, through the reader/writer stack (the leak is
-``leaked_video.rawv`` by default).  The JAX module's ffmpeg concat, its
-box-level MP4 branches and its audio sidecars are not ported: the port
-writes no ``.mp4``.
+Splices are stream copies where the containers allow, as in the JAX module
+without ffmpeg: ``.mp4``/``.m4s`` variants into an ``.mp4`` by box-level
+concat, MJPEG ``.avi`` variants into an ``.mp4`` by remuxing their JPEG
+chunks as ``jpeg`` samples with their audio sidecars muxed back
+(``io/mp4.py``), MJPEG ``.avi`` into an ``.avi`` by chunk copy
+(``io/avi.py``); anything else is frame-level, through the reader/writer
+stack.  The leak is ``leaked_video.mp4`` when every chosen variant has an
+audio sidecar, else ``leaked_video`` with the variants' own suffix
+(``.rawv`` for ``.rawv`` variants).  The JAX module's ffmpeg concat is not
+ported.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import re
 from pathlib import Path
 
 from ..io import open_reader, open_writer
+from ..io.mp4 import audio_sidecar, concat_mp4, read_mp4, track_from_mjpeg_avi, write_mp4
 from .hls import _media_playlist
 
 
@@ -47,11 +52,48 @@ def select_copies(segment_copies_info: dict, marked_dir, pattern: str | None = N
     return files, copy_pattern
 
 
+def _mux_avis_to_mp4(segment_files, output_file):
+    """MJPEG-AVI segments -> one standard ``.mp4``: their JPEG chunks become
+    ``jpeg`` samples (stream copy) and their sidecars' audio muxes back."""
+    video = audio = None
+    for seg in segment_files:
+        vt = track_from_mjpeg_avi(seg)
+        if video is None:
+            video = vt
+        else:
+            video.samples.extend(vt.samples)
+        sc = audio_sidecar(seg)
+        if sc.exists():
+            at = read_mp4(sc).audio()
+            if at is not None:
+                if audio is None:
+                    audio = at
+                else:
+                    audio.samples.extend(at.samples)
+    write_mp4(output_file, [video] + ([audio] if audio is not None else []))
+
+
 def concatenate_segments(segment_files, output_file):
-    """Splice segments into one file: MJPEG ``.avi`` segments into an
-    ``.avi`` by chunk copy with no re-encode (the reference's ``-c copy``,
-    tests/generate_leak.py:126-136), anything else frame by frame through the
-    reader/writer stack (one generation, like a screen-recorder leak)."""
+    """Splice segments into one file, stream-copy first (the reference's
+    ``-c copy``, tests/generate_leak.py:126-136): box-level concat of
+    ``.mp4``/``.m4s`` segments into an ``.mp4``, JPEG-chunk remux of MJPEG
+    ``.avi`` segments (and their sidecar audio) into an ``.mp4``, chunk copy
+    of MJPEG ``.avi`` segments into an ``.avi``.  An ``.mp4`` output is made
+    by remux only: a remux that fails raises its IOError.  Anything else is
+    spliced frame by frame through the reader/writer stack (one generation,
+    like a screen-recorder leak)."""
+    if str(output_file).endswith(".mp4"):
+        # .m4s variants (the fMP4 shape write_hls_playlists emits) parse
+        # through the same box-level path, so download_view splices never
+        # drop muxed audio
+        if all(str(s).endswith((".mp4", ".m4s")) for s in segment_files):
+            concat_mp4(segment_files, output_file)
+            return output_file
+        if all(str(s).endswith(".avi") for s in segment_files):
+            _mux_avis_to_mp4(segment_files, output_file)
+            return output_file
+        raise ValueError(f"an .mp4 leak is a remux of .mp4/.m4s or MJPEG .avi segments, "
+                         f"not of {sorted({Path(s).suffix for s in segment_files})}")
     if str(output_file).endswith(".avi"):
         from ..io.avi import splice_mjpeg_avis
 
@@ -138,7 +180,11 @@ def generate_leak(
     marked_dir = Path(marked_dir) if marked_dir else base / "marked_segments"
     files, copy_pattern = select_copies(info, marked_dir, pattern, random_seed)
     if output_file is None:
-        output_file = base / "leaked_video.rawv"
+        # .mp4 carries the audio sidecars back in; otherwise keep the
+        # variants' own container for the chunk-level splice
+        ext = (".mp4" if files and all(audio_sidecar(f).exists() for f in files)
+               else Path(files[0]).suffix)
+        output_file = base / f"leaked_video{ext}"
     concatenate_segments(files, output_file)
     leak_info = {
         "copy_pattern": copy_pattern,

@@ -9,10 +9,11 @@ upload, marks and downloads on the card and returns, and a writer thread
 collects each handle and writes the variants, so the card works on later
 batches (across segment boundaries) while earlier ones are written.
 
-Variants are ``marked_segN_copyC.rawv`` (the JAX module writes ``.mp4`` or
-MJPEG ``.avi`` and copies audio sidecars); ``_read_all`` also reads MJPEG
-``.avi`` segments, as the durability experiment needs.  The JAX module's
-low-link packers are not ported.
+Variants are ``marked_segN_copyC.rawv`` for ``.rawv`` segments and MJPEG
+``.avi`` for any other (the JAX module's choice without ffmpeg), and each
+shares its segment's audio sidecar (``segment_NNN.audio.mp4`` ->
+``marked_segN_copyC.audio.mp4``).  ``_read_all`` reads every container the
+port reads.  The JAX module's low-link packers are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import json
 import logging
 import queue
+import shutil
 import struct
 import threading
 import time
@@ -31,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from ..io import open_reader, open_writer
+from ..io.mp4 import audio_sidecar
 from ..io.readers import RAWV_MAGIC, require_supported
 from ..pipeline import MultiMarker, cached_bit_extractor
 from ..utils.device import resolve_device
@@ -52,13 +55,13 @@ def _read_all(file):
     """All frames of a segment as one [n, H, W, 3] array, and its fps.
 
     A ``.rawv`` segment is one np.fromfile: a reader's per-open cost
-    dominates on the few-frame segments HLS produces.  An MJPEG ``.avi``
-    goes through its reader (the native JPEG decoder).  A corrupt file
-    (truncated header, zero dims, no whole frame, bad JPEG data) raises
-    IOError, which the pipelined verify/trace callers take as (None, 0.0)
-    for that file."""
+    dominates on the few-frame segments HLS produces.  Any other container
+    (MJPEG ``.avi``, ``.mp4``/``.m4s``, ``.y4m``) goes through its reader.
+    A corrupt file (truncated header, zero dims, no whole frame, bad JPEG
+    data, an MP4 whose video is not JPEG) raises IOError, which the
+    pipelined verify/trace callers take as (None, 0.0) for that file."""
     require_supported(file)
-    if str(file).endswith(".avi"):
+    if Path(file).suffix != ".rawv":
         reader = open_reader(file)
         chunks = []
         try:
@@ -94,6 +97,7 @@ def mark_segments(
     codec=None,
     batch_size: int = 16,
     quality: int = 95,
+    out_ext: str | None = None,
     resume: bool = False,
     first_segment_number: int = 0,
     stats: dict | None = None,
@@ -101,6 +105,10 @@ def mark_segments(
     device="cuda",
 ):
     """Mark every segment in ``copies`` variants on ``device``.
+
+    Variants are written as ``out_ext`` files; by default ``.rawv`` for a
+    ``.rawv`` segment and MJPEG ``.avi`` at ``quality`` for any other.  A
+    segment's audio sidecar is copied beside each of its variants.
 
     Returns (marked: list[MarkedSegment], segment_payloads, segment_copies):
     the dicts use the reference's JSON manifest schemas
@@ -121,8 +129,9 @@ def mark_segments(
     marked_dir = Path(marked_dir)
     marked_dir.mkdir(parents=True, exist_ok=True)
 
-    def out_file(seg_idx, c):
-        return marked_dir / f"marked_seg{seg_idx}_copy{c}.rawv"
+    def out_file(seg_idx, seg_file, c):
+        ext = out_ext or (".rawv" if Path(seg_file).suffix == ".rawv" else ".avi")
+        return marked_dir / f"marked_seg{seg_idx}_copy{c}{ext}"
 
     marked: list[MarkedSegment] = []
     segment_payloads: dict = {}
@@ -130,7 +139,7 @@ def mark_segments(
     generator = Shuffler(key=key)
     plans = [
         (seg_idx, seg_file,
-         [c for c in range(copies) if not (resume and out_file(seg_idx, c).exists())])
+         [c for c in range(copies) if not (resume and out_file(seg_idx, seg_file, c).exists())])
         for seg_idx, seg_file in enumerate(segments, start=first_segment_number)
     ]
 
@@ -214,8 +223,8 @@ def mark_segments(
                                              codec.wm_capacity((h, w, 3)))
                        for c in todo]
                 mm = MultiMarker(codec, wms, batch_size=batch_size, device=device)
-                paths = [str(out_file(seg_idx, c)) for c in todo]
-                writers = {c: open_writer(out_file(seg_idx, c), w, h, fps, quality)
+                paths = [str(out_file(seg_idx, seg_file, c)) for c in todo]
+                writers = {c: open_writer(out_file(seg_idx, seg_file, c), w, h, fps, quality)
                            for c in todo}
                 current = (writers, paths)
                 for start in range(0, len(frames), batch_size):
@@ -227,10 +236,15 @@ def mark_segments(
                     ss["queue_wait"] += time.perf_counter() - t_qw
                 wq.put(("close", writers, paths))
                 current = None
+            # audio rides along: every variant of this segment shares the
+            # source segment's sidecar (the splice paths mux it back)
+            src_audio = audio_sidecar(seg_file)
             seg_entry = []
             for copy_index in range(copies):
                 payload = payload_for_segment(seg_idx, copy_index)
-                f = out_file(seg_idx, copy_index)
+                f = out_file(seg_idx, seg_file, copy_index)
+                if src_audio.exists() and not audio_sidecar(f).exists():
+                    shutil.copy2(src_audio, audio_sidecar(f))
                 marked.append(MarkedSegment(file=str(f), segment_number=seg_idx,
                                             copy_index=copy_index, payload=payload.tolist()))
                 seg_entry.append(

@@ -3,11 +3,12 @@
 
 Every segment gets exactly round(duration * fps) frames, chunked through the
 reader/writer stack, so a leak re-segments onto the marking grid exactly.
-Segments are ``segment_NNN.rawv`` (exact uint8 RGB) by default, the files
-the HLS workflow and the service mark; ``container="avi"`` writes the JAX
-package's no-ffmpeg segments instead, ``segment_NNN.avi`` in MJPEG at
-``quality`` (the durability experiment's lossy channel).  No ffmpeg branch
-and no audio sidecars.
+A ``.rawv`` source gives ``segment_NNN.rawv`` segments (exact uint8 RGB);
+any other source takes the JAX package's no-ffmpeg route, ``segment_NNN.avi``
+in MJPEG at ``quality``, and ``container`` forces either.  The source's
+audio track, where it has one (an ``.mp4``), is stream-copied into
+per-segment sidecars, ``segment_NNN.audio.mp4`` (``io/mp4.py``), which
+marking, HLS, leak and download carry along.  No ffmpeg branch.
 """
 
 from __future__ import annotations
@@ -23,15 +24,19 @@ def frames_per_segment(fps: float, segment_duration: float) -> int:
 
 
 def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quality: int = 95,
-                  container: str = "rawv"):
-    """Split into segment_000.<container>, ... (``rawv`` or ``avi``); returns
-    the sorted list of paths."""
+                  container: str | None = None):
+    """Split into segment_000.<container>, ... (``rawv`` or ``avi``; by
+    default ``rawv`` for a ``.rawv`` source and ``avi`` for any other) and
+    write the audio sidecars; returns the sorted list of segment paths."""
+    if container is None:
+        container = "rawv" if Path(input_file).suffix == ".rawv" else "avi"
     if container not in ("rawv", "avi"):
         raise ValueError(f"segments are .rawv or MJPEG .avi, not .{container}")
     segments_dir = Path(segments_dir)
     segments_dir.mkdir(parents=True, exist_ok=True)
     reader = open_reader(input_file)
     n_per = frames_per_segment(reader.fps, segment_duration)
+    fps = reader.fps
     paths = []
     idx = 0
     try:
@@ -39,10 +44,7 @@ def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quali
             got = 0
             writer = None
             p = segments_dir / f"segment_{idx:03d}.{container}"
-            # written under a temporary name and renamed once whole: the ranks
-            # of ``hls-mark --distributed`` each segment into one shared
-            # directory, and none may read a segment another is rewriting
-            tmp = segments_dir / f".{os.getpid()}-{p.name}"
+            tmp = _temp_name(p)
             while got < n_per:
                 batch = reader.read_batch(min(16, n_per - got))
                 if batch is None:
@@ -60,4 +62,39 @@ def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quali
             idx += 1
     finally:
         reader.close()
+    _write_audio_sidecars(input_file, paths, n_per, fps)
     return sorted(paths)
+
+
+def _temp_name(path: Path) -> Path:
+    """Where ``path`` is written before it is renamed into place, once whole:
+    the ranks of ``hls-mark --distributed`` each segment into one shared
+    directory, and none may read a file another is rewriting.  The suffix is
+    kept, since it picks the writer."""
+    return path.with_name(f".{os.getpid()}-{path.name}")
+
+
+def _write_audio_sidecars(input_file, segment_paths, n_per: int, fps: float):
+    """Stream-copy the source's audio into per-segment sidecar files.
+
+    Segments carry no audio, so the audio slice for segment i (time range
+    [i, i+1) * n_per/fps, matching the frame-exact video grid) rides in
+    ``segment_i.audio.mp4`` and is muxed back by the splice/download paths
+    (io/mp4.py audio_sidecar).  No-op when the source has no parseable
+    audio track (non-MP4 input, video-only file)."""
+    try:
+        from ..io.mp4 import audio_sidecar, read_mp4, slice_track_by_time, write_mp4
+
+        audio = read_mp4(input_file).audio()
+    except Exception:
+        return
+    if audio is None or not audio.samples or not fps:
+        return
+    seg_seconds = n_per / fps
+    for i, seg in enumerate(segment_paths):
+        part = slice_track_by_time(audio, i * seg_seconds, (i + 1) * seg_seconds)
+        if part.samples:
+            sidecar = audio_sidecar(seg)
+            tmp = _temp_name(sidecar)
+            write_mp4(tmp, [part])
+            os.replace(tmp, sidecar)

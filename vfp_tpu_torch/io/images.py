@@ -10,9 +10,13 @@ own rule, which differs by up to 1 from the integer BT.601 one, so the port
 does not guess it.  ``read_image_bgr`` reads a picture as
 ``cv2.imread(path, IMREAD_COLOR)`` does: an 8-bit gray (replicated), gray
 with alpha, RGB or RGBA (alpha dropped) PNG, or a baseline JPEG through the
-port's decoder, to BGR.  The readers take non-interlaced PNGs with any of
-the five row filters (what cv2 and other encoders write); the writers write
-8-bit grayscale or RGB with no row filter.
+port's decoder, to BGR.  ``read_image_gray`` reads the watermark images of
+``--wm-image`` as ``cv2.imread(path, IMREAD_GRAYSCALE)`` does: the gray
+channel of a gray or gray + alpha PNG, libpng's fixed-point rgb-to-gray of
+an RGB or RGBA one (``(9797 R + 19234 G + 3737 B) >> 15``, alpha dropped),
+and a baseline JPEG's Y component.  The readers take non-interlaced PNGs
+with any of the five row filters (what cv2 and other encoders write); the
+writers write 8-bit grayscale or RGB with no row filter.
 """
 
 from __future__ import annotations
@@ -166,3 +170,36 @@ def read_image_bgr(path) -> np.ndarray:
         return np.ascontiguousarray(decode_jpeg(Path(path).read_bytes())[..., ::-1])
     raise ValueError(f"{path}: vfp_tpu_torch reads PNG (8-bit gray, gray + alpha, RGB, "
                      "RGBA) and baseline JPEG images only")
+
+
+# libpng's png_set_rgb_to_gray_fixed weights for cv2's (0.299, 0.587): red and
+# green as int(w * 32768), blue the rest of 32768
+_GRAY_R, _GRAY_G = 9797, 19234
+_GRAY_B = 32768 - _GRAY_R - _GRAY_G
+
+
+def read_image_gray(path) -> np.ndarray:
+    """An image as ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` gives it: [H, W]
+    uint8.  PNG: gray (and gray + alpha, alpha dropped) as stored; RGB and
+    RGBA through libpng's rgb-to-gray, ``(9797 R + 19234 G + 3737 B) >> 15``
+    truncated, alpha dropped (cv2 reads PNGs with libpng, which converts
+    there).  A baseline three-component JPEG: its Y component, as libjpeg's
+    grayscale output gives it.  Anything else raises IOError naming it."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
+        try:
+            img, color = _read_png(path)
+        except ValueError as e:
+            raise IOError(str(e)) from e
+        if color in (0, 4):
+            return np.ascontiguousarray(img[..., 0])
+        rgb = img[..., :3].astype(np.uint32)
+        gray = (_GRAY_R * rgb[..., 0] + _GRAY_G * rgb[..., 1] + _GRAY_B * rgb[..., 2]) >> 15
+        return gray.astype(np.uint8)
+    if head[:2] == b"\xff\xd8":
+        from ..native.jpeg import decode_jpeg_gray
+
+        return decode_jpeg_gray(Path(path).read_bytes())
+    raise IOError(f"{path}: vfp_tpu_torch reads --wm-image as PNG (8-bit gray, gray + "
+                  "alpha, RGB, RGBA) or a baseline three-component JPEG only")

@@ -1,11 +1,14 @@
 """Frame readers: batched sources of uint8 RGB frames (copied from
-``vfp_tpu/io/readers.py``): exact ``.rawv`` and MJPEG ``.avi``.
+``vfp_tpu/io/readers.py``): exact ``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4
+``.mp4``/``.m4s`` and YUV4MPEG2 ``.y4m`` (``io/y4m.py``).
 
 ``read_batch(n) -> [k, H, W, 3] | None`` lets the pipeline feed the device
-whole batches while the next one is read.  ``MjpegAviReader`` stands where
-the JAX package's ``Cv2Reader`` reads ``.avi``: it decodes each JPEG chunk
-as ``cv2.imdecode`` does (the native library's codec), not as cv2's FFmpeg
-backend does.
+whole batches while the next one is read.  ``MjpegAviReader`` and
+``Mp4MjpegReader`` stand where the JAX package's ``Cv2Reader`` reads
+``.avi`` and ``.mp4``: they decode each JPEG sample as ``cv2.imdecode`` does
+(the native library's codec), not as cv2's FFmpeg backend does.  An MP4
+whose video is not JPEG (``mp4v``, ``avc1``, ...) raises IOError: the port
+has no decoder for inter-frame video.
 """
 
 from __future__ import annotations
@@ -121,35 +124,112 @@ class MjpegAviReader(FrameReader):
         self._chunks.close()
 
 
-SUPPORTED = (".rawv", ".avi")
+class Mp4MjpegReader(FrameReader):
+    """MJPEG-in-MP4 reader (``.mp4`` or fragmented ``.m4s``): the sample
+    spans of the video track from ``io/mp4.py:read_mp4``, each sample's JPEG
+    decoded by the native codec, a batch's frames on its thread pool, in
+    order.  Width and height come from the track's sample entry (its
+    presentation size where the entry has none) and fps from the first
+    sample's duration.  A file with no video track, a video track whose
+    codec is not ``jpeg``, or a JPEG the codec refuses raises IOError."""
+
+    def __init__(self, file):
+        from .mp4 import read_mp4
+
+        self.file = str(file)
+        video = read_mp4(file).video()
+        if video is None or not video.samples:
+            raise IOError(f"no video samples in {file}")
+        fourcc = video.codec_fourcc()
+        if fourcc != b"jpeg":
+            name = fourcc.decode("latin-1")
+            raise IOError(f"{file}: the video track is {name!r}; vfp_tpu_torch decodes "
+                          f"MJPEG ('jpeg') MP4 video only and has no decoder for {name!r}")
+        self.width, self.height = _visual_entry_size(video)
+        if self.width <= 0 or self.height <= 0:
+            raise IOError(f"invalid MP4 video dims {self.width}x{self.height}: {file}")
+        first = video.samples[0].duration
+        self.fps = video.timescale / first if first and video.timescale else 30.0
+        self._samples = video.samples
+        self._pos = 0
+        self._f = open(self.file, "rb")
+
+    def read_batch(self, n: int) -> Optional[np.ndarray]:
+        from ..native.jpeg import decode_jpegs
+
+        batch = self._samples[self._pos : self._pos + n]
+        if not batch:
+            return None
+        self._pos += len(batch)
+        chunks = []
+        for s in batch:
+            if s.data is not None:
+                chunks.append(s.data)
+                continue
+            self._f.seek(s.offset)
+            data = self._f.read(s.size)
+            if len(data) != s.size:
+                raise IOError(f"truncated sample in {self.file}")
+            chunks.append(data)
+        return decode_jpegs(chunks, self.height, self.width)
+
+    def close(self):
+        self._f.close()
+
+
+def _visual_entry_size(track) -> tuple[int, int]:
+    """(width, height) of a video track: its VisualSampleEntry's fields
+    (stsd header 16 bytes, entry header 8, then 24 bytes before them), else
+    the tkhd presentation size."""
+    stsd = track.stsd
+    if len(stsd) >= 52:
+        w, h = struct.unpack_from(">HH", stsd, 48)
+        if w and h:
+            return w, h
+    return int(track.width), int(track.height)
+
+
+READ = (".rawv", ".avi", ".mp4", ".m4s", ".y4m")
+WRITE = (".rawv", ".avi", ".y4m")
+
+
+def _refuse(file, kinds, verb: str) -> None:
+    suffix = Path(file).suffix
+    if suffix not in kinds:
+        raise ValueError(
+            f"{file}: vfp_tpu_torch {verb} {', '.join(kinds)} files only, not "
+            f"{suffix or 'a file without a suffix'} (.rawv exact, .avi and .mp4/.m4s MJPEG, "
+            ".y4m 4:2:0); convert other containers with vfp_tpu.io")
 
 
 def require_supported(file) -> None:
-    """Raise unless ``file`` is a ``.rawv`` or an ``.avi`` path: the port reads
-    and writes exact ``.rawv`` and MJPEG ``.avi`` and no other container
-    (``.mp4`` needs an inter-frame encoder the port has not, ``.y4m`` is lossy
-    4:2:0)."""
-    suffix = Path(file).suffix
-    if suffix not in SUPPORTED:
-        raise ValueError(f"{file}: vfp_tpu_torch reads and writes .rawv and MJPEG .avi files "
-                         f"only, not {suffix or 'a file without a suffix'}; convert other "
-                         "containers with vfp_tpu.io")
+    """Raise ``ValueError`` unless the port reads ``file``'s container:
+    ``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s`` or ``.y4m``."""
+    _refuse(file, READ, "reads")
 
 
-def require_rawv(file) -> None:
-    """Raise unless ``file`` is a ``.rawv`` path: the service takes exact
-    uploads and leaks only."""
-    if Path(file).suffix != ".rawv":
-        raise ValueError(f"{file}: the service takes .rawv files only (exact uint8 RGB); "
-                         "convert other containers with vfp_tpu.io")
+def require_writable(file) -> None:
+    """Raise ``ValueError`` unless the port writes ``file``'s container:
+    ``.rawv``, MJPEG ``.avi`` or ``.y4m``.  ``.mp4`` is refused: the JAX
+    package writes it with cv2's mp4v encoder, which the port has not (its
+    ``.mp4`` files are remuxes, ``io/mp4.py``)."""
+    _refuse(file, WRITE, "writes frames to")
 
 
 def open_reader(file) -> FrameReader:
-    """Pick a reader: ``.rawv`` (the native read-ahead reader where g++ can
-    build it, else the pure-Python one) or MJPEG ``.avi``."""
+    """Pick a reader by suffix: ``.rawv`` (the native read-ahead reader where
+    g++ can build it, else the pure-Python one), MJPEG ``.avi``,
+    MJPEG-in-MP4 ``.mp4``/``.m4s``, or ``.y4m``."""
     require_supported(file)
-    if str(file).endswith(".avi"):
+    suffix = Path(file).suffix
+    if suffix == ".avi":
         return MjpegAviReader(file)
+    if suffix in (".mp4", ".m4s"):
+        return Mp4MjpegReader(file)
+    if suffix == ".y4m":
+        from .y4m import Y4MReader
+
+        return Y4MReader(file)
     from ..native import NativeRawVideoReader, have_native
 
     if have_native():

@@ -1,5 +1,8 @@
 """Frame writers: batched sinks of uint8 RGB frames (copied from
-``vfp_tpu/io/writers.py``): exact ``.rawv`` and MJPEG ``.avi``.
+``vfp_tpu/io/writers.py``): exact ``.rawv``, MJPEG ``.avi`` and ``.y4m``
+(``io/y4m.py``).  There is no frame writer for ``.mp4``: the JAX package's
+is cv2's mp4v encoder; the port's ``.mp4`` files are box-level remuxes of
+MJPEG ``.avi`` samples and audio (``io/mp4.py``).
 
 ``MjpegAviWriter`` is the JAX package's self-contained AVI muxer; its
 frames are encoded by the native library's JPEG codec (``native/jpeg.py``),
@@ -10,10 +13,11 @@ equal byte for byte.
 from __future__ import annotations
 
 import struct
+from pathlib import Path
 
 import numpy as np
 
-from .readers import RAWV_MAGIC, require_supported
+from .readers import RAWV_MAGIC, require_writable
 
 
 class FrameWriter:
@@ -164,10 +168,16 @@ class RawVideoWriter(FrameWriter):
 
 def open_writer(file, width: int, height: int, fps: float = 30.0, quality: int = 95) -> FrameWriter:
     """Pick a writer: ``.rawv`` exact (the native write-behind writer where g++
-    can build it, else the pure-Python one), ``.avi`` MJPEG at ``quality``."""
-    require_supported(file)
-    if str(file).endswith(".avi"):
+    can build it, else the pure-Python one), ``.avi`` MJPEG at ``quality``,
+    ``.y4m`` 4:2:0; any other suffix (``.mp4`` among them) raises ValueError."""
+    require_writable(file)
+    suffix = Path(file).suffix
+    if suffix == ".avi":
         return MjpegAviWriter(file, width, height, fps, quality)
+    if suffix == ".y4m":
+        from .y4m import Y4MWriter
+
+        return Y4MWriter(file, width, height, fps)
     from ..native import NativeRawVideoWriter, have_native
 
     if have_native():

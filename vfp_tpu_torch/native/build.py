@@ -40,6 +40,7 @@ SIGNATURES = {
     "vfpjpeg_decode_header": (_I, [ctypes.c_char_p, _L, ctypes.POINTER(_I), ctypes.POINTER(_I),
                                    ctypes.c_char_p, _I]),
     "vfpjpeg_decode": (_I, [ctypes.c_char_p, _L, _P, _I, _I, ctypes.c_char_p, _I]),
+    "vfpjpeg_decode_gray": (_I, [ctypes.c_char_p, _L, _P, _I, _I, ctypes.c_char_p, _I]),
 }
 
 _lock = threading.Lock()

@@ -34,6 +34,11 @@
 //   int  vfpjpeg_decode(const unsigned char* data, long len, unsigned char* rgb,
 //                       int width, int height, char* err, int errlen)
 //        -> 0, or 1 with a message in err
+//   int  vfpjpeg_decode_gray(const unsigned char* data, long len, unsigned char* gray,
+//                            int width, int height, char* err, int errlen)
+//        -> the same, writing the Y component alone ([H, W]): what libjpeg gives
+//           for JCS_GRAYSCALE output of a YCbCr file (jdcolor.c grayscale_convert),
+//           as cv2.imread(..., IMREAD_GRAYSCALE) reads a JPEG
 
 #include <cstdint>
 #include <cstdio>
@@ -1109,6 +1114,19 @@ struct Decoder {
     }
 
     void decode(uint8_t* rgb) {
+        decode_planes();
+        convert(rgb);
+    }
+
+    // the Y plane, cropped to the image: libjpeg's grayscale output of a YCbCr file
+    void decode_gray(uint8_t* gray) {
+        decode_planes();
+        for (int y = 0; y < height; y++)
+            std::memcpy(gray + (size_t)y * width,
+                        comp[0].plane.data() + (size_t)y * comp[0].stride, (size_t)width);
+    }
+
+    void decode_planes() {
         const int hmax = comp[0].h, vmax = comp[0].v;  // Y carries the largest factors
         const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
         const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
@@ -1164,7 +1182,6 @@ struct Decoder {
                 }
             }
         }
-        convert(rgb);
     }
 
     void process_restart(BitReader& br, int& next_rst) {
@@ -1281,6 +1298,25 @@ int vfpjpeg_decode(const unsigned char* data, long len, unsigned char* rgb, int 
             fail(buf);
         }
         d.decode(rgb);
+        return 0;
+    } catch (const std::exception& e) {
+        set_error(err, errlen, e.what());
+        return 1;
+    }
+}
+
+int vfpjpeg_decode_gray(const unsigned char* data, long len, unsigned char* gray, int width,
+                        int height, char* err, int errlen) {
+    try {
+        Decoder d(data, len);
+        d.read_header();
+        if (d.width != width || d.height != height) {
+            char buf[128];
+            std::snprintf(buf, sizeof(buf), "JPEG is %dx%d, expected %dx%d", d.width, d.height,
+                          width, height);
+            fail(buf);
+        }
+        d.decode_gray(gray);
         return 0;
     } catch (const std::exception& e) {
         set_error(err, errlen, e.what());

@@ -109,6 +109,19 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return decode_jpeg_into(data, np.empty((h, w, 3), np.uint8))
 
 
+def decode_jpeg_gray(data: bytes) -> np.ndarray:
+    """A three-component JPEG -> its [H, W] uint8 Y component, as
+    ``cv2.imdecode(..., IMREAD_GRAYSCALE)`` gives it (libjpeg's grayscale
+    output copies Y and converts no colour)."""
+    lib = load_vfpio()
+    w, h = jpeg_size(data)
+    out = np.empty((h, w), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.vfpjpeg_decode_gray(data, len(data), out.ctypes.data, w, h, err, _ERR_LEN):
+        raise IOError(err.value.decode(errors="replace"))
+    return out
+
+
 def encode_jpegs(frames: np.ndarray, quality: int = 95) -> list[bytes]:
     """Each frame of a [B, H, W, 3] batch -> its JPEG, in order."""
     return _map(lambda f: encode_jpeg(f, quality), list(frames))

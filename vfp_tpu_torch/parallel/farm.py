@@ -7,15 +7,18 @@ model is a work queue, not collectives:
 
 * one host: ``mark_segments_parallel`` spawns worker processes, each taking
   a contiguous slice of the segments (each keeps the one-decode-for-all-
-  copies property).  Workers run on the card by default: CUDA processes
-  share a card, each with its own context.
+  copies property).  Workers run on the cards by default: worker r on
+  ``local_device("cuda", r)``, so a host's cards share the work (one card
+  is shared by all, each process with its own context).
 * many hosts: ``mark_segments_distributed``, rank sharding over a
   ``torch.distributed`` gloo group and a shared filesystem.  Each process
   marks its contiguous slice on its card, writes a per-rank manifest shard,
   and rank 0 merges after a barrier.  (Running one ``cli hls-mark --resume``
   per host works too: per-segment outputs are idempotent.)
 
-Segments are ``.rawv``, as ``fingerprint.marker.mark_segments`` writes them.
+Segments are ``.rawv`` or MJPEG ``.avi`` with their audio sidecars, as
+``fingerprint.segmenter.segment_video`` writes them; variants and their
+sidecar copies are the serial ``mark_segments``' files.
 """
 
 from __future__ import annotations
@@ -37,6 +40,16 @@ from .mesh import local_device
 def _slice(n_items: int, n_workers: int, rank: int):
     per = -(-n_items // n_workers)
     return rank * per, min((rank + 1) * per, n_items)
+
+
+def worker_placement(device, rank: int) -> torch.device:
+    """The device of farm worker ``rank``: ``device`` itself, unless it is
+    ``cuda`` with no index, which puts the worker on its own card
+    (``local_device("cuda", rank)``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return local_device("cuda", rank)
+    return device
 
 
 def _worker(args):
@@ -77,8 +90,10 @@ def mark_segments_parallel(
 
     Returns (marked, segment_payloads, segment_copies) with the same shapes
     as ``fingerprint.marker.mark_segments``.  Workers are spawned (a fork
-    after CUDA initialisation fails) and mark on ``worker_device``, the card
-    unless the caller asks for the CPU; for a CUDA farm this process builds
+    after CUDA initialisation fails) and mark on ``worker_device``, the cards
+    unless the caller asks for the CPU: ``cuda`` without an index puts worker
+    r on ``local_device("cuda", r)`` (``cuda:{r % device_count()}``), as the
+    distributed farm places its ranks.  For a CUDA farm this process builds
     and loads the kernel library first, so no two workers compile it.  When
     ``stats`` is a dict it gets ``wall_seconds``, ``launches`` (the workers'
     kernel launch counts, summed) and ``workers`` (each worker's
@@ -86,7 +101,6 @@ def mark_segments_parallel(
     from ..fingerprint.marker import MarkedSegment
 
     t0 = time.perf_counter()
-    worker_device = str(worker_device)
     if torch.device(worker_device).type == "cuda":
         from ..kernels import _build
 
@@ -100,7 +114,7 @@ def mark_segments_parallel(
         if lo >= hi:
             continue
         tasks.append((segments[lo:hi], str(marked_dir), copies, key, batch_size, quality, lo,
-                      worker_device))
+                      str(worker_placement(worker_device, rank))))
     marked: list = []
     payloads: dict = {}
     seg_entries: dict = {}
@@ -225,9 +239,7 @@ def mark_segments_distributed(
     try:
         rank = dist.get_rank() if dist.is_initialized() else 0
         world = dist.get_world_size() if dist.is_initialized() else 1
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = local_device("cuda", rank)
+        device = worker_placement(device, rank)
         segments = [str(s) for s in segments]
         marked_dir = Path(marked_dir)
         marked_dir.mkdir(parents=True, exist_ok=True)

@@ -5,12 +5,14 @@ content types).
 Endpoints:
     GET  /                 -> upload page
     GET  /upload           -> upload page
-    POST /upload           -> process a video (multipart 'file', a .rawv)
+    POST /upload           -> process a video (multipart 'file': .rawv, MJPEG
+                              .avi/.mp4/.m4s or .y4m)
     POST /start-view       -> JSON {username, num_copies?} -> view session
     GET  /view             -> player page
     GET  /view/{view_id}   -> per-view m3u8
     GET  /hls/{filename}   -> segment/playlist files (CORS + no-cache)
-    GET  /download-view/{view_id} -> the view's spliced .rawv
+    GET  /download-view/{view_id} -> the view's spliced video (.mp4 with the
+                              upload's audio, or the variants' own container)
     POST /detect           -> multipart leaked segment -> matching usernames
     GET  /view-history     -> JSON
 

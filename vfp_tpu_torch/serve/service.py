@@ -7,9 +7,14 @@ playlist assembly (the view number in base ``num_copies``), persisted in
 usernames.  Serving a view does no media computation: it is playlist text
 over the pre-marked variants.  Marking and detection run on ``device``
 (default ``"cuda"``, raising without a GPU); the JSON files and response
-fields are the JAX service's.  Uploads, segments, variants, leaks and
-downloads are ``.rawv`` files: any other upload is refused with an
-``OSError``, before the served state is touched.
+fields are the JAX service's.  Uploads and leaks may come in any container
+the port reads (``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s``,
+``.y4m``); one it cannot read (another suffix, a corrupt file, an MP4 whose
+video is not JPEG, one cut short part way) is refused with an ``OSError``
+before the served state is touched.  Segments follow ``segment_video``
+(``.rawv`` for a ``.rawv`` upload, MJPEG ``.avi`` otherwise, with the
+upload's audio in sidecars), and a download is an ``.mp4`` that carries the
+audio when every segment has it.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ from ..fingerprint.hls import _media_playlist, write_hls_playlists
 from ..fingerprint.leak import concatenate_segments
 from ..fingerprint.marker import MarkedSegment, _read_all
 from ..fingerprint.payloads import payload_for_segment
-from ..io.readers import RAWV_MAGIC, require_rawv
+from ..io import open_reader
+from ..io.mp4 import audio_sidecar
+from ..io.readers import RAWV_MAGIC, require_supported
 from ..pipeline import cached_bit_extractor
 from ..utils.device import resolve_device
 from ..wm import DwtDctSvd
@@ -40,21 +47,34 @@ logger = logging.getLogger(__name__)
 
 
 def _check_upload(path) -> None:
-    """Raise ``OSError`` unless ``path`` is a ``.rawv`` file of one or more
-    whole frames: an upload the service cannot read is the client's error."""
+    """Raise ``OSError`` unless the port reads ``path``: an upload the service
+    cannot read is the client's error.  A ``.rawv`` must hold one or more
+    whole frames after its header; any other container's first frame must
+    decode."""
     path = Path(path)
     try:
-        require_rawv(path)
+        require_supported(path)
     except ValueError as e:
         raise IOError(str(e)) from e
-    with open(path, "rb") as f:
-        head = f.read(24)
-    if len(head) < 24 or head[:8] != RAWV_MAGIC:
-        raise IOError(f"not a VFP raw video file: {path.name}")
-    w, h = struct.unpack("<II", head[8:16])
-    body = path.stat().st_size - 24
-    if w * h == 0 or body <= 0 or body % (w * h * 3):
-        raise IOError(f"{path.name}: no whole {w}x{h} frames after the header")
+    if path.suffix == ".rawv":
+        with open(path, "rb") as f:
+            head = f.read(24)
+        if len(head) < 24 or head[:8] != RAWV_MAGIC:
+            raise IOError(f"not a VFP raw video file: {path.name}")
+        w, h = struct.unpack("<II", head[8:16])
+        body = path.stat().st_size - 24
+        if w * h == 0 or body <= 0 or body % (w * h * 3):
+            raise IOError(f"{path.name}: no whole {w}x{h} frames after the header")
+        return
+    try:
+        reader = open_reader(path)
+    except (ValueError, struct.error) as e:  # a header the reader cannot parse
+        raise IOError(f"{path.name}: {e}") from e
+    try:
+        if reader.read_batch(1) is None:
+            raise IOError(f"{path.name}: no frames")
+    finally:
+        reader.close()
 
 
 class VfpService:
@@ -99,15 +119,27 @@ class VfpService:
         """Segment + mark num_copies variants per segment + build the HLS dir.
 
         Returns a summary dict; writes segment_mapping.json in the API
-        flavour ('successful_segments').  The upload is checked BEFORE the
-        previous video's state is wiped: a bad upload must not take down the
-        served HLS."""
+        flavour ('successful_segments').  The upload is checked and segmented
+        into a staging directory BEFORE the previous video's state is wiped: a
+        bad upload, one that is cut short or corrupt part way too, must not
+        take down the served HLS."""
         _check_upload(video_path)
+        staging = self.data_dir / "segments.incoming"
+        if staging.exists():
+            shutil.rmtree(staging)
+        try:
+            staged = segment_video(video_path, staging, self.segment_duration)
+        except (OSError, ValueError, struct.error) as e:
+            shutil.rmtree(staging, ignore_errors=True)
+            if isinstance(e, OSError):
+                raise
+            raise IOError(f"{Path(video_path).name}: {e}") from e
         for d in ("segments", "marked_segments"):
             p = self.data_dir / d
             if p.exists():
                 shutil.rmtree(p)
-        segments = segment_video(video_path, self.data_dir / "segments", self.segment_duration)
+        staging.rename(self.data_dir / "segments")
+        segments = [self.data_dir / "segments" / p.name for p in staged]
         marked, payloads, copies, failed = self._mark_with_fallback(segments)
         master, playlist, seg_map, variants = write_hls_playlists(
             marked, self.hls_dir, copies=self.num_copies,
@@ -255,10 +287,15 @@ class VfpService:
         return self._load_history()
 
     def download_view(self, view_id: str) -> Path:
-        """The view's variant sequence spliced into one ``.rawv`` file."""
+        """The view's variant sequence spliced into one file: an ``.mp4`` of
+        ``.m4s`` variants, or of MJPEG ``.avi`` ones that all have their audio
+        sidecar (the audio muxed back), else the variants' own container."""
         view = self._load_history()[view_id]
         files = [self.hls_dir / n for n in self._view_files(view, self._load_mapping())]
-        out = self.data_dir / f"view_{view_id}.rawv"
+        ext = files[0].suffix if files and files[0].suffix in (".avi", ".rawv") else ".mp4"
+        if ext == ".avi" and all(audio_sidecar(f).exists() for f in files):
+            ext = ".mp4"
+        out = self.data_dir / f"view_{view_id}{ext}"
         concatenate_segments(files, out)
         return out
 
@@ -271,10 +308,9 @@ class VfpService:
         if not history:
             return {"error": "No view history found"}
         try:
-            require_rawv(leaked_path)
-        except ValueError as e:
+            frames, _ = _read_all(leaked_path)
+        except (ValueError, struct.error) as e:  # another suffix, a header cut short
             raise IOError(str(e)) from e
-        frames, _ = _read_all(leaked_path)
         fx = cached_bit_extractor(self.codec, self.key, 8, 16, device=self.device)
         handles = [fx.submit(frames[s: s + 16]) for s in range(0, len(frames), 16)]
         payloads = np.concatenate([fx.collect(h) for h in handles])

@@ -45,9 +45,12 @@ def payload_for_segment_8bit(segment_number: int) -> np.ndarray:
 
 def _check_container(container) -> None:
     if container == "mp4":
-        raise ValueError("--container mp4: vfp_tpu_torch has no mp4v encoder (cv2's mp4v is "
-                         "an inter-frame MPEG-4 Part 2 codec with no counterpart on the GPU "
-                         "machine); the lossy channel is MJPEG .avi (--container avi)")
+        raise ValueError("--container mp4: vfp_tpu_torch has no mp4v encoder and no mp4v "
+                         "decoder. The JAX package's mp4 channel is cv2's mp4v encoder, an "
+                         "inter-frame MPEG-4 Part 2 codec (motion search, P-frames, its own "
+                         "rate control) read back through cv2's FFmpeg backend; the GPU "
+                         "machine has neither cv2 nor ffmpeg, and the port reads only MJPEG "
+                         "MP4 video. The lossy channel is MJPEG .avi (--container avi)")
     if container not in (None, "avi"):
         raise ValueError(f"unknown container {container!r}: avi or mp4")
 
