@@ -79,7 +79,15 @@ Phases, each printing its lines:
    ``mark`` -> ``detect`` of a 16-frame 1080p ``.y4m`` into a ``.y4m`` (the
    payload recovered, as the JAX CLI recovers it); the wall split into JPEG
    encode and decode, box mux, ``mark_segments``, trace and the card's batch
-   calls; then ``parallel``: the sharded steps of ``parallel/sharded.py``
+   calls; then ``ffmpeg``: the ffmpeg route with ``tests/ffmpeg_shim`` first
+   on PATH (a fake ``ffmpeg``/``ffprobe`` over VFPRAWV1 bytes; no H.264),
+   ``hls-mark --copies 3`` of the hls phase's source into 3 ``.mp4``
+   segments, 9 ``.mp4`` variants (frames byte-equal to the hls phase's
+   ``.rawv`` variants) and 9 ``.m4s``, ``leak`` -> ``leaked_video.mp4`` ->
+   ``trace`` of 201 with the manifests (the hls phase's launches for the
+   same commands), and ``mark`` of a 48-frame 1080p ``.rawv`` into an
+   ``.mp4`` -> ``detect`` (48/48); ``have_ffmpeg`` False again after it;
+   then ``parallel``: the sharded steps of ``parallel/sharded.py``
    on a world-1 NCCL mesh (the mark step with 3 variants of each codec equal
    to three bare ``mark_frames``, the detect step's votes [0, 16, 0] through
    an NCCL ``all_reduce``, the spatial step at W = 1920 equal to the
@@ -2177,6 +2185,186 @@ def run_media_path(device, cfg, workdir: Path, frames_rawv: Path) -> dict:
     return counts
 
 
+FFMPEG_SHIM = "ffmpeg: shim (tests/ffmpeg_shim, VFPRAWV1 bytes under .mp4/.m4s names; no H.264)"
+
+
+def _same_frames(a: Path, b: Path) -> bool:
+    """Whether two VFPRAWV1 files hold the same frame bytes (after their
+    24-byte headers), compared through memory maps."""
+    x, y = (np.memmap(p, np.uint8, "r", offset=24) for p in (a, b))
+    return x.shape == y.shape and bool(np.array_equal(x, y))
+
+
+def _first_frames(path: Path, k: int) -> np.ndarray:
+    from vfp_tpu_torch.io import RawVideoReader
+
+    r = RawVideoReader(path)
+    try:
+        return r.read_batch(k)
+    finally:
+        r.close()
+
+
+def run_ffmpeg_path(device, cfg, workdir: Path, hls_counts: dict) -> dict:
+    """The ffmpeg route (``io/ffmpeg.py``) through the CLI on the card, with
+    ``tests/ffmpeg_shim`` first on PATH: a fake ``ffmpeg``/``ffprobe`` pair
+    over the VFPRAWV1 container that copies frame bytes under ``.mp4`` and
+    ``.m4s`` names (no H.264; it exits 2 on any argv the real calls do not
+    use).  ``have_ffmpeg`` is cached and the CLI runs in this process, so the
+    cache is cleared when the shim goes onto PATH and again when PATH is
+    restored, and the phase ends by asserting that it is False again.  On the
+    hls phase's 180 1080p frames at 30 fps: ``hls-mark --copies 3`` -> 3
+    ``.mp4`` segments (ffmpeg's segmenter), 9 ``.mp4`` variants (the pipe
+    writer), 9 ``.m4s`` (ffmpeg's remux), each variant's frames byte-equal
+    to the hls phase's ``.rawv`` variant (the shim is lossless, so the marks
+    must be the same) and its first batch equal to the plain version; then
+    ``leak --pattern 201`` -> ``leaked_video.mp4`` (ffmpeg's concat) ->
+    ``trace`` with the manifests (``201``), whose launches must equal the
+    hls phase's for the same commands (its second, blind trace left out):
+    the route changes containers, not batches.  Then ``mark`` of a 48-frame 1080p
+    ``.rawv`` into an ``.mp4`` -> ``detect`` of the ``.mp4`` (48/48).
+    Prints the walls (segmenting, ``mark_segments``, m4s mux, leak, trace,
+    pipe reads and writes) with the card.  Returns the launch counts."""
+    import shutil
+
+    from vfp_tpu_torch import fingerprint, kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.fingerprint import hls as thls, payload_for_segment
+    from vfp_tpu_torch.io import ffmpeg
+    from vfp_tpu_torch.kernels.fused_embed import fused_mark_planar_reference
+    from vfp_tpu_torch.wm import DwtDctSvd, Shuffler, block_grid
+
+    h, w, b = cfg["h"], cfg["w"], cfg["b"]
+    n, copies, seg_frames = HLS["n"], HLS["copies"], HLS["seg_frames"]
+    segments = n // seg_frames
+    src = workdir / "hls" / "source.rawv"  # the hls phase's source and .rawv variants
+    ref = workdir / "hls" / "out" / "marked_segments"
+    root = workdir / "ffmpeg"
+    root.mkdir()
+    out = root / "out"
+    flags = ["--batch-size", str(b), "--device", str(device)]
+    shim = ROOT / "tests" / "ffmpeg_shim"
+    assert all(os.access(shim / name, os.X_OK) for name in ("ffmpeg", "ffprobe")), shim
+    path = os.environ["PATH"]
+    os.environ["PATH"] = f"{shim}{os.pathsep}{path}"
+    ffmpeg.have_ffmpeg.cache_clear()
+    print(FFMPEG_SHIM)
+    walls, clock, t_phase = {}, StageClock(), time.perf_counter()
+    try:
+        assert ffmpeg.have_ffmpeg(), "the shim is not on PATH"
+        with clock:
+            clock.patch(ffmpeg, "segment_video_ffmpeg", "segmenting")
+            clock.patch(fingerprint, "mark_segments", "mark_segments")
+            clock.patch(thls, "mux_variant_to_m4s", "m4s mux")
+            clock.patch(ffmpeg.FFmpegPipeReader, "read_batch", "pipe read")
+            for name in ("write_batch", "close"):
+                clock.patch(ffmpeg.FFmpegPipeWriter, name, "pipe write")
+            fresh_counts()
+            with NoPlainOnDevice():
+                t0 = time.perf_counter()
+                text = _cli_lines(cli, ["hls-mark", str(src), str(out), "--copies",
+                                        str(copies), *flags])
+                walls["hls-mark"] = time.perf_counter() - t0
+                mark_split = dict(clock.s)
+                assert f"created {segments} segments" in text, text
+                assert "All segments were watermarked successfully!" in text, text
+                names = sorted(p.name for p in (out / "segments").iterdir())
+                assert names == [f"segment_{i:03d}.mp4" for i in range(segments)], names
+                variants = [(i, c) for i in range(segments) for c in range(copies)]
+                names = sorted(p.name for p in (out / "marked_segments").iterdir())
+                assert names == sorted(f"marked_seg{i}_copy{c}.mp4" for i, c in variants), names
+                m4s = sorted((out / "hls").glob("*.m4s"))
+                assert len(m4s) == len(variants), m4s
+                assert (json.loads((out / "segment_payloads.json").read_text())
+                        == json.loads((ref.parent / "segment_payloads.json").read_text()))
+                for i, c in variants:  # the shim is lossless: the .rawv route's marks
+                    assert _same_frames(out / "marked_segments" / f"marked_seg{i}_copy{c}.mp4",
+                                        ref / f"marked_seg{i}_copy{c}.rawv"), \
+                        ("variant differs from the .rawv route's", i, c)
+                first_source = _first_frames(out / "segments" / "segment_000.mp4", b)
+                first_marked = _first_frames(out / "marked_segments" / "marked_seg0_copy1.mp4", b)
+                for p in (out / "segments", out / "hls"):  # the leak needs neither
+                    shutil.rmtree(p)
+                leaked = out / "leaked_video.mp4"
+                t0 = time.perf_counter()
+                text = _cli_lines(cli, ["leak", str(out / "segment_copies.json"), "--pattern",
+                                        "201", *flags[2:]])
+                walls["leak"] = time.perf_counter() - t0
+                assert f"leaked video: {leaked}" in text and "pattern: 201" in text, text
+                t0 = time.perf_counter()
+                text = _cli_lines(cli, ["trace", str(leaked), str(root / "det"), "--payload-file",
+                                        str(out / "segment_payloads.json"), "--max-copies",
+                                        str(copies), *flags[2:]])
+                walls["trace"] = time.perf_counter() - t0
+                assert "Copy fingerprint: 201" in text, text
+                assert "Success rate: 100.00%" in text, text
+                assert sorted(p.suffix for p in (root / "det" / "segments").iterdir()) == \
+                    [".mp4"] * segments
+            found = kernels.launch_counts()
+            # the hls phase's batches, less its second (blind) trace of n frames
+            want = dict(hls_counts)
+            want["fused_extract_planar"] -= -(-n // b)
+            assert_counts(found, want, "ffmpeg")
+            counts = collections.Counter(want)
+            hls_split = dict(clock.s)
+            clock.s.clear()
+
+            # mark a 48-frame 1080p .rawv into an .mp4 through the pipe, detect the .mp4
+            k = cfg["frames"]
+            mp4_in, mp4_out = root / "in.rawv", root / "out.mp4"
+            _write_rawv(mp4_in, np.random.RandomState(17), k, h, w)
+            fresh_counts()
+            with NoPlainOnDevice():
+                t0 = time.perf_counter()
+                text = _cli_lines(cli, ["mark", str(mp4_in), str(mp4_out), *flags])
+                assert f"marked {k} frames" in text, text
+                text = _cli_lines(cli, ["detect", str(mp4_out), "--payload", PAYLOAD, *flags])
+                walls["mark/detect .mp4"] = time.perf_counter() - t0
+            assert f"frames: {k} " in text, text
+            assert f"majority payload: {PAYLOAD} (frequency 1.00)" in text, text  # 48/48
+            mp4_found = kernels.launch_counts()
+            mp4_want = {"fused_mark_planar": -(-k // b), "fused_extract_planar": -(-k // b)}
+            assert_counts(mp4_found, mp4_want, "ffmpeg mark/detect .mp4")
+            counts.update(mp4_want)
+            mp4_split = dict(clock.s)
+    finally:
+        os.environ["PATH"] = path
+        ffmpeg.have_ffmpeg.cache_clear()
+    assert not ffmpeg.have_ffmpeg(), "ffmpeg still resolves after the phase"
+
+    codec = DwtDctSvd()
+    wm = Shuffler(key=0).generate_wm(payload_for_segment(0, 1), codec.wm_capacity((h, w, 3)))
+    (nbh, nbw), _ = block_grid((h, w))
+    wm2d = torch.as_tensor(np.asarray(wm, np.float32).reshape(-1)[: nbh * nbw].reshape(nbh, nbw),
+                           device=device)
+    x = torch.as_tensor(first_source, device=device).permute(0, 3, 1, 2)
+    want_px = fused_mark_planar_reference(x, wm2d, 15.0, 1).permute(0, 2, 3, 1).cpu().numpy()
+    same = float((want_px == first_marked).mean())
+    assert same >= 0.995, same
+    shutil.rmtree(root)
+    card = nvidia_smi_line()
+    print(f"ffmpeg: hls-mark {n} frames of {w}x{h} at {HLS['fps']} fps, {copies} copies "
+          f"through the shim: {walls['hls-mark']:.3f} s CLI wall; summed over threads: "
+          f"segmenting {mark_split['segmenting']:.3f} s, mark_segments "
+          f"{mark_split['mark_segments']:.3f} s, m4s mux {mark_split['m4s mux']:.3f} s, pipe "
+          f"read {mark_split['pipe read']:.3f} s, pipe write {mark_split['pipe write']:.3f} s; "
+          f"{segments} .mp4 segments, {len(variants)} .mp4 variants byte-equal in frames to "
+          f"the hls phase's .rawv variants, {len(variants)} .m4s; {same:.6f} of segment 0 "
+          f"copy 1's first batch equal to the plain version; card {card}")
+    print(f"ffmpeg: leak 201 {walls['leak']:.3f} s (ffmpeg concat -> leaked_video.mp4), trace "
+          f"with the manifests {walls['trace']:.3f} s (CLI walls, ffmpeg re-segmenting "
+          f"included); Copy fingerprint 201, 100% success; the whole workflow's pipe read "
+          f"{hls_split['pipe read']:.3f} s, pipe write {hls_split['pipe write']:.3f} s, "
+          f"segmenting {hls_split['segmenting']:.3f} s; launches {want} equal to the hls "
+          f"phase's hls-mark and trace 201; the phase {time.perf_counter() - t_phase:.1f} s; "
+          f"card {card}")
+    print(f"ffmpeg: mark {k} frames of {w}x{h} .rawv -> .mp4 (pipe writer) -> detect .mp4 "
+          f"(pipe reader): {walls['mark/detect .mp4']:.3f} s, payload {PAYLOAD} in {k}/{k} "
+          f"frames; pipe read {mp4_split['pipe read']:.3f} s, write "
+          f"{mp4_split['pipe write']:.3f} s; launches {mp4_want}; card {card}")
+    return counts
+
+
 def _median_ms(fn, reps: int = 5) -> float:
     """Host-clock ms of ``fn()`` ending in a synchronise, median of ``reps``
     after one warm-up call."""
@@ -3335,6 +3523,7 @@ def main(argv=None) -> int:
         counts.update(durability)
         counts.update(run_media_path(device, cfg, Path(tmp), smooth_180))
         smooth_180.unlink()
+        counts.update(run_ffmpeg_path(device, cfg, Path(tmp), hls_counts))
         counts.update(run_parallel_path(device, cfg, Path(tmp), hls_stats))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 

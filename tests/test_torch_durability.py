@@ -33,7 +33,7 @@ from vfp_tpu.wm import DctQim as JaxDctQim, DwtDctSvd as JaxDwtDctSvd
 from vfp_tpu.wm.dtcwt_codecs import DtcwtKey as JaxDtcwtKey
 from vfp_tpu.workflows import durability as jdur
 from vfp_tpu_torch.cli import main as port_cli
-from vfp_tpu_torch.io import RawVideoWriter
+from vfp_tpu_torch.io import RawVideoWriter, ffmpeg as tffmpeg
 from vfp_tpu_torch.wm import DctQim, DwtDctSvd
 from vfp_tpu_torch.workflows import durability as tdur
 
@@ -72,10 +72,17 @@ def source(tmp_path_factory):
     return path
 
 
+@pytest.fixture(autouse=True)
+def port_without_ffmpeg(monkeypatch):
+    """The port's no-ffmpeg route, whatever the host has on PATH."""
+    monkeypatch.setattr(tffmpeg, "have_ffmpeg", lambda: False)
+
+
 def _run_jax(codec, src, out, patched):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jffmpeg, "have_ffmpeg", lambda: False)
         mp.setattr(jsegmenter, "have_ffmpeg", lambda: False)
+        mp.setattr(tffmpeg, "have_ffmpeg", lambda: False)
         if patched:
             mp.setattr(jreaders, "Cv2Reader", ImdecodeReader)
         if codec == "dtcwtKey":
@@ -86,10 +93,12 @@ def _run_jax(codec, src, out, patched):
 
 
 def _run_port(codec, src, out):
-    if codec == "dtcwtKey":
-        return tdur.run_durability_corr(src, out, segment_duration=1.0, device="cpu")
-    tcodec = DctQim() if codec == "dct" else DwtDctSvd()
-    return tdur.run_durability(src, out, segment_duration=1.0, codec=tcodec, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tffmpeg, "have_ffmpeg", lambda: False)
+        if codec == "dtcwtKey":
+            return tdur.run_durability_corr(src, out, segment_duration=1.0, device="cpu")
+        tcodec = DctQim() if codec == "dct" else DwtDctSvd()
+        return tdur.run_durability(src, out, segment_duration=1.0, codec=tcodec, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -42,7 +42,7 @@ from vfp_tpu.io.avi import avi_meta, iter_video_chunks
 from vfp_tpu.serve import service as jservice
 from vfp_tpu_torch import fingerprint as tfp
 from vfp_tpu_torch.cli import main as port_cli
-from vfp_tpu_torch.io import MjpegAviWriter, RawVideoReader, Y4MWriter, mp4 as tmp4
+from vfp_tpu_torch.io import MjpegAviWriter, RawVideoReader, Y4MWriter, ffmpeg as tffmpeg, mp4 as tmp4
 from vfp_tpu_torch.io.images import read_image_gray, write_png
 from vfp_tpu_torch.native.jpeg import encode_jpeg
 from vfp_tpu_torch.parallel import mark_segments_distributed, mark_segments_parallel
@@ -97,6 +97,15 @@ class ImdecodeReader(jreaders.FrameReader):
 
     def close(self):
         self._chunks.close()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_without_ffmpeg():
+    """The port's no-ffmpeg route, whatever the host has on PATH, for the
+    module's fixtures too."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tffmpeg, "have_ffmpeg", lambda: False)
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -31,13 +31,20 @@ baseline JPEG's Y).  On ``--device cuda`` every codec marks and detects through
 its CUDA kernels.  The device defaults to ``cuda`` and is never changed
 silently: ``--device cuda`` without a GPU raises; pass ``--device cpu`` to
 run on the CPU.  ``--fast-dots`` is accepted and ignored: the port
-computes in float32.  Input is ``.rawv`` (exact), MJPEG ``.avi``,
-MJPEG-in-MP4 ``.mp4``/``.m4s`` or ``.y4m``; output is ``.rawv``, ``.avi`` or
-``.y4m`` (an ``.mp4`` whose video is not JPEG raises: the port has no
-mp4v/H.264 codec).  ``hls-mark`` segments a ``.rawv`` into ``.rawv`` and
-anything else into MJPEG ``.avi`` (the JAX CLI's choice without ffmpeg), with
-the source's audio in per-segment sidecars that ``leak`` muxes back into an
-``.mp4``.  ``durability`` runs the JAX CLI's lossy
+computes in float32.  Containers follow the host, as in the JAX CLI.  With
+an ``ffmpeg`` binary on PATH (the JAX package's route, ``io/ffmpeg.py``):
+input is ``.rawv``, ``.y4m`` or anything ffmpeg decodes (H.264 ``.mp4``
+among them, through an rgb24 pipe), output is ``.rawv``, ``.avi``, ``.y4m``
+or anything else through ffmpeg (``mark ... out.mp4``: H.264); ``hls-mark``
+segments with ffmpeg into ``.mp4``, marks ``.mp4`` variants and remuxes
+them to ``.m4s``, and ``leak`` splices an ``.mp4`` with ffmpeg's concat.
+Without one: input is ``.rawv`` (exact), MJPEG ``.avi``, MJPEG-in-MP4
+``.mp4``/``.m4s`` or ``.y4m``; output is ``.rawv``, ``.avi`` or ``.y4m`` (an
+``.mp4`` whose video is not JPEG raises: the port has no mp4v/H.264 codec of
+its own); ``hls-mark`` segments a ``.rawv`` into ``.rawv`` and anything else
+into MJPEG ``.avi`` (the JAX CLI's choice without ffmpeg), with the source's
+audio in per-segment sidecars that ``leak`` muxes back into an ``.mp4``.
+``durability`` runs the JAX CLI's lossy
 experiment through MJPEG ``.avi`` (JPEGs coded as cv2 codes them), prints its
 JSON report and exits 0 when it passes, 1 when not; ``--container mp4`` is
 refused (no mp4v encoder or decoder).  ``hls-mark`` also prints ``mark_segments``'
@@ -62,6 +69,12 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+
+
+READ_HELP = ("video to read: .rawv, .y4m, or, with an ffmpeg binary on PATH, anything it "
+             "decodes (H.264 .mp4 among them); without one, MJPEG .avi/.mp4/.m4s")
+WRITE_HELP = ("video to write: .rawv, .avi (MJPEG at --quality), .y4m, or, with an ffmpeg "
+              "binary on PATH, any other suffix through ffmpeg (.mp4: H.264)")
 
 
 def _payload_bits(s: str) -> np.ndarray:
@@ -474,7 +487,8 @@ def main(argv=None):
     fast_dots_help = "accepted for vfp_tpu.cli's sake and ignored: the port computes in float32"
 
     m = sub.add_parser("mark", help="embed a payload into every frame")
-    m.add_argument("input"), m.add_argument("output")
+    m.add_argument("input", help=READ_HELP)
+    m.add_argument("output", help=WRITE_HELP)
     m.add_argument("--codec", choices=codecs, default="dwtDctSvd")
     m.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     m.add_argument("--payload", default="01100101")
@@ -490,7 +504,7 @@ def main(argv=None):
     m.set_defaults(fn=cmd_mark)
 
     d = sub.add_parser("detect", help="extract per-frame payloads")
-    d.add_argument("input")
+    d.add_argument("input", help=READ_HELP)
     d.add_argument("--codec", choices=codecs, default="dwtDctSvd")
     d.add_argument("--fast-dots", action="store_true", help=fast_dots_help)
     d.add_argument("--payload-len", type=int, default=8)
@@ -522,11 +536,14 @@ def main(argv=None):
 
     h = sub.add_parser(
         "hls-mark", help="segment, mark N variants, build HLS",
-        description="Segment INPUT (.rawv segments for a .rawv, MJPEG .avi with audio "
-                    "sidecars otherwise), mark each in --copies variants on "
-                    "--device (in --workers processes, or one rank of --distributed), "
-                    "verify them and write the HLS playlists and manifests.")
-    h.add_argument("input"), h.add_argument("output_dir")
+        description="Segment INPUT (with ffmpeg on PATH: .mp4 segments, .mp4 variants and "
+                    ".m4s HLS fragments, all by ffmpeg; without: .rawv segments for a "
+                    ".rawv, MJPEG .avi with audio sidecars otherwise), mark each in "
+                    "--copies variants on --device (in --workers processes, or one rank "
+                    "of --distributed), verify them and write the HLS playlists and "
+                    "manifests.")
+    h.add_argument("input", help=READ_HELP)
+    h.add_argument("output_dir")
     h.add_argument("--copies", type=int, default=1)
     h.add_argument("--segment-duration", type=float, default=2.0)
     h.add_argument("--clean", action="store_true")
@@ -553,7 +570,10 @@ def main(argv=None):
 
     l = sub.add_parser("leak", help="splice a leaked copy from variants")
     l.add_argument("copies_file")
-    l.add_argument("--output-file", default=None)
+    l.add_argument("--output-file", default=None,
+                   help="default: leaked_video.mp4 beside COPIES_FILE (ffmpeg's concat) "
+                        "with ffmpeg on PATH; without it .mp4 when every variant has an "
+                        "audio sidecar, else the variants' own suffix")
     l.add_argument("--pattern", default=None)
     l.add_argument("--random-seed", type=int, default=None)
     l.add_argument("--segment-duration", type=float, default=2.0)
@@ -569,7 +589,8 @@ def main(argv=None):
     l.set_defaults(fn=cmd_leak)
 
     t = sub.add_parser("trace", help="recover the fingerprint from a leak")
-    t.add_argument("input"), t.add_argument("output_dir")
+    t.add_argument("input", help=READ_HELP)
+    t.add_argument("output_dir")
     t.add_argument("--payload-file", default=None)
     t.add_argument("--copies-file", default=None,
                    help="segment_copies.json; relocates a relative "

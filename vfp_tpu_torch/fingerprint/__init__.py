@@ -1,9 +1,12 @@
 """HLS per-segment fingerprinting (port of ``vfp_tpu/fingerprint``): mark N
 variants per segment, assemble a unique variant sequence per recipient,
-trace leaks back to the recipient.  Segments and variants are ``.rawv``
-files for a ``.rawv`` source and MJPEG ``.avi`` for any other, with the
-source's audio in per-segment sidecars; leaks are ``.mp4`` when the audio
-rides along.  Every entry point that touches the card takes ``device=``
+trace leaks back to the recipient.  Where an ``ffmpeg`` binary is on PATH
+the workflow takes the JAX package's ffmpeg route: ``.mp4`` segments and
+variants, ``.m4s`` HLS fragments and an ``.mp4`` leak, all made by ffmpeg.
+Without one, segments and variants are ``.rawv`` files for a ``.rawv``
+source and MJPEG ``.avi`` for any other, with the source's audio in
+per-segment sidecars, and leaks are ``.mp4`` when the audio rides along.
+Every entry point that touches the card takes ``device=``
 (default ``"cuda"``, raising without a GPU)."""
 
 from .payloads import payload_for_segment, decode_segment_copy, pattern_string  # noqa: F401

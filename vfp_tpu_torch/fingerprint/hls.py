@@ -3,19 +3,22 @@
 
 Per-recipient fingerprinting is pure playlist text assembly over
 already-marked variants: no media compute per view (reference:
-api/main.py:216-253).  An ``.mp4`` variant is fragmented at box level into
-a standalone fMP4 ``.m4s`` (the shape of the reference's ffmpeg
-``empty_moov+frag`` remux, api/main.py:113-124) with its audio sidecar muxed
-in; any other variant (``.rawv``, MJPEG ``.avi``) is copied into the HLS
-directory as it is, with its sidecar beside it, so downloads keep the audio.
-No ffmpeg.
+api/main.py:216-253).  Where an ``ffmpeg`` binary is on PATH, every variant
+is remuxed by ffmpeg into a standalone fMP4 ``.m4s`` exactly like the
+reference (``mux_variant_to_m4s``, api/main.py:113-124).  Without one, an
+``.mp4`` variant is fragmented at box level into an ``.m4s`` of the same
+``empty_moov+frag`` shape with its audio sidecar muxed in, and any other
+variant (``.rawv``, MJPEG ``.avi``) is copied into the HLS directory as it
+is, with its sidecar beside it, so downloads keep the audio.
 """
 
 from __future__ import annotations
 
 import shutil
+import subprocess
 from pathlib import Path
 
+from ..io import ffmpeg
 from ..io.mp4 import audio_sidecar, fragment_mp4, read_mp4
 
 
@@ -74,6 +77,20 @@ def view_playlist(
     return _media_playlist(entries, segment_duration, init_uri), pattern
 
 
+def mux_variant_to_m4s(marked_file, out_file):
+    """Remux one marked variant into a standalone fMP4 fragment (reference:
+    api/main.py:113-124). Requires ffmpeg."""
+    subprocess.run(
+        [
+            "ffmpeg", "-loglevel", "quiet", "-y", "-i", str(marked_file),
+            "-c:v", "copy", "-c:a", "copy",
+            "-movflags", "+frag_keyframe+empty_moov+default_base_moof",
+            "-f", "mp4", str(out_file),
+        ],
+        check=True,
+    )
+
+
 def write_hls_playlists(marked, hls_dir, copies: int, segment_duration: float = 2.0):
     """Populate hls_dir with per-variant media + base/master playlists.
 
@@ -89,7 +106,10 @@ def write_hls_playlists(marked, hls_dir, copies: int, segment_duration: float = 
     for m in marked:
         src = Path(m.file)
         sidecar = audio_sidecar(src)
-        if src.suffix == ".mp4":
+        if ffmpeg.have_ffmpeg():
+            name = f"marked_seg{m.segment_number:03d}_copy{m.copy_index}.m4s"
+            mux_variant_to_m4s(src, hls_dir / name)
+        elif src.suffix == ".mp4":
             # box-level fragmenting to a standalone fMP4, zero re-encode; the
             # sidecar's audio (if the segmenter made one) muxes into the .m4s
             name = f"marked_seg{m.segment_number:03d}_copy{m.copy_index}.m4s"

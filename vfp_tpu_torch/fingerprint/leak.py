@@ -3,16 +3,18 @@
 
 (reference: tests/generate_leak.py:59-141,426-461)
 
-Splices are stream copies where the containers allow, as in the JAX module
-without ffmpeg: ``.mp4``/``.m4s`` variants into an ``.mp4`` by box-level
-concat, MJPEG ``.avi`` variants into an ``.mp4`` by remuxing their JPEG
-chunks as ``jpeg`` samples with their audio sidecars muxed back
+Splices are stream copies where the containers allow.  Where an ``ffmpeg``
+binary is on PATH, an ``.mp4`` leak is ffmpeg's concat-demuxer stream copy
+(``io/ffmpeg.py:concat_mp4_ffmpeg``) and the default leak is
+``leaked_video.mp4``, as in the JAX module.  Without one, as in the JAX
+module without ffmpeg: ``.mp4``/``.m4s`` variants into an ``.mp4`` by
+box-level concat, MJPEG ``.avi`` variants into an ``.mp4`` by remuxing
+their JPEG chunks as ``jpeg`` samples with their audio sidecars muxed back
 (``io/mp4.py``), MJPEG ``.avi`` into an ``.avi`` by chunk copy
 (``io/avi.py``); anything else is frame-level, through the reader/writer
-stack.  The leak is ``leaked_video.mp4`` when every chosen variant has an
-audio sidecar, else ``leaked_video`` with the variants' own suffix
-(``.rawv`` for ``.rawv`` variants).  The JAX module's ffmpeg concat is not
-ported.
+stack.  The leak is then ``leaked_video.mp4`` when every chosen variant has
+an audio sidecar, else ``leaked_video`` with the variants' own suffix
+(``.rawv`` for ``.rawv`` variants).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import random
 import re
 from pathlib import Path
 
-from ..io import open_reader, open_writer
+from ..io import ffmpeg, open_reader, open_writer
 from ..io.mp4 import audio_sidecar, concat_mp4, read_mp4, track_from_mjpeg_avi, write_mp4
 from .hls import _media_playlist
 
@@ -75,7 +77,8 @@ def _mux_avis_to_mp4(segment_files, output_file):
 
 def concatenate_segments(segment_files, output_file):
     """Splice segments into one file, stream-copy first (the reference's
-    ``-c copy``, tests/generate_leak.py:126-136): box-level concat of
+    ``-c copy``, tests/generate_leak.py:126-136): ffmpeg's concat into an
+    ``.mp4`` where the binary is on PATH; without it, box-level concat of
     ``.mp4``/``.m4s`` segments into an ``.mp4``, JPEG-chunk remux of MJPEG
     ``.avi`` segments (and their sidecar audio) into an ``.mp4``, chunk copy
     of MJPEG ``.avi`` segments into an ``.avi``.  An ``.mp4`` output is made
@@ -83,6 +86,9 @@ def concatenate_segments(segment_files, output_file):
     spliced frame by frame through the reader/writer stack (one generation,
     like a screen-recorder leak)."""
     if str(output_file).endswith(".mp4"):
+        if ffmpeg.have_ffmpeg():
+            ffmpeg.concat_mp4_ffmpeg(segment_files, output_file)
+            return output_file
         # .m4s variants (the fMP4 shape write_hls_playlists emits) parse
         # through the same box-level path, so download_view splices never
         # drop muxed audio
@@ -180,9 +186,10 @@ def generate_leak(
     marked_dir = Path(marked_dir) if marked_dir else base / "marked_segments"
     files, copy_pattern = select_copies(info, marked_dir, pattern, random_seed)
     if output_file is None:
-        # .mp4 carries the audio sidecars back in; otherwise keep the
-        # variants' own container for the chunk-level splice
-        ext = (".mp4" if files and all(audio_sidecar(f).exists() for f in files)
+        # with ffmpeg: its concat; else .mp4 carries the audio sidecars back
+        # in, or the variants' own container keeps the chunk-level splice
+        ext = (".mp4" if ffmpeg.have_ffmpeg()
+               or (files and all(audio_sidecar(f).exists() for f in files))
                else Path(files[0]).suffix)
         output_file = base / f"leaked_video{ext}"
     concatenate_segments(files, output_file)

@@ -9,11 +9,14 @@ upload, marks and downloads on the card and returns, and a writer thread
 collects each handle and writes the variants, so the card works on later
 batches (across segment boundaries) while earlier ones are written.
 
-Variants are ``marked_segN_copyC.rawv`` for ``.rawv`` segments and MJPEG
-``.avi`` for any other (the JAX module's choice without ffmpeg), and each
-shares its segment's audio sidecar (``segment_NNN.audio.mp4`` ->
-``marked_segN_copyC.audio.mp4``).  ``_read_all`` reads every container the
-port reads.  The JAX module's low-link packers are not ported.
+Variants are ``marked_segN_copyC.mp4`` through the ffmpeg pipe writer where
+an ``ffmpeg`` binary is on PATH (the JAX module's choice); without one,
+``.rawv`` for ``.rawv`` segments and MJPEG ``.avi`` for any other.  Each
+shares its segment's audio sidecar where the segment has one
+(``segment_NNN.audio.mp4`` -> ``marked_segN_copyC.audio.mp4``; the ffmpeg
+route's segments carry their audio and have none).  ``_read_all`` reads
+every container the port reads.  The JAX module's low-link packers are not
+ported.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..io import open_reader, open_writer
+from ..io import ffmpeg, open_reader, open_writer
 from ..io.mp4 import audio_sidecar
 from ..io.readers import RAWV_MAGIC, require_supported
 from ..pipeline import MultiMarker, cached_bit_extractor
@@ -56,7 +59,8 @@ def _read_all(file):
 
     A ``.rawv`` segment is one np.fromfile: a reader's per-open cost
     dominates on the few-frame segments HLS produces.  Any other container
-    (MJPEG ``.avi``, ``.mp4``/``.m4s``, ``.y4m``) goes through its reader.
+    goes through ``open_reader`` (the ffmpeg pipe where the binary is on
+    PATH, else the MJPEG ``.avi``, ``.mp4``/``.m4s`` or ``.y4m`` reader).
     A corrupt file (truncated header, zero dims, no whole frame, bad JPEG
     data, an MP4 whose video is not JPEG) raises IOError, which the
     pipelined verify/trace callers take as (None, 0.0) for that file."""
@@ -106,9 +110,10 @@ def mark_segments(
 ):
     """Mark every segment in ``copies`` variants on ``device``.
 
-    Variants are written as ``out_ext`` files; by default ``.rawv`` for a
-    ``.rawv`` segment and MJPEG ``.avi`` at ``quality`` for any other.  A
-    segment's audio sidecar is copied beside each of its variants.
+    Variants are written as ``out_ext`` files; by default ``.mp4`` where an
+    ``ffmpeg`` binary is on PATH, else ``.rawv`` for a ``.rawv`` segment and
+    MJPEG ``.avi`` at ``quality`` for any other.  A segment's audio sidecar,
+    where it has one, is copied beside each of its variants.
 
     Returns (marked: list[MarkedSegment], segment_payloads, segment_copies):
     the dicts use the reference's JSON manifest schemas
@@ -128,6 +133,8 @@ def mark_segments(
     codec = codec or DwtDctSvd()
     marked_dir = Path(marked_dir)
     marked_dir.mkdir(parents=True, exist_ok=True)
+    if out_ext is None and ffmpeg.have_ffmpeg():
+        out_ext = ".mp4"
 
     def out_file(seg_idx, seg_file, c):
         ext = out_ext or (".rawv" if Path(seg_file).suffix == ".rawv" else ".avi")

@@ -1,39 +1,61 @@
 """Video segmentation on a fixed-duration grid (port of
-``vfp_tpu/fingerprint/segmenter.py``, its frame-exact branch).
+``vfp_tpu/fingerprint/segmenter.py``).
 
-Every segment gets exactly round(duration * fps) frames, chunked through the
-reader/writer stack, so a leak re-segments onto the marking grid exactly.
-A ``.rawv`` source gives ``segment_NNN.rawv`` segments (exact uint8 RGB);
-any other source takes the JAX package's no-ffmpeg route, ``segment_NNN.avi``
-in MJPEG at ``quality``, and ``container`` forces either.  The source's
-audio track, where it has one (an ``.mp4``), is stream-copied into
-per-segment sidecars, ``segment_NNN.audio.mp4`` (``io/mp4.py``), which
-marking, HLS, leak and download carry along.  No ffmpeg branch.
+Where an ``ffmpeg`` binary is on PATH, the JAX module's first route: ffmpeg
+re-encodes every source (``.rawv`` among them) into ``segment_NNN.mp4``
+with forced keyframes at the boundaries (reference:
+tests/mark_video_to_hls.py:45-71) and muxes the source's audio into them
+(``-c:a aac -map 0``), so no sidecars are written.  Otherwise, or where the
+caller passes ``use_ffmpeg=False``, the frame-exact route: every segment
+gets exactly round(duration * fps) frames, chunked through the reader/writer
+stack, so a leak re-segments onto the marking grid exactly.  A ``.rawv``
+source gives ``segment_NNN.rawv`` segments (exact uint8 RGB); any other
+source gives ``segment_NNN.avi`` in MJPEG at ``quality`` (the JAX module's
+choice without ffmpeg), and ``container`` forces either.  The source's audio
+track, where it has one (an ``.mp4``), is stream-copied into per-segment
+sidecars, ``segment_NNN.audio.mp4`` (``io/mp4.py``), which marking, HLS,
+leak and download carry along.
+
+Both routes write each segment whole before it takes its name, since the
+ranks of ``hls-mark --distributed`` each segment into one shared directory,
+and return only the segments of this source, whatever an earlier run left in
+the directory.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 from pathlib import Path
 
-from ..io import open_reader, open_writer
+from ..io import ffmpeg, open_reader, open_writer
 
 
 def frames_per_segment(fps: float, segment_duration: float) -> int:
     return max(1, int(round(fps * segment_duration)))
 
 
-def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quality: int = 95,
+def segment_video(input_file, segments_dir, segment_duration: float = 2.0,
+                  use_ffmpeg: bool | None = None, quality: int = 95, *,
                   container: str | None = None):
-    """Split into segment_000.<container>, ... (``rawv`` or ``avi``; by
+    """Split into segment_000.<ext>, ... and return the sorted list of
+    segment paths.  ``use_ffmpeg`` (by default: an ``ffmpeg`` binary is on
+    PATH) takes the ffmpeg route to ``.mp4`` segments; otherwise the
+    frame-exact route writes ``container`` segments (``rawv`` or ``avi``; by
     default ``rawv`` for a ``.rawv`` source and ``avi`` for any other) and
-    write the audio sidecars; returns the sorted list of segment paths."""
+    the audio sidecars.  ``container`` names the frame route's segments
+    only: a caller that pins it pins ``use_ffmpeg=False`` as well."""
+    if use_ffmpeg is None:
+        use_ffmpeg = ffmpeg.have_ffmpeg()
+    segments_dir = Path(segments_dir)
+    segments_dir.mkdir(parents=True, exist_ok=True)
+    if use_ffmpeg:
+        return _segment_ffmpeg(input_file, segments_dir, segment_duration)
     if container is None:
         container = "rawv" if Path(input_file).suffix == ".rawv" else "avi"
     if container not in ("rawv", "avi"):
         raise ValueError(f"segments are .rawv or MJPEG .avi, not .{container}")
-    segments_dir = Path(segments_dir)
-    segments_dir.mkdir(parents=True, exist_ok=True)
     reader = open_reader(input_file)
     n_per = frames_per_segment(reader.fps, segment_duration)
     fps = reader.fps
@@ -64,6 +86,24 @@ def segment_video(input_file, segments_dir, segment_duration: float = 2.0, quali
         reader.close()
     _write_audio_sidecars(input_file, paths, n_per, fps)
     return sorted(paths)
+
+
+def _segment_ffmpeg(input_file, segments_dir: Path, segment_duration: float):
+    """ffmpeg's segmenter into a private directory, then each segment renamed
+    into ``segments_dir``: ffmpeg rewrites its outputs in place, and another
+    rank may be reading a segment of the same name."""
+    private = Path(tempfile.mkdtemp(prefix=f".ffmpeg-{os.getpid()}-", dir=segments_dir))
+    try:
+        ffmpeg.segment_video_ffmpeg(
+            input_file, str(private / "segment_%03d.mp4"), segment_duration
+        )
+        paths = []
+        for f in sorted(private.glob("segment_*.mp4")):
+            os.replace(f, segments_dir / f.name)
+            paths.append(segments_dir / f.name)
+        return paths
+    finally:
+        shutil.rmtree(private, ignore_errors=True)
 
 
 def _temp_name(path: Path) -> Path:

@@ -4,10 +4,10 @@
 Each segment of the leak is decoded ONCE (batched on the device); the single
 majority pattern is then compared against all candidate payloads (or
 blind-decoded into 4+4 bits, reference: tests/detect_watermarks.py:145-172).
-The leak may come in any container the port reads (``.rawv``, MJPEG
-``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s``, ``.y4m``); it is re-segmented as
-``segment_video`` segments it (``.rawv`` pieces of a ``.rawv`` leak, MJPEG
-``.avi`` pieces of any other, as the JAX package does without ffmpeg).
+The leak may come in any container the port reads; it is re-segmented as
+``segment_video`` segments it by default, as the JAX ``trace_leak`` does:
+by ffmpeg into ``.mp4`` pieces where the binary is on PATH, else ``.rawv``
+pieces of a ``.rawv`` leak and MJPEG ``.avi`` pieces of any other.
 """
 
 from __future__ import annotations

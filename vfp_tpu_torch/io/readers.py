@@ -1,19 +1,23 @@
 """Frame readers: batched sources of uint8 RGB frames (copied from
 ``vfp_tpu/io/readers.py``): exact ``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4
-``.mp4``/``.m4s`` and YUV4MPEG2 ``.y4m`` (``io/y4m.py``).
+``.mp4``/``.m4s`` and YUV4MPEG2 ``.y4m`` (``io/y4m.py``), and the dispatch
+that sends every other container through an ffmpeg pipe where the binary is
+on PATH (``open_reader``; ``io/ffmpeg.py``).
 
 ``read_batch(n) -> [k, H, W, 3] | None`` lets the pipeline feed the device
 whole batches while the next one is read.  ``MjpegAviReader`` and
 ``Mp4MjpegReader`` stand where the JAX package's ``Cv2Reader`` reads
-``.avi`` and ``.mp4``: they decode each JPEG sample as ``cv2.imdecode`` does
-(the native library's codec), not as cv2's FFmpeg backend does.  An MP4
-whose video is not JPEG (``mp4v``, ``avc1``, ...) raises IOError: the port
-has no decoder for inter-frame video.
+``.avi`` and ``.mp4`` without ffmpeg: they decode each JPEG sample as
+``cv2.imdecode`` does (the native library's codec), not as cv2's FFmpeg
+backend does.  Without ffmpeg an MP4 whose video is not JPEG (``mp4v``,
+``avc1``, ...) raises IOError: the port has no decoder for inter-frame
+video of its own.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import struct
 from pathlib import Path
 from typing import Optional
@@ -29,6 +33,8 @@ class FrameReader:
     width: int
     height: int
     fps: float = 30.0
+    n_frames: Optional[int] = None  # the frames in the stream, where the header says
+
 
     def read_batch(self, n: int) -> Optional[np.ndarray]:
         """Up to n frames as uint8 [k, H, W, 3] (RGB); None at end of stream."""
@@ -57,6 +63,7 @@ class ArrayReader(FrameReader):
         self.frames = np.ascontiguousarray(frames, dtype=np.uint8)
         self.height, self.width = frames.shape[1:3]
         self.fps = fps
+        self.n_frames = len(self.frames)
         self._pos = 0
 
     def read_batch(self, n: int) -> Optional[np.ndarray]:
@@ -65,6 +72,12 @@ class ArrayReader(FrameReader):
         out = self.frames[self._pos : self._pos + n]
         self._pos += len(out)
         return out
+
+
+def rawv_frames(file, frame_bytes: int) -> int:
+    """The whole frames after a ``.rawv`` file's 24-byte header."""
+    body = os.path.getsize(file) - 24
+    return body // frame_bytes if frame_bytes else 0
 
 
 class RawVideoReader(FrameReader):
@@ -79,6 +92,7 @@ class RawVideoReader(FrameReader):
         self.width, self.height, fps_num, fps_den = struct.unpack("<IIII", self.f.read(16))
         self.fps = fps_num / max(fps_den, 1)
         self._frame_bytes = self.width * self.height * 3
+        self.n_frames = rawv_frames(file, self._frame_bytes)
 
     def read_batch(self, n: int) -> Optional[np.ndarray]:
         buf = self.f.read(self._frame_bytes * n)
@@ -110,6 +124,7 @@ class MjpegAviReader(FrameReader):
         if self.width <= 0 or self.height <= 0:
             raise IOError(f"invalid AVI dims {self.width}x{self.height}: {file}")
         self.fps = meta["fps"] or 30.0
+        self.n_frames = meta["frames"]
         self._chunks = iter_video_chunks(file)
 
     def read_batch(self, n: int) -> Optional[np.ndarray]:
@@ -151,6 +166,7 @@ class Mp4MjpegReader(FrameReader):
         first = video.samples[0].duration
         self.fps = video.timescale / first if first and video.timescale else 30.0
         self._samples = video.samples
+        self.n_frames = len(video.samples)
         self._pos = 0
         self._f = open(self.file, "rb")
 
@@ -193,34 +209,59 @@ READ = (".rawv", ".avi", ".mp4", ".m4s", ".y4m")
 WRITE = (".rawv", ".avi", ".y4m")
 
 
+def _have_ffmpeg() -> bool:
+    from . import ffmpeg
+
+    return ffmpeg.have_ffmpeg()
+
+
 def _refuse(file, kinds, verb: str) -> None:
     suffix = Path(file).suffix
     if suffix not in kinds:
         raise ValueError(
             f"{file}: vfp_tpu_torch {verb} {', '.join(kinds)} files only, not "
             f"{suffix or 'a file without a suffix'} (.rawv exact, .avi and .mp4/.m4s MJPEG, "
-            ".y4m 4:2:0); convert other containers with vfp_tpu.io")
+            ".y4m 4:2:0), unless an ffmpeg binary is on PATH")
 
 
 def require_supported(file) -> None:
-    """Raise ``ValueError`` unless the port reads ``file``'s container:
-    ``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s`` or ``.y4m``."""
-    _refuse(file, READ, "reads")
+    """Raise ``ValueError`` unless the port reads ``file``'s container.  With
+    an ``ffmpeg`` binary on PATH every suffix is read (through the pipe, all
+    but ``.rawv`` and ``.y4m``); without one: ``.rawv``, MJPEG ``.avi``,
+    MJPEG-in-MP4 ``.mp4``/``.m4s`` or ``.y4m``."""
+    if not _have_ffmpeg():
+        _refuse(file, READ, "reads")
 
 
 def require_writable(file) -> None:
-    """Raise ``ValueError`` unless the port writes ``file``'s container:
-    ``.rawv``, MJPEG ``.avi`` or ``.y4m``.  ``.mp4`` is refused: the JAX
-    package writes it with cv2's mp4v encoder, which the port has not (its
-    ``.mp4`` files are remuxes, ``io/mp4.py``)."""
-    _refuse(file, WRITE, "writes frames to")
+    """Raise ``ValueError`` unless the port writes ``file``'s container.  With
+    an ``ffmpeg`` binary on PATH every suffix is written (``.mp4`` among
+    them, through the pipe writer); without one: ``.rawv``, MJPEG ``.avi``
+    or ``.y4m``.  ``.mp4`` is then refused: the JAX package writes it with
+    cv2's mp4v encoder, which the port has not (its ``.mp4`` files are
+    remuxes, ``io/mp4.py``)."""
+    if not _have_ffmpeg():
+        _refuse(file, WRITE, "writes frames to")
 
 
 def open_reader(file) -> FrameReader:
-    """Pick a reader by suffix: ``.rawv`` (the native read-ahead reader where
-    g++ can build it, else the pure-Python one), MJPEG ``.avi``,
-    MJPEG-in-MP4 ``.mp4``/``.m4s``, or ``.y4m``."""
-    require_supported(file)
+    """Pick a reader in the JAX package's order: ``.y4m``, then ``.rawv``,
+    then, where an ``ffmpeg`` binary is on PATH, the rgb24 pipe
+    (``io/ffmpeg.py``) for every other suffix; without one, the port's own
+    readers."""
+    if Path(file).suffix not in (".rawv", ".y4m") and _have_ffmpeg():
+        from .ffmpeg import FFmpegPipeReader
+
+        return FFmpegPipeReader(file)
+    return _open_own_reader(file)
+
+
+def _open_own_reader(file) -> FrameReader:
+    """The port's own reader of ``file``, whether or not ffmpeg is on PATH:
+    ``.rawv`` (the native read-ahead reader where g++ can build it, else the
+    pure-Python one), MJPEG ``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s``, or
+    ``.y4m``; any other suffix raises ValueError."""
+    _refuse(file, READ, "reads")
     suffix = Path(file).suffix
     if suffix == ".avi":
         return MjpegAviReader(file)

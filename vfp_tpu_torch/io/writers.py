@@ -1,7 +1,9 @@
 """Frame writers: batched sinks of uint8 RGB frames (copied from
 ``vfp_tpu/io/writers.py``): exact ``.rawv``, MJPEG ``.avi`` and ``.y4m``
-(``io/y4m.py``).  There is no frame writer for ``.mp4``: the JAX package's
-is cv2's mp4v encoder; the port's ``.mp4`` files are box-level remuxes of
+(``io/y4m.py``), and, where an ``ffmpeg`` binary is on PATH, the rgb24 pipe
+writer for every other suffix (``.mp4`` among them; ``io/ffmpeg.py``).
+Without ffmpeg there is no frame writer for ``.mp4``: the JAX package's is
+cv2's mp4v encoder; the port's ``.mp4`` files are then box-level remuxes of
 MJPEG ``.avi`` samples and audio (``io/mp4.py``).
 
 ``MjpegAviWriter`` is the JAX package's self-contained AVI muxer; its
@@ -167,19 +169,25 @@ class RawVideoWriter(FrameWriter):
 
 
 def open_writer(file, width: int, height: int, fps: float = 30.0, quality: int = 95) -> FrameWriter:
-    """Pick a writer: ``.rawv`` exact (the native write-behind writer where g++
-    can build it, else the pure-Python one), ``.avi`` MJPEG at ``quality``,
-    ``.y4m`` 4:2:0; any other suffix (``.mp4`` among them) raises ValueError."""
+    """Pick a writer in the JAX package's order: ``.y4m`` 4:2:0, ``.rawv``
+    exact (the native write-behind writer where g++ can build it, else the
+    pure-Python one), ``.avi`` MJPEG at ``quality``, then, where an
+    ``ffmpeg`` binary is on PATH, the rgb24 pipe writer for any other suffix;
+    without one any other suffix (``.mp4`` among them) raises ValueError."""
     require_writable(file)
     suffix = Path(file).suffix
-    if suffix == ".avi":
-        return MjpegAviWriter(file, width, height, fps, quality)
     if suffix == ".y4m":
         from .y4m import Y4MWriter
 
         return Y4MWriter(file, width, height, fps)
-    from ..native import NativeRawVideoWriter, have_native
+    if suffix == ".rawv":
+        from ..native import NativeRawVideoWriter, have_native
 
-    if have_native():
-        return NativeRawVideoWriter(file, width, height, fps)
-    return RawVideoWriter(file, width, height, fps)
+        if have_native():
+            return NativeRawVideoWriter(file, width, height, fps)
+        return RawVideoWriter(file, width, height, fps)
+    if suffix == ".avi":
+        return MjpegAviWriter(file, width, height, fps, quality)
+    from .ffmpeg import FFmpegPipeWriter
+
+    return FFmpegPipeWriter(file, width, height, fps)

@@ -8,7 +8,7 @@ import struct
 
 import numpy as np
 
-from ..io.readers import RAWV_MAGIC, FrameReader
+from ..io.readers import RAWV_MAGIC, FrameReader, rawv_frames
 from ..io.writers import FrameWriter, rawv_header
 from .build import load_vfpio
 
@@ -26,6 +26,7 @@ class NativeRawVideoReader(FrameReader):
         self.width, self.height, fps_num, fps_den = struct.unpack("<IIII", head[8:])
         self.fps = fps_num / max(fps_den, 1)
         self._frame_bytes = self.width * self.height * 3
+        self.n_frames = rawv_frames(file, self._frame_bytes)
         self._lib = load_vfpio()
         self._h = self._lib.vfpio_reader_open_file(str(file).encode(), self._frame_bytes, ring,
                                                    _HEADER)

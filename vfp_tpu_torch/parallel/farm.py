@@ -16,9 +16,12 @@ model is a work queue, not collectives:
   and rank 0 merges after a barrier.  (Running one ``cli hls-mark --resume``
   per host works too: per-segment outputs are idempotent.)
 
-Segments are ``.rawv`` or MJPEG ``.avi`` with their audio sidecars, as
-``fingerprint.segmenter.segment_video`` writes them; variants and their
-sidecar copies are the serial ``mark_segments``' files.
+Segments are whatever ``fingerprint.segmenter.segment_video`` writes:
+``.mp4`` by ffmpeg where the binary is on PATH, else ``.rawv`` or MJPEG
+``.avi`` with their audio sidecars; variants and their sidecar copies are
+the serial ``mark_segments``' files.  Spawned workers inherit PATH and
+resolve ``io.ffmpeg.have_ffmpeg()`` themselves, so a farm writes the
+variants a serial run on the same host writes (``.mp4`` under ffmpeg).
 """
 
 from __future__ import annotations

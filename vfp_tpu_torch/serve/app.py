@@ -6,7 +6,8 @@ Endpoints:
     GET  /                 -> upload page
     GET  /upload           -> upload page
     POST /upload           -> process a video (multipart 'file': .rawv, MJPEG
-                              .avi/.mp4/.m4s or .y4m)
+                              .avi/.mp4/.m4s or .y4m; with an ffmpeg binary
+                              on PATH, any container its pipe reads)
     POST /start-view       -> JSON {username, num_copies?} -> view session
     GET  /view             -> player page
     GET  /view/{view_id}   -> per-view m3u8

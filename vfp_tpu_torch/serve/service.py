@@ -8,13 +8,16 @@ usernames.  Serving a view does no media computation: it is playlist text
 over the pre-marked variants.  Marking and detection run on ``device``
 (default ``"cuda"``, raising without a GPU); the JSON files and response
 fields are the JAX service's.  Uploads and leaks may come in any container
-the port reads (``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s``,
-``.y4m``); one it cannot read (another suffix, a corrupt file, an MP4 whose
-video is not JPEG, one cut short part way) is refused with an ``OSError``
-before the served state is touched.  Segments follow ``segment_video``
-(``.rawv`` for a ``.rawv`` upload, MJPEG ``.avi`` otherwise, with the
-upload's audio in sidecars), and a download is an ``.mp4`` that carries the
-audio when every segment has it.
+the port reads: where an ``ffmpeg`` binary is on PATH, whatever its pipe
+opens; without one ``.rawv``, MJPEG ``.avi``, MJPEG-in-MP4 ``.mp4``/``.m4s``
+or ``.y4m``.  One it cannot read (another suffix, a corrupt file, an MP4
+whose video the route cannot decode, one cut short part way) is refused
+with an ``OSError`` before the served state is touched.  Segments follow
+``segment_video``: ``.mp4`` by ffmpeg where it is on PATH; else ``.rawv``
+for a ``.rawv`` upload and MJPEG ``.avi`` otherwise, with the upload's
+audio in sidecars.  A download is an ``.mp4`` (ffmpeg's concat of the
+``.m4s`` variants where it is on PATH) that carries the audio when every
+segment has it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import json
 import logging
 import shutil
 import struct
+import subprocess
 import threading
 import uuid
 from collections import Counter
@@ -50,7 +54,7 @@ def _check_upload(path) -> None:
     """Raise ``OSError`` unless the port reads ``path``: an upload the service
     cannot read is the client's error.  A ``.rawv`` must hold one or more
     whole frames after its header; any other container's first frame must
-    decode."""
+    decode (through the ffmpeg pipe where the binary is on PATH)."""
     path = Path(path)
     try:
         require_supported(path)
@@ -129,7 +133,7 @@ class VfpService:
             shutil.rmtree(staging)
         try:
             staged = segment_video(video_path, staging, self.segment_duration)
-        except (OSError, ValueError, struct.error) as e:
+        except (OSError, ValueError, struct.error, subprocess.CalledProcessError) as e:
             shutil.rmtree(staging, ignore_errors=True)
             if isinstance(e, OSError):
                 raise
@@ -288,8 +292,10 @@ class VfpService:
 
     def download_view(self, view_id: str) -> Path:
         """The view's variant sequence spliced into one file: an ``.mp4`` of
-        ``.m4s`` variants, or of MJPEG ``.avi`` ones that all have their audio
-        sidecar (the audio muxed back), else the variants' own container."""
+        ``.m4s`` variants (ffmpeg's concat where the binary is on PATH, else
+        the box-level one), or of MJPEG ``.avi`` ones that all have their
+        audio sidecar (the audio muxed back), else the variants' own
+        container."""
         view = self._load_history()[view_id]
         files = [self.hls_dir / n for n in self._view_files(view, self._load_mapping())]
         ext = files[0].suffix if files and files[0].suffix in (".avi", ".rawv") else ".mp4"

@@ -183,7 +183,8 @@ def run_durability_corr(
     marked_dir = base / "marked_segments"
     marked_dir.mkdir(parents=True, exist_ok=True)
 
-    segments = segment_video(input_file, base / "segments", segment_duration, container="avi")
+    segments = segment_video(input_file, base / "segments", segment_duration,
+                             use_ffmpeg=False, container="avi")
     logger.info("created %d segments (corr mode)", len(segments))
 
     caps = []
@@ -206,7 +207,7 @@ def run_durability_corr(
     spliced = base / "full.avi"
     concatenate_segments(marked_files, spliced)
     resegmented = segment_video(spliced, base / "resegmented", segment_duration,
-                                container="avi")
+                                use_ffmpeg=False, container="avi")
     reencoded_results = _corr_detect_all(
         resegmented[: len(segments)], codec, refs, batch_size, threshold, device=device
     )
@@ -239,7 +240,8 @@ def run_durability(
     marked_dir = base / "marked_segments"
     marked_dir.mkdir(parents=True, exist_ok=True)
 
-    segments = segment_video(input_file, base / "segments", segment_duration, container="avi")
+    segments = segment_video(input_file, base / "segments", segment_duration,
+                             use_ffmpeg=False, container="avi")
     logger.info("created %d segments", len(segments))
 
     def wm_for(i, frame_shape):
@@ -254,7 +256,7 @@ def run_durability(
     spliced = base / "full.avi"
     concatenate_segments(marked_files, spliced)
     resegmented = segment_video(spliced, base / "resegmented", segment_duration,
-                                container="avi")
+                                use_ffmpeg=False, container="avi")
     reencoded_results = _detect_all(resegmented, key, codec, device=device)
     return _analyze(original_results, reencoded_results, t0)
 
