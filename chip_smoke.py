@@ -29,7 +29,8 @@ Phases, each printing its lines:
    takes its means in its own read, equal; the Y mean and the extract also
    equal from one run to the next); the masks and the q-shift level also on the
    in-place halves of the detect path's level-1 output, level 1 lowpass-only
-   also on the Y view of a YUV batch, in place;
+   also on the Y view of a YUV batch, in place; the SoA kernels also on the
+   LL transport's 1080p blocks (the u8 wire's LL, decoded on the card);
 4. main paths, each with the launch counts set to 0 and the watermark-spectrum
    cache emptied just before it, the counts read just after: the flagship codec's ``python -m vfp_tpu_torch.cli mark``
    then ``detect --payload`` on a 48-frame 1920x1080 .rawv (fused kernels),
@@ -85,10 +86,24 @@ Phases, each printing its lines:
    segments, 9 ``.mp4`` variants (frames byte-equal to the hls phase's
    ``.rawv`` variants) and 9 ``.m4s``, ``leak`` -> ``leaked_video.mp4`` ->
    ``trace`` of 201 with the manifests (the hls phase's launches for the
-   same commands), and ``mark`` of a 48-frame 1080p ``.rawv`` into an
-   ``.mp4`` -> ``detect`` (48/48); ``have_ffmpeg`` False again after it;
-   then ``parallel``: the sharded steps of ``parallel/sharded.py``
-   on a world-1 NCCL mesh (the mark step with 3 variants of each codec equal
+   same commands), ``mark`` of a 48-frame 1080p ``.rawv`` into an
+   ``.mp4`` -> ``detect`` (48/48), and ``cli durability`` of 90 1080p
+   frames with 1 s segments (ffmpeg's segments, the pipe writer's marked
+   ``.mp4``, ffmpeg's concat into ``full.mp4`` and its re-segmenting; 6 marks
+   and 12 extracts, counted apart; the shim proves the plumbing, not
+   libx264's loss); ``have_ffmpeg`` False again after it; then ``lowlink``:
+   the LL-domain transport with ``VFP_LOWLINK=1`` set for the phase (the
+   environment restored and ``use_lowlink`` off after it): ``cli mark`` ->
+   ``detect`` of the 48-frame 1080p file on the ``u8`` and ``f16`` wires
+   (48/48, PSNR > 40 dB, the share within +-1 of the full-frame file
+   printed, ``qim_triplet_soa`` and ``qim_decode_soa`` once a batch, no
+   fused kernel), ``hls-mark --copies 3`` of the hls phase's source on the
+   ``u8`` wire (packed two-plane calls: one ``qim_triplet_soa`` each, 180
+   frames in all, no batch routed to the host) -> ``leak`` 201 -> ``trace``,
+   ``VFP_LL_WIRE=host`` (no launch, device memory unchanged) and the host
+   clock's ``mark_all`` / ``extract`` of a 16-frame batch, full-frame
+   against the wires, with the wire's stages and bytes; then ``parallel``:
+   the sharded steps of ``parallel/sharded.py`` on a world-1 NCCL mesh (the mark step with 3 variants of each codec equal
    to three bare ``mark_frames``, the detect step's votes [0, 16, 0] through
    an NCCL ``all_reduce``, the spatial step at W = 1920 equal to the
    unsharded mark; host ms beside the bare calls'), ``hls-mark --workers 2``
@@ -102,7 +117,9 @@ Phases, each printing its lines:
    launches of that kernel over all paths;
 5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
    (and one PyTorch library call where one computes the same function),
-   with CUDA events after warm-up, on two clocks: host-inclusive (events
+   with CUDA events after warm-up (``qim_triplet_soa`` and
+   ``qim_decode_soa`` at the LL transport's [16, 16, 32400] blocks, one
+   launch at a time after a 256 MB write that flushes the L2), on two clocks: host-inclusive (events
    around back-to-back wrapper calls) and device-only (the same calls
    captured in one CUDA graph and replayed), beside the bound the card's
    HBM rate and float32 peak set for the same work; the sweep: the kernels
@@ -570,6 +587,8 @@ def check_kernels(device, cfg) -> dict:
         (nbh, nbw), _ = block_grid((h, w))
         ll = codec._ll_from_frames(frames.to(torch.float32), 1)
         soa_inputs.append(image_to_soa(ll[:, : 4 * nbh, : 4 * nbw], 4))
+    # the LL transport's blocks: the u8 wire's 1080p LL, decoded on the card
+    soa_inputs.append(lowlink_soa(natural_frames(rng, cfg["b"], cfg["h"], cfg["w"]), device))
     soa_inputs.append(torch.as_tensor(rng.rand(2, 16, 700).astype(np.float32) * 300,
                                       device=device))
     for m in soa_inputs:
@@ -1344,6 +1363,8 @@ def run_dtcwt_depth_path(device, cfg, workdir: Path, source_1080p: Path) -> dict
 
 
 HLS = {"n": 180, "fps": 30, "copies": 3, "seg_frames": 60}  # the hls and parallel phases
+# the ffmpeg phase's cli durability: 90 1080p frames at HLS["fps"], 1 s segments
+DURABILITY_FFMPEG = {"n": 90, "segments": 3}
 
 
 def run_hls_path(device, cfg, workdir: Path) -> tuple[dict, dict]:
@@ -2230,7 +2251,7 @@ def run_ffmpeg_path(device, cfg, workdir: Path, hls_counts: dict) -> dict:
     from vfp_tpu_torch import fingerprint, kernels
     from vfp_tpu_torch.cli import main as cli
     from vfp_tpu_torch.fingerprint import hls as thls, payload_for_segment
-    from vfp_tpu_torch.io import ffmpeg
+    from vfp_tpu_torch.io import RawVideoWriter, ffmpeg
     from vfp_tpu_torch.kernels.fused_embed import fused_mark_planar_reference
     from vfp_tpu_torch.wm import DwtDctSvd, Shuffler, block_grid
 
@@ -2327,6 +2348,44 @@ def run_ffmpeg_path(device, cfg, workdir: Path, hls_counts: dict) -> dict:
             assert_counts(mp4_found, mp4_want, "ffmpeg mark/detect .mp4")
             counts.update(mp4_want)
             mp4_split = dict(clock.s)
+            clock.s.clear()
+
+            # cli durability through the shim: ffmpeg's segments, the pipe writer's
+            # marked .mp4, ffmpeg's concat into full.mp4 and its re-segmenting
+            dur_n, dur_segs = DURABILITY_FFMPEG["n"], DURABILITY_FFMPEG["segments"]
+            dur_in, dur_out = root / "dur_in.rawv", root / "dur"
+            with RawVideoWriter(dur_in, w, h, fps=HLS["fps"]) as writer:
+                rng = np.random.RandomState(18)
+                for i in range(0, dur_n, b):
+                    writer.write_batch(natural_frames(rng, min(b, dur_n - i), h, w))
+            fresh_counts()
+            with NoPlainOnDevice():
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    try:
+                        cli(["durability", str(dur_in), str(dur_out), "--segment-duration", "1",
+                             "--device", str(device)])
+                        code = 0
+                    except SystemExit as e:
+                        code = e.code
+                walls["durability"] = time.perf_counter() - t0
+            report = json.loads(text.getvalue())
+            assert code == 0 and report["is_successful"], (code, report)
+            assert report["segment_pairs"] == report["original_total"] == dur_segs, report
+            assert report["original_success_rate"] == report["reencoded_success_rate"] == 1.0
+            for r in report["original_results"] + report["reencoded_results"]:
+                assert r["segment"].endswith(".mp4"), r["segment"]
+            assert (dur_out / "full.mp4").exists()
+            assert sorted(p.name for p in (dur_out / "marked_segments").iterdir()) == [
+                f"marked_segment_{i:03d}.mp4" for i in range(dur_segs)]
+            dur_batches = dur_segs * -(-(dur_n // dur_segs) // 16)  # run_durability's batch
+            dur_want = {"fused_mark_planar": dur_batches, "fused_extract_planar": 2 * dur_batches}
+            assert_counts(kernels.launch_counts(), dur_want, "ffmpeg durability")
+            counts.update(dur_want)
+            dur_split = dict(clock.s)
+            shutil.rmtree(dur_out)
+            dur_in.unlink()
     finally:
         os.environ["PATH"] = path
         ffmpeg.have_ffmpeg.cache_clear()
@@ -2362,6 +2421,211 @@ def run_ffmpeg_path(device, cfg, workdir: Path, hls_counts: dict) -> dict:
           f"(pipe reader): {walls['mark/detect .mp4']:.3f} s, payload {PAYLOAD} in {k}/{k} "
           f"frames; pipe read {mp4_split['pipe read']:.3f} s, write "
           f"{mp4_split['pipe write']:.3f} s; launches {mp4_want}; card {card}")
+    print(f"ffmpeg: cli durability of {dur_n} frames of {w}x{h} at {HLS['fps']} fps, 1 s "
+          f"segments, through the shim (it copies frames: this proves the plumbing, not "
+          f"libx264's loss): {dur_segs} .mp4 segments by ffmpeg's segmenter, marked .mp4 by "
+          f"the pipe writer, full.mp4 by ffmpeg's concat, re-segmented by ffmpeg; original "
+          f"{report['original_success']}/{dur_segs}, re-encoded "
+          f"{report['reencoded_success']}/{dur_segs}, is_successful True, exit 0; "
+          f"{walls['durability']:.3f} s CLI wall (segmenting {dur_split['segmenting']:.3f} s, "
+          f"pipe read {dur_split['pipe read']:.3f} s, pipe write {dur_split['pipe write']:.3f} "
+          f"s); launches {dur_want}, counted apart from the phase's others; card {card}")
+    return counts
+
+
+def _bytes_mb(n: int) -> str:
+    return f"{n / 1e6:.1f} MB"
+
+
+def run_lowlink_path(device, cfg, workdir: Path, source_1080p: Path, hls_stats: dict) -> dict:
+    """The LL-domain transport (``pipeline/lowlink.py``) on the card, with
+    ``VFP_LOWLINK=1`` set in this process for the phase and the environment
+    restored after it (``use_lowlink`` off again).  1. ``cli mark`` ->
+    ``detect --payload`` of the main path's 48-frame 1920x1080 .rawv once per
+    wire (``u8``, ``f16``): 48/48 payloads, PSNR > 40 dB, the share of
+    pixels within +-1 of the main path's full-frame file printed,
+    ``qim_triplet_soa`` once a mark batch (the per-variant delta of one
+    variant) and ``qim_decode_soa`` once a detect batch, no fused kernel.
+    2. ``hls-mark --copies 3`` of the hls phase's 180 frames on the u8 wire
+    (the two planes, packed across segments by one ``PackedTwoPlane``) ->
+    ``leak --pattern 201`` -> ``trace`` with the manifests: every variant
+    verified, the fingerprint on 100% of segments, ``qim_triplet_soa``
+    launched once per packed call, those calls' frames summing to 180 (how
+    many calls depends on when the writer's collects overtake the submits),
+    no batch routed to the host by the flat-content hysteresis,
+    ``qim_decode_soa`` once per 16 frames of verify (540) and trace (180).
+    3. ``VFP_LL_WIRE=host``: one 16-frame 1080p mark -> detect with no launch
+    and ``torch.cuda.memory_allocated()`` unchanged.  4. On the host clock
+    (median of 5 after a warm-up), one 16-frame 1080p batch with 3 variants:
+    ``MultiMarker.mark_all`` full-frame vs the u8 (and f16) wire with the
+    wire's stage split, ``FrameExtractor.extract`` both ways, and the bytes
+    each leg moves; the hls-mark walls of both paths (``mark_segments``'
+    wall_seconds; the full-frame one from the hls phase).  Returns the
+    launch counts of 1 and 2."""
+    import ast
+    import shutil
+
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.cli import main as cli
+    from vfp_tpu_torch.fingerprint import payload_for_segment
+    from vfp_tpu_torch.pipeline import FrameExtractor, FrameMarker, MultiMarker, use_lowlink
+    from vfp_tpu_torch.wm import DeShuffler, DwtDctSvd, Shuffler
+
+    h, w, b, n = cfg["h"], cfg["w"], cfg["b"], cfg["frames"]
+    batches = -(-n // b)
+    root = workdir / "lowlink"
+    root.mkdir()
+    saved = {k: os.environ.get(k) for k in ("VFP_LOWLINK", "VFP_LL_WIRE")}
+    card = nvidia_smi_line()
+    counts = collections.Counter()
+    t_phase = time.perf_counter()
+    try:
+        os.environ["VFP_LOWLINK"] = "1"
+        flags = ["--batch-size", str(b), "--device", str(device)]
+        src = _read_rawv(source_1080p)
+        full = _read_rawv(workdir / f"marked_{w}x{h}.rawv")  # the main path's full-frame file
+        for wire in ("u8", "f16"):
+            os.environ["VFP_LL_WIRE"] = wire
+            out = root / f"marked_{wire}.rawv"
+            fresh_counts()
+            with NoPlainOnDevice():
+                t0 = time.perf_counter()
+                text = _cli_lines(cli, ["mark", str(source_1080p), str(out), *flags])
+                t_mark = time.perf_counter() - t0
+                assert f"marked {n} frames" in text, text
+                text = _cli_lines(cli, ["detect", str(out), "--payload", PAYLOAD, *flags])
+            assert f"majority payload: {PAYLOAD} (frequency 1.00)" in text, text  # 48/48
+            found = kernels.launch_counts()
+            want = {"qim_triplet_soa": batches, "qim_decode_soa": batches}
+            assert_counts(found, want, f"lowlink {wire} mark/detect")
+            assert found["fused_mark_planar"] == found["fused_extract_planar"] == 0
+            counts.update(want)
+            marked = _read_rawv(out)
+            assert marked.shape == src.shape, marked.shape
+            psnr = _psnr(marked, src)
+            assert psnr > 40.0, psnr
+            d = np.abs(marked.astype(np.int16) - full.astype(np.int16))
+            print(f"lowlink {wire}: cli mark -> detect of {n} frames of {w}x{h}: payload "
+                  f"{PAYLOAD} in {n}/{n} frames, PSNR {psnr:.2f} dB vs source; vs the full-frame "
+                  f"path's marked file: {float((d == 0).mean()):.6f} of pixels equal, "
+                  f"{float((d <= 1).mean()):.6f} within +-1, max {int(d.max())}; mark CLI "
+                  f"{t_mark:.3f} s; launches {want}; card {card}")
+            out.unlink()
+        del src, full, marked, d
+
+        # 2. the HLS workflow on the u8 wire, packed
+        os.environ["VFP_LL_WIRE"] = "u8"
+        hls_src = workdir / "hls" / "source.rawv"
+        out = root / "hls"
+        n_hls, copies, seg_frames = HLS["n"], HLS["copies"], HLS["seg_frames"]
+        fresh_counts()
+        with NoPlainOnDevice():
+            t0 = time.perf_counter()
+            text = _cli_lines(cli, ["hls-mark", str(hls_src), str(out), "--copies", str(copies),
+                                    *flags])
+            t_hls = time.perf_counter() - t0
+            assert f"created {n_hls // seg_frames} segments" in text, text
+            assert "All segments were watermarked successfully!" in text, text
+            stats = ast.literal_eval(text.split("mark_segments stats: ", 1)[1].splitlines()[0])
+            marks = kernels.launch_counts()
+            for p in (out / "segments", out / "hls"):  # the leak needs neither
+                shutil.rmtree(p)
+            leaked = root / "leak_201.rawv"
+            text = _cli_lines(cli, ["leak", str(out / "segment_copies.json"), "--pattern",
+                                    "201", "--output-file", str(leaked), *flags[2:]])
+            assert "pattern: 201" in text, text
+            text = _cli_lines(cli, ["trace", str(leaked), str(root / "det"), "--payload-file",
+                                    str(out / "segment_payloads.json"), "--max-copies",
+                                    str(copies), *flags[2:]])
+            assert "Copy fingerprint: 201" in text and "Success rate: 100.00%" in text, text
+        found = kernels.launch_counts()
+        calls = stats["packed_device_calls"]
+        assert stats["packed_device_frames"] == n_hls, stats
+        assert stats["host_routed_batches"] == 0, stats
+        # verify packs the variants' frames b a batch, trace decodes 16 a batch
+        want = {"qim_triplet_soa": calls,
+                "qim_decode_soa": -(-copies * n_hls // b) + -(-n_hls // 16)}
+        assert marks["qim_triplet_soa"] == calls, (marks, stats)
+        assert_counts(found, want, "lowlink hls")
+        counts.update(want)
+        shutil.rmtree(out)
+        shutil.rmtree(root / "det")
+        leaked.unlink()
+        ss = stats["stage_seconds"]
+        print(f"lowlink hls: hls-mark {n_hls} frames of {w}x{h}, {copies} copies on the u8 wire: "
+              f"CLI {t_hls:.3f} s, mark_segments wall {stats['wall_seconds']} s (the hls phase's "
+              f"full-frame run: {hls_stats['wall_seconds']} s); {calls} packed device calls for "
+              f"{stats['packed_device_frames']} frames, {stats['host_routed_batches']} batches "
+              f"routed to the host; stages {ss}; host busy {stats['host_busy_seconds']} s, "
+              f"link/device wait {stats['link_device_wait_seconds']} s; leak 201 -> trace: "
+              f"Copy fingerprint 201, 100% success; launches {want}; card {card}")
+
+        # 3. the host wire: no launch, no device memory
+        os.environ["VFP_LL_WIRE"] = "host"
+        rng = np.random.RandomState(19)
+        frames = natural_frames(rng, b, h, w)
+        codec = DwtDctSvd()
+        wm = Shuffler(key=0).generate_wm(np.array([int(c) for c in PAYLOAD]),
+                                         codec.wm_capacity((h, w, 3)))
+        deg = DeShuffler(key=0, threshold="fixed").set_shape((len(PAYLOAD),))
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        fresh_counts()
+        t0 = time.perf_counter()
+        marked = FrameMarker(codec, wm, b, device=device).mark(frames)
+        payloads = FrameExtractor(codec, deg, b, device=device).extract(marked)
+        t_host = time.perf_counter() - t0
+        assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+        assert torch.cuda.memory_allocated() == mem, (mem, torch.cuda.memory_allocated())
+        assert (payloads == np.array([int(c) for c in PAYLOAD], np.uint8)).all(), payloads
+        print(f"lowlink host wire: mark -> detect of {b} frames of {w}x{h} on the host: "
+              f"{t_host:.3f} s, 0 launches, device memory unchanged ({mem} B), payload "
+              f"{PAYLOAD} in {b}/{b}")
+
+        # 4. timings on the host clock
+        wms = [Shuffler(key=0).generate_wm(payload_for_segment(0, c),
+                                           codec.wm_capacity((h, w, 3))) for c in range(3)]
+        frame_b = b * h * w * 3
+        ll_px = b * (h // 4 * 2) * (w // 4 * 2)
+        legs = {"full": (frame_b, 3 * frame_b), "u8": (ll_px, 2 * ll_px),
+                "f16": (2 * ll_px, 2 * ll_px)}
+        rows = []
+        for path in ("full", "u8", "f16"):
+            os.environ["VFP_LOWLINK"] = "0" if path == "full" else "1"
+            os.environ["VFP_LL_WIRE"] = "u8" if path == "full" else path
+            mm = MultiMarker(codec, wms, b, device=device)
+            assert (mm._ll is None) == (path == "full")
+            mm.mark_all(frames)  # warm-up
+            if mm._ll is not None:
+                for k in mm._ll.stage_seconds:
+                    mm._ll.stage_seconds[k] = 0.0
+            ms = _median_ms(lambda: mm.mark_all(frames))
+            split = ("" if mm._ll is None else "; stages per call " + ", ".join(
+                f"{k} {v / 6 * 1e3:.2f} ms" for k, v in mm._ll.stage_seconds.items()))
+            up, down = legs[path]
+            rows.append(f"MultiMarker.mark_all {path}: {ms:.2f} ms ({b / ms * 1e3:.1f} frames/s), "
+                        f"up {_bytes_mb(up)}, down {_bytes_mb(down)}{split}")
+        for path in ("full", "u8"):
+            os.environ["VFP_LOWLINK"] = "0" if path == "full" else "1"
+            os.environ["VFP_LL_WIRE"] = "u8"
+            fx = FrameExtractor(codec, deg, b, device=device)
+            ms = _median_ms(lambda: fx.extract(marked))
+            up = frame_b if path == "full" else ll_px
+            rows.append(f"FrameExtractor.extract {path}: {ms:.2f} ms ({b / ms * 1e3:.1f} "
+                        f"frames/s), up {_bytes_mb(up)}, down {b * len(PAYLOAD)} B")
+        for row in rows:
+            print(f"lowlink timing ({b} frames of {w}x{h}, 3 variants, host clock, median of "
+                  f"5): {row}; card {card}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(root)
+    assert not use_lowlink(DwtDctSvd()), "the transport is still on after the phase"
+    print(f"lowlink: the phase {time.perf_counter() - t_phase:.1f} s; use_lowlink off again; "
+          f"launches {dict(counts)}")
     return counts
 
 
@@ -2705,11 +2969,13 @@ def time_kernels(device, cfg) -> dict:
     planes = frames.permute(0, 3, 1, 2)
     (nbh, nbw), _ = block_grid((h, w))
     wm2d = spread_wm(codec, h, w, device)[: nbh * nbw].reshape(nbh, nbw).contiguous()
-    # the SoA kernels at the blocks the main path gives them: W % 4 != 0 frames
+    # qim_embed_soa at the blocks the main path gives it: W % 4 != 0 frames
     narrow = torch.as_tensor(natural_frames(rng, b, h, cfg["narrow_w"]), device=device)
     (nbh, nbw), _ = block_grid((h, cfg["narrow_w"]))
     ll = codec._ll_from_frames(narrow.to(torch.float32), 1)
     m = image_to_soa(ll[:, : 4 * nbh, : 4 * nbw], 4)
+    # the triplet and the decode at the LL transport's 1080p blocks [16, 16, 32400]
+    m_ll = lowlink_soa(natural_frames(rng, b, h, w), device)
     wm = torch.as_tensor(np.random.RandomState(4).randint(0, 2, m.shape[2]).astype(np.float32),
                          device=device)
     wm_dct = torch.as_tensor(np.random.RandomState(6).randint(0, 2, (h // 8, w // 8)).astype(
@@ -2726,10 +2992,10 @@ def time_kernels(device, cfg) -> dict:
                               lambda: fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1)),
         "fused_extract_planar": (lambda: fe.fused_extract_planar(planes, 15.0, 1),
                                  lambda: fe.fused_extract_planar_reference(planes, 15.0, 1)),
-        "qim_triplet_soa": (lambda: qim.qim_triplet_soa(m),
-                            lambda: qim.qim_triplet_soa_reference(m)),
-        "qim_decode_soa": (lambda: qim.qim_decode_soa(m, 15.0),
-                           lambda: qim.qim_decode_soa_reference(m, 15.0)),
+        "qim_triplet_soa": (lambda: qim.qim_triplet_soa(m_ll),
+                            lambda: qim.qim_triplet_soa_reference(m_ll)),
+        "qim_decode_soa": (lambda: qim.qim_decode_soa(m_ll, 15.0),
+                           lambda: qim.qim_decode_soa_reference(m_ll, 15.0)),
         "qim_embed_soa": (lambda: qim.qim_embed_soa(m, wm, 15.0),
                           lambda: qim.qim_embed_soa_reference(m, wm, 15.0)),
         "fused_dct_qim_mark": (lambda: dq.fused_dct_qim_mark(planes, wm_dct, ALPHA, means),
@@ -2742,51 +3008,95 @@ def time_kernels(device, cfg) -> dict:
     }
     # one PyTorch call that computes the same function, where there is one: the
     # dominant triplet is the first singular triplet of each 4x4 block
-    blocks4 = m.permute(0, 2, 1).reshape(-1, 4, 4)
-    library = {"qim_triplet_soa": lambda: torch.linalg.svd(blocks4), **dt_library}
+    # (the decode's: its singular values, whose first is s0)
+    blocks4 = m_ll.permute(0, 2, 1).reshape(-1, 4, 4)
+    library = {"qim_triplet_soa": lambda: torch.linalg.svd(blocks4),
+               "qim_decode_soa": lambda: torch.linalg.svdvals(blocks4), **dt_library}
     frame_bytes, soa_bytes = planes.numel(), 4 * m.numel()
     nb, ns, tiles = (h // 8) * (w // 8), m.shape[0] * m.shape[2], b * (h // 8) * (w // 8)
+    ll_bytes, ns_ll = 4 * m_ll.numel(), m_ll.shape[0] * m_ll.shape[2]
     work = {  # (bytes each input read once and each output written once, FLOPs)
         "fused_mark_planar": (2 * frame_bytes + 4 * wm2d.numel(), tiles),
         "fused_extract_planar": (frame_bytes + 4 * tiles, tiles),
-        "qim_triplet_soa": (soa_bytes + 4 * 9 * ns, ns),
-        "qim_decode_soa": (soa_bytes + 4 * ns, ns),
+        "qim_triplet_soa": (ll_bytes + 4 * 9 * ns_ll, ns_ll),
+        "qim_decode_soa": (ll_bytes + 4 * ns_ll, ns_ll),
         "qim_embed_soa": (2 * soa_bytes + 4 * m.shape[2], ns),
         "fused_dct_qim_mark": (2 * frame_bytes + 4 * nb + 4 * b, tiles),
         "fused_dct_qim_extract": (frame_bytes + 4 * tiles + 4 * b, tiles),
         "y_dc_mean": (frame_bytes + 4 * b, b * h * w),
         **dt_work,
     }
-    shapes = {name: (m.shape if name.startswith("qim") else planes.shape) for name in cases}
+    shapes = {name: (m.shape if name == "qim_embed_soa" else planes.shape) for name in cases}
+    shapes.update({name: m_ll.shape for name in L2_FLUSHED})
     shapes.update(dt_shapes)
     times = {}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     for name, (kernel, plain) in cases.items():
         # plain, kernel, kernel, plain: the median of each pair of turns
-        p1 = _time_ms(plain, max(2, cfg["iters"] // 4))
-        k1 = _time_ms(kernel, cfg["iters"])
-        k2 = _time_ms(kernel, cfg["iters"])
-        p2 = _time_ms(plain, max(2, cfg["iters"] // 4))
+        timer = ((lambda fn, iters: _flushed_ms(fn, iters, flush)) if name in L2_FLUSHED
+                 else _time_ms)
+        p1 = timer(plain, max(2, cfg["iters"] // 4))
+        k1 = timer(kernel, cfg["iters"])
+        k2 = timer(kernel, cfg["iters"])
+        p2 = timer(plain, max(2, cfg["iters"] // 4))
         lib = library.get(name)
         nbytes, units = work[name]
         times[name] = timing_entry((k1 + k2) / 2, (p1 + p2) / 2, lib, kernel, nbytes,
                                    units * FLOPS_PER_UNIT[name], cfg["iters"],
-                                   capturable=name not in HOST_SYNCED_LIBRARY)
-        print(timing_line(name, shapes[name], times[name], b))
+                                   capturable=name not in HOST_SYNCED_LIBRARY, timer=timer)
+        print(timing_line(name, shapes[name], times[name], b)
+              + (" [L2 flushed before each timed launch]" if name in L2_FLUSHED else ""))
+    del flush
     return times
 
 
 # library yardsticks that wait on the host (the solver checks its status),
 # so no CUDA graph can capture them: their device-only time is not measured
-HOST_SYNCED_LIBRARY = {"qim_triplet_soa"}
+HOST_SYNCED_LIBRARY = {"qim_triplet_soa", "qim_decode_soa"}
+# kernels whose 33 MB input would stay in the 50 MB L2 across back-to-back
+# launches, where the LL transport's caller hands them blocks just uploaded:
+# timed one launch at a time after a write of L2_FLUSH_BYTES
+L2_FLUSHED = ("qim_triplet_soa", "qim_decode_soa")
+L2_FLUSH_BYTES = 256 << 20
 
 
-def timing_entry(ms, plain_ms, library, kernel, nbytes, flops, iters, capturable=True) -> dict:
+def _flushed_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Device ms of one ``fn()`` with a cold L2: each timed launch follows a
+    write of ``flush`` (5x the H100's 50 MB L2), events around the launch alone."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def lowlink_soa(frames: np.ndarray, device) -> torch.Tensor:
+    """The SoA blocks the LL transport gives the QIM kernels: the u8 wire's LL
+    of ``frames``, uploaded and decoded on ``device``, cut to the block grid."""
+    from vfp_tpu_torch.ops.soa import image_to_soa
+    from vfp_tpu_torch.pipeline import lowlink
+
+    ll = lowlink._wire_decode(torch.as_tensor(
+        lowlink.wire_encode(lowlink.host_ll(frames, 1), "u8", 1), device=device), 1)
+    return image_to_soa(ll[:, : ll.shape[1] // 4 * 4, : ll.shape[2] // 4 * 4], 4)
+
+
+def timing_entry(ms, plain_ms, library, kernel, nbytes, flops, iters, capturable=True,
+                 timer=_time_ms) -> dict:
     """One kernel's numbers: host-inclusive ms (events around back-to-back
-    wrapper calls), device-only ms (a CUDA graph), the library yardstick's
-    two times, and the bound."""
+    wrapper calls; ``timer``'s, for the L2-flushed ones), device-only ms (a
+    CUDA graph, L2 warm), the library yardstick's two times, and the bound."""
     bound_ms, bound_by = bound(nbytes, flops)
     return {"ms": ms, "plain_ms": plain_ms, "device_ms": _graph_ms(kernel, iters),
-            "library_ms": None if library is None else _time_ms(library, 2),
+            "library_ms": None if library is None else timer(library, 2),
             "library_device_ms": (_graph_ms(library, iters)
                                   if library is not None and capturable else None),
             "bound_ms": bound_ms, "bound_by": bound_by, "mb": nbytes / 1e6, "gflop": flops / 1e9}
@@ -3472,6 +3782,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     cfg = FULL
+    t_start = time.perf_counter()
 
     smi = nvidia_smi_line()
     card = f"[{smi}]"
@@ -3524,6 +3835,7 @@ def main(argv=None) -> int:
         counts.update(run_media_path(device, cfg, Path(tmp), smooth_180))
         smooth_180.unlink()
         counts.update(run_ffmpeg_path(device, cfg, Path(tmp), hls_counts))
+        counts.update(run_lowlink_path(device, cfg, Path(tmp), source_1080p, hls_stats))
         counts.update(run_parallel_path(device, cfg, Path(tmp), hls_stats))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 
@@ -3547,6 +3859,8 @@ def main(argv=None) -> int:
          "replaces": replaces, "launches": counts[name], "max_abs_err": errs[name],
          **{k: times[name][k] for k in keys}, **({"shapes": sweep[name]} if name in sweep else {})}
         for name, (src, replaces) in REPLACES.items()]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device check to the "
+          f"kernels line")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -719,7 +719,8 @@ def test_staging_is_reused_and_held_outputs_stay_valid(cuda_device):
     before = set(STAGING._buffers)
     handles = [mms[s][0].submit(b) for s, b in batches]
     assert all(h.done is not None for h in handles)  # each waits on its own event
-    staged = {s: STAGING._buffers[(cuda_device, (4, *s, 3))] for s in shapes}
+    key = {s: (cuda_device, (4, *s, 3), torch.uint8) for s in shapes}  # (device, shape, dtype)
+    staged = {s: STAGING._buffers[key[s]] for s in shapes}
     outs = [mms[s][0].collect(h) for (s, _), h in zip(batches, handles)]
     for (s, b), o in zip(batches, outs):
         assert o.shape == (2, len(b), *s, 3)
@@ -727,8 +728,8 @@ def test_staging_is_reused_and_held_outputs_stay_valid(cuda_device):
         np.testing.assert_array_equal(mms[s][1].extract(o[0]), np.tile(PAYLOAD, (len(b), 1)))
         np.testing.assert_array_equal(mms[s][1].collect(mms[s][1].submit(o[1])),
                                       np.tile(1 - PAYLOAD, (len(b), 1)))
-    assert set(STAGING._buffers) - before <= {(cuda_device, (4, *s, 3)) for s in shapes}
-    assert all(STAGING._buffers[(cuda_device, (4, *s, 3))] is staged[s] for s in shapes)
+    assert set(STAGING._buffers) - before <= set(key.values())
+    assert all(STAGING._buffers[key[s]] is staged[s] for s in shapes)
 
 
 @pytest.mark.cuda
@@ -844,3 +845,96 @@ def test_corr_batch_fn_on_the_card_matches_its_cpu_result(cuda_device):
     assert got.shape == (8, 5)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert (got.argmax(axis=1) == 2).all() and (want.argmax(axis=1) == 2).all()
+
+
+# -- the LL-domain transport (pipeline/lowlink.py) on the card ------------------------
+
+def _ll_wms(h, w, n):
+    from vfp_tpu_torch.fingerprint import payload_for_segment
+
+    return [np.asarray(Shuffler(key=0).generate_wm(payload_for_segment(1, c), (1, h * w // 64)),
+                       np.float32).reshape(-1) for c in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["u8", "f16"])
+@pytest.mark.parametrize("n_variants", [1, 3])
+def test_lowlink_marker_on_the_card_matches_its_cpu_result(cuda_device, monkeypatch, wire,
+                                                           n_variants):
+    """The transport on the card: one qim_triplet_soa launch a batch, no
+    fused kernel; the marked frames against the same marker on the CPU
+    (the plain triplet) within +-1 on >= 99.9% of pixels, every variant's
+    payload recovered by the card's extractor (one qim_decode_soa a batch)."""
+    from vfp_tpu_torch.fingerprint import payload_for_segment
+    from vfp_tpu_torch.pipeline import FrameExtractor, MultiMarker
+
+    monkeypatch.setenv("VFP_LOWLINK", "1")
+    monkeypatch.setenv("VFP_LL_WIRE", wire)
+    rng = np.random.RandomState(41)
+    h, w = 240, 318
+    frames = natural_frames(rng, 6, h, w)
+    wms = _ll_wms(h, w, n_variants)
+    kernels.reset_launch_counts()
+    mm = MultiMarker(DwtDctSvd(), wms, 4, device=cuda_device)
+    assert mm._ll is not None and mm.wms is None
+    got = np.concatenate([mm.collect(hd) for hd in (mm.submit(frames[:4]), mm.submit(frames[4:]))],
+                         axis=1)
+    counts = kernels.launch_counts()
+    want = MultiMarker(DwtDctSvd(), wms, 4, device="cpu").mark_all(frames)
+    assert counts["qim_triplet_soa"] == 2, counts
+    assert not any(v for k, v in counts.items() if k != "qim_triplet_soa"), counts
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+    deg = DeShuffler(key=0, threshold="fixed").set_shape((8,))
+    fx = FrameExtractor(DwtDctSvd(), deg, 4, device=cuda_device)
+    kernels.reset_launch_counts()
+    for v in range(n_variants):
+        np.testing.assert_array_equal(fx.extract(got[v, :4]),
+                                      np.tile(payload_for_segment(1, v), (4, 1)))
+    counts = kernels.launch_counts()
+    assert counts["qim_decode_soa"] == n_variants and counts["fused_extract_planar"] == 0
+
+
+@pytest.mark.cuda
+def test_lowlink_packer_on_the_card_equals_unpacked(cuda_device, monkeypatch):
+    """Three 6-frame segments packed into calls of at most 16 frames on the
+    card: each segment's variants equal its unpacked two-plane marker's."""
+    from vfp_tpu_torch.pipeline.lowlink import LowLinkMarker, PackedTwoPlane
+
+    monkeypatch.setenv("VFP_LOWLINK", "1")
+    rng = np.random.RandomState(42)
+    segs = [natural_frames(rng, 6, 128, 192) for _ in range(3)]
+    wms = _ll_wms(128, 192, 3)
+    codec = DwtDctSvd()
+    packer = PackedTwoPlane(codec, pack=16, device=cuda_device)
+    mms = [LowLinkMarker(codec, wms, 16, packer=packer, device=cuda_device) for _ in segs]
+    kernels.reset_launch_counts()
+    handles = [m.submit(f) for m, f in zip(mms, segs)]
+    packer.flush()
+    outs = [m.collect(hd) for m, hd in zip(mms, handles)]
+    assert packer.call_frames == [16, 2]
+    assert kernels.launch_counts()["qim_triplet_soa"] == 2
+    for f, o in zip(segs, outs):
+        np.testing.assert_array_equal(o, LowLinkMarker(codec, wms, 16,
+                                                       device=cuda_device).mark_all(f))
+
+
+@pytest.mark.cuda
+def test_lowlink_host_wire_leaves_the_card_alone(cuda_device, monkeypatch):
+    """VFP_LL_WIRE=host with a CUDA device: mark and detect on the host, no
+    launch and no device memory allocated."""
+    from vfp_tpu_torch.pipeline import FrameExtractor, FrameMarker
+
+    monkeypatch.setenv("VFP_LL_WIRE", "host")
+    monkeypatch.delenv("VFP_LOWLINK", raising=False)
+    frames = natural_frames(np.random.RandomState(43), 4, 128, 192)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    marked = FrameMarker(DwtDctSvd(), _wm(128, 192, "cpu").numpy(), 4,
+                         device=cuda_device).mark(frames)
+    deg = DeShuffler(key=0, threshold="fixed").set_shape((len(PAYLOAD),))
+    payloads = FrameExtractor(DwtDctSvd(), deg, 4, device=cuda_device).extract(marked)
+    assert not any(kernels.launch_counts().values())
+    assert torch.cuda.memory_allocated() == before
+    np.testing.assert_array_equal(payloads, np.tile(PAYLOAD, (4, 1)))

@@ -731,3 +731,76 @@ def test_mjpeg_avi_holds_rgb_for_an_rgb24_decoder(tmp_path):
         np.testing.assert_array_equal(r.read_batch(1)[0], rgb)
     finally:
         r.close()
+
+
+# -- durability: the JAX package's ffmpeg channel ---------------------------------------
+
+class _PassThrough(_Recorder):
+    """``_Recorder`` that also runs each call, with the real ``subprocess``
+    functions (the shim answers them)."""
+
+    def __init__(self, run, popen):
+        super().__init__()
+        self._run, self._popen = run, popen
+
+    def run(self, args, **kw):
+        self._record("run", args)
+        return self._run(args, **kw)
+
+    def popen(self, args, **kw):
+        self._record("Popen", args)
+        return self._popen(args, **kw)
+
+
+def _durability_run(fn, src, out, container, monkeypatch, **kw):
+    """(every ffmpeg/ffprobe argv with ``out`` written OUT, the report with
+    its paths relative to ``out`` and without wall_seconds)."""
+    rec = _PassThrough(subprocess.run, subprocess.Popen)
+    with monkeypatch.context() as mp:
+        mp.setattr(subprocess, "run", rec.run)
+        mp.setattr(subprocess, "Popen", rec.popen)
+        report = fn(src, out, segment_duration=1.0, batch_size=4, container=container, **kw)
+    argv = [(k, [a.replace(str(out), "OUT") for a in args]) for k, args in rec.calls]
+    report = json.loads(json.dumps(report).replace(str(out), "OUT"))
+    report.pop("wall_seconds")
+    return argv, report
+
+
+@pytest.mark.parametrize("container", [None, "mp4"])
+def test_durability_takes_the_jax_ffmpeg_route(shim, tmp_path, rng, monkeypatch, container):
+    """With ffmpeg on PATH the port's durability experiment segments through
+    ffmpeg, marks into ``.mp4`` through the pipe writer, splices ``full.mp4``
+    with ffmpeg's concat and re-segments it, as ``vfp_tpu.workflows.durability``
+    does: every ffmpeg/ffprobe argv and the report (wall seconds aside) equal.
+    The shim copies frames, so this proves the plumbing, not a codec's loss."""
+    from vfp_tpu.workflows import durability as jdur
+    from vfp_tpu_torch.workflows import durability as tdur
+
+    src = write_clip(tmp_path / "src.rawv", natural_frames(rng, N))
+    argv, report = _durability_run(tdur.run_durability, src, tmp_path / "port", container,
+                                   monkeypatch, **CPU)
+    jargv, jreport = _durability_run(jdur.run_durability, src, tmp_path / "jax", container,
+                                     monkeypatch)
+    assert argv == jargv
+    assert report == jreport
+    assert report["is_successful"] and report["segment_pairs"] == 2
+    assert [r["segment"] for r in report["reencoded_results"]] == [
+        f"OUT/resegmented/segment_{i:03d}.mp4" for i in range(2)]
+    assert sorted(p.name for p in (tmp_path / "port" / "marked_segments").iterdir()) == [
+        "marked_segment_000.mp4", "marked_segment_001.mp4"]
+    assert (tmp_path / "port" / "full.mp4").exists()
+    kinds = [(k, a[0], "concat" in a, "-segment_time" in a) for k, a in argv]
+    assert kinds.count(("run", "ffmpeg", False, True)) == 2  # segment, re-segment
+    assert kinds.count(("run", "ffmpeg", True, False)) == 1  # the splice
+    assert sum(k == "Popen" and "-s" in a for k, a in argv) == 2  # a pipe writer a segment
+
+
+def test_durability_cli_accepts_mp4_with_ffmpeg(shim, tmp_path, rng, capsys):
+    src = write_clip(tmp_path / "src.rawv", natural_frames(rng, N))
+    with pytest.raises(SystemExit) as e:  # exit 0: the report's verdict
+        port_cli(["durability", str(src), str(tmp_path / "d"), "--container", "mp4",
+                  "--segment-duration", "1", "--device", "cpu"])
+    assert e.value.code == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["is_successful"] and report["original_total"] == 2
+    assert (tmp_path / "d" / "full.mp4").exists()

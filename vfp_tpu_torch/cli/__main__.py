@@ -45,9 +45,10 @@ its own); ``hls-mark`` segments a ``.rawv`` into ``.rawv`` and anything else
 into MJPEG ``.avi`` (the JAX CLI's choice without ffmpeg), with the source's
 audio in per-segment sidecars that ``leak`` muxes back into an ``.mp4``.
 ``durability`` runs the JAX CLI's lossy
-experiment through MJPEG ``.avi`` (JPEGs coded as cv2 codes them), prints its
-JSON report and exits 0 when it passes, 1 when not; ``--container mp4`` is
-refused (no mp4v encoder or decoder).  ``hls-mark`` also prints ``mark_segments``'
+experiment, through ffmpeg's ``.mp4`` segments, pipe writer and concat where
+the binary is on PATH, else through MJPEG ``.avi`` (JPEGs coded as cv2 codes
+them), prints its JSON report and exits 0 when it passes, 1 when not;
+without ffmpeg ``--container mp4`` is refused (no mp4v encoder or decoder).  ``hls-mark`` also prints ``mark_segments``'
 stage seconds; its ``--workers`` processes mark on ``--device`` (the card
 by default, where the JAX CLI's workers run on the CPU), and its
 ``--distributed`` ranks join a torch.distributed gloo group.  ``mark
@@ -611,8 +612,9 @@ def main(argv=None):
     u.add_argument("--codec", choices=["dwtDctSvd", "dct", "dtcwtKey"], default="dwtDctSvd",
                    help="dtcwtKey runs the correlation-identification variant")
     u.add_argument("--container", choices=["avi", "mp4"], default=None,
-                   help="lossy channel: avi = MJPEG at --quality (intra-only); mp4 (cv2 "
-                        "mp4v in vfp_tpu.cli) is refused: the port has no mp4v encoder")
+                   help="lossy channel: avi = MJPEG at --quality (intra-only); mp4 = the "
+                        "ffmpeg pipe writer, only where ffmpeg is on PATH (without it the "
+                        "JAX CLI's mp4 is cv2 mp4v, which the port has no encoder of)")
     u.add_argument("--alpha", type=float, default=None,
                    help="embedding strength override (QIM scale for dwtDctSvd/dct)")
     u.add_argument("--device", default="cuda", help="torch device (default cuda)")

@@ -15,8 +15,9 @@ an ``ffmpeg`` binary is on PATH (the JAX module's choice); without one,
 shares its segment's audio sidecar where the segment has one
 (``segment_NNN.audio.mp4`` -> ``marked_segN_copyC.audio.mp4``; the ffmpeg
 route's segments carry their audio and have none).  ``_read_all`` reads
-every container the port reads.  The JAX module's low-link packers are not
-ported.
+every container the port reads.  Under the LL transport
+(``pipeline/lowlink.py``, ``VFP_LOWLINK=1``) one ``PackedTwoPlane`` per
+frame size packs the device calls of every segment with 3 or more copies.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ import numpy as np
 from ..io import ffmpeg, open_reader, open_writer
 from ..io.mp4 import audio_sidecar
 from ..io.readers import RAWV_MAGIC, require_supported
-from ..pipeline import MultiMarker, cached_bit_extractor
+from ..pipeline import MultiMarker, cached_bit_extractor, use_lowlink
+from ..pipeline.lowlink import PackedTwoPlane, default_wire
 from ..utils.device import resolve_device
 from ..wm import DwtDctSvd, Shuffler
 from .payloads import payload_for_segment
@@ -127,7 +129,15 @@ def mark_segments(
     and the downloads not yet hidden) and ``encode_write`` (writer), and the
     waits that complete the accounting: ``decode_wait`` and ``queue_wait``
     (main thread blocked on the decode future / the full writer queue) and
-    ``writer_idle`` (writer blocked on an empty queue).
+    ``writer_idle`` (writer blocked on an empty queue).  Under the LL
+    transport, as in the JAX function, ``stage_seconds`` also has the
+    transport's stages (``host_ll``, ``dispatch``, ``link_fetch``,
+    ``recentre``, ``host_qim``, ``reconstruct``; ``device_full`` stays 0),
+    ``host_busy_seconds`` adds its host stages, and ``stats`` gets
+    ``link_device_wait_seconds`` and, where a packer ran,
+    ``packed_device_calls``; the port adds ``packed_device_frames`` (the
+    frames of those calls) and ``host_routed_batches`` (the batches the u8
+    wire's flat-content hysteresis marked on the host).
     """
     device = resolve_device(device)
     codec = codec or DwtDctSvd()
@@ -155,6 +165,24 @@ def mark_segments(
     t_wall0 = time.perf_counter()
     ss = {"decode": 0.0, "device_full": 0.0, "encode_write": 0.0, "decode_wait": 0.0,
           "queue_wait": 0.0, "writer_idle": 0.0}
+    lowlink = use_lowlink(codec)
+    if lowlink:
+        ss.update(dict.fromkeys(("host_ll", "dispatch", "link_fetch", "recentre", "host_qim",
+                                 "reconstruct"), 0.0))
+    # each segment's transport stage seconds (small dicts, not the markers:
+    # those hold every watermark and mask of their segment)
+    lowlink_stages: list = []
+    host_routed = 0
+    packers: dict = {}  # (h, w) -> PackedTwoPlane shared across segments
+
+    def _packer(h, w, n_variants):
+        # the two-plane calls depend only on the LL, so one call carries
+        # frames of many segments; each marker selects its variants after
+        if n_variants < 3 or not lowlink or default_wire() == "host":
+            return None
+        if (h, w) not in packers:
+            packers[(h, w)] = PackedTwoPlane(codec, pack=max(batch_size, 16), device=device)
+        return packers[(h, w)]
 
     def _read_timed(file):
         t0 = time.perf_counter()
@@ -198,7 +226,8 @@ def mark_segments(
                     t0 = time.perf_counter()
                     out = mm.collect(handle)  # waits on this batch's event alone
                     t1 = time.perf_counter()
-                    ss["device_full"] += t1 - t0
+                    if mm._ll is None:  # the transport times its own stages
+                        ss["device_full"] += t1 - t0
                     for vi, c in enumerate(todo):
                         writers[c].write_batch(out[vi])
                     ss["encode_write"] += time.perf_counter() - t1
@@ -229,7 +258,10 @@ def mark_segments(
                 wms = [generator.generate_wm(payload_for_segment(seg_idx, c),
                                              codec.wm_capacity((h, w, 3)))
                        for c in todo]
-                mm = MultiMarker(codec, wms, batch_size=batch_size, device=device)
+                mm = MultiMarker(codec, wms, batch_size=batch_size,
+                                 packer=_packer(h, w, len(todo)), device=device)
+                if mm._ll is not None:
+                    lowlink_stages.append(mm._ll.stage_seconds)
                 paths = [str(out_file(seg_idx, seg_file, c)) for c in todo]
                 writers = {c: open_writer(out_file(seg_idx, seg_file, c), w, h, fps, quality)
                            for c in todo}
@@ -243,6 +275,8 @@ def mark_segments(
                     ss["queue_wait"] += time.perf_counter() - t_qw
                 wq.put(("close", writers, paths))
                 current = None
+                if mm._ll is not None:  # its submits are done: the count is final
+                    host_routed += mm._ll.host_batches
             # audio rides along: every variant of this segment shares the
             # source segment's sidecar (the splice paths mux it back)
             src_audio = audio_sidecar(seg_file)
@@ -259,6 +293,8 @@ def mark_segments(
                 segment_payloads[f"{seg_idx}_{copy_index}"] = payload.tolist()
                 logger.info("marked segment %d copy %d -> %s", seg_idx, copy_index, f)
             segment_copies["segments"][str(seg_idx)] = seg_entry
+        for p in packers.values():  # dispatch a tail partial chunk now, not at
+            p.flush()  # the writer's collect
     except BaseException as e:
         # a failure here (a launch, a read): the writer drains from now on,
         # recording every file it touches, and the open segment is closed
@@ -285,9 +321,23 @@ def mark_segments(
         }
     )
     if stats is not None:
+        # summed after the join: the writer thread owned the collects
+        for st in lowlink_stages + [p.stage_seconds for p in packers.values()]:
+            for k, v in st.items():
+                ss[k] += v
         stats["wall_seconds"] = round(time.perf_counter() - t_wall0, 3)
         stats["stage_seconds"] = {k: round(v, 3) for k, v in ss.items()}
-        stats["host_busy_seconds"] = round(ss["decode"] + ss["encode_write"], 3)
+        host = ss["decode"] + ss["encode_write"]
+        if lowlink:
+            host += ss["host_ll"] + ss["recentre"] + ss["host_qim"] + ss["reconstruct"]
+            stats["link_device_wait_seconds"] = round(
+                ss["dispatch"] + ss["link_fetch"] + ss["device_full"], 3)
+            stats["host_routed_batches"] = host_routed
+            if packers:
+                stats["packed_device_calls"] = sum(p.calls for p in packers.values())
+                stats["packed_device_frames"] = sum(sum(p.call_frames)
+                                                    for p in packers.values())
+        stats["host_busy_seconds"] = round(host, 3)
     return marked, segment_payloads, segment_copies
 
 

@@ -1,10 +1,16 @@
-"""Compile and load the port's native host library (ctypes).
+"""Compile and load the port's native host libraries (ctypes).
 
-One shared library from two sources: ``vfpio.cpp`` (``.rawv`` streaming) and
-``jpeg.cpp`` (the baseline JPEG codec of the MJPEG-AVI files).  Built with
-g++ at first use, never at import, into ``build/vfp_tpu_torch/native/<hash>/``
-at the repository root, keyed by a hash of both sources and the flags; later
-processes load the file that is there.  Host code only: no device code.
+Two shared libraries, each built with g++ at first use, never at import,
+into ``build/vfp_tpu_torch/native/<hash>/`` at the repository root, keyed by
+a hash of its sources and flags; later processes load the file that is
+there.  Host code only: no device code.
+
+- ``libvfpio.so`` from ``vfpio.cpp`` (``.rawv`` streaming) and ``jpeg.cpp``
+  (the baseline JPEG codec of the MJPEG-AVI files);
+- ``liblowlink.so`` from ``lowlink.cpp`` (the host half of the LL-domain
+  transport, ``pipeline/lowlink.py``), with flags of its own:
+  ``-ffp-contract=off`` (no FMA contraction, so each float expression keeps
+  its source order) and, on x86, ``-mf16c -mavx2`` for ``_Float16``.
 """
 
 from __future__ import annotations
@@ -12,18 +18,27 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
-SOURCES = tuple(Path(__file__).resolve().parent / name for name in ("vfpio.cpp", "jpeg.cpp"))
+_HERE = Path(__file__).resolve().parent
+SOURCES = tuple(_HERE / name for name in ("vfpio.cpp", "jpeg.cpp"))
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vfp_tpu_torch" / "native"
 # -fwrapv: the JPEG decoder's integer IDCT wraps on corrupt coefficients, as
 # libjpeg's does, instead of meeting undefined behaviour
 GXX_FLAGS = ("-O3", "-fwrapv", "-shared", "-fPIC", "-std=c++17", "-pthread")
 LIB_NAME = "libvfpio.so"
+
+LOWLINK_SOURCES = (_HERE / "lowlink.cpp",)
+# _Float16 needs F16C on x86; other machines (aarch64) have it natively
+_X86_F16 = (("-mf16c", "-mavx2") if platform.machine() in ("x86_64", "AMD64", "i686")
+            else ())
+LOWLINK_FLAGS = ("-O3", *_X86_F16, "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17")
+LOWLINK_LIB_NAME = "liblowlink.so"
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 # (restype, argtypes) of every exported function
@@ -42,16 +57,25 @@ SIGNATURES = {
     "vfpjpeg_decode": (_I, [ctypes.c_char_p, _L, _P, _I, _I, ctypes.c_char_p, _I]),
     "vfpjpeg_decode_gray": (_I, [ctypes.c_char_p, _L, _P, _I, _I, ctypes.c_char_p, _I]),
 }
+_F = ctypes.c_float
+LOWLINK_SIGNATURES = {
+    "vfpio_reconstruct": (None, [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L]),
+    "vfpio_host_ll": (None, [_P, _P, _L, _L, _L, _L, _L, _F, _F, _F, _F]),
+    "vfpio_qim_dll": (None, [_P, _P, _P, _L, _L, _L, _L, _F]),
+    "vfpio_qim_repair": (None, [_P, _P, _P, _P, _L, _L, _L, _L, _F]),
+    "vfpio_qim_bits": (None, [_P, _P, _L, _L, _L, _F]),
+    "vfpio_recentre2": (None, [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _F, _F, _F]),
+}
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict = {}  # library file name -> loaded CDLL
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    for src in SOURCES:
+def library_path(sources=SOURCES, flags=GXX_FLAGS, name=LIB_NAME) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode() + src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    return BUILD_ROOT / h.hexdigest()[:16] / name
 
 
 def have_native() -> bool:
@@ -59,14 +83,14 @@ def have_native() -> bool:
     return shutil.which("g++") is not None or library_path().exists()
 
 
-def _compile(path: Path) -> None:
+def _compile(path: Path, sources, flags) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     # build beside the target and rename, so a concurrent process never loads
     # a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
     os.close(fd)
     try:
-        r = subprocess.run(["g++", *GXX_FLAGS, *map(str, SOURCES), "-o", tmp],
+        r = subprocess.run(["g++", *flags, *map(str, sources), "-o", tmp],
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"g++ failed (exit {r.returncode}):\n{r.stderr}{r.stdout}")
@@ -76,17 +100,27 @@ def _compile(path: Path) -> None:
             os.unlink(tmp)
 
 
-def load_vfpio() -> ctypes.CDLL:
-    """The loaded library, built first if this source hash has none."""
-    global _lib
+def _load(sources, flags, name, signatures) -> ctypes.CDLL:
     with _lock:
-        if _lib is None:
-            path = library_path()
+        lib = _libs.get(name)
+        if lib is None:
+            path = library_path(sources, flags, name)
             if not path.exists():
-                _compile(path)
+                _compile(path, sources, flags)
             lib = ctypes.CDLL(str(path))
-            for name, (restype, argtypes) in SIGNATURES.items():
-                fn = getattr(lib, name)
+            for fn_name, (restype, argtypes) in signatures.items():
+                fn = getattr(lib, fn_name)
                 fn.restype, fn.argtypes = restype, argtypes
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return lib
+
+
+def load_vfpio() -> ctypes.CDLL:
+    """The loaded streaming and JPEG library, built first if this source hash has none."""
+    return _load(SOURCES, GXX_FLAGS, LIB_NAME, SIGNATURES)
+
+
+def load_lowlink() -> ctypes.CDLL:
+    """The loaded low-link host library, built first if this source hash has
+    none.  A failed build raises: the transport has no other host path."""
+    return _load(LOWLINK_SOURCES, LOWLINK_FLAGS, LOWLINK_LIB_NAME, LOWLINK_SIGNATURES)

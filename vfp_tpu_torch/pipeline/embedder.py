@@ -2,9 +2,10 @@
 (port of ``vfp_tpu/pipeline/embedder.py``).
 
 Frames move in ``[B, H, W, 3]`` batches; a reader thread decodes batch k+1
-and a writer thread encodes batch k-1 while the device marks batch k.  The
-JAX package's low-link transport is not ported: it exists for a TPU behind a
-slow relay.  Every class takes the device it runs on.
+and a writer thread encodes batch k-1 while the device marks batch k.  Every
+class takes the device it runs on.  With ``VFP_LOWLINK=1`` (or
+``VFP_LL_WIRE=host``) the flagship codec's markers move LL-band data instead
+of frames (``lowlink.py``; ``use_lowlink``).
 
 ``MultiMarker.submit`` enqueues a batch's upload, marks and downloads and
 returns a handle; ``collect`` waits on that handle alone, so the writer
@@ -15,6 +16,7 @@ submitted (transfers: ``transfer.py``).
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -23,6 +25,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .lowlink import LowLinkMarker, default_wire, lowlink_ok
 from .transfer import Pending, download, upload_batch
 
 logger = logging.getLogger(__name__)
@@ -30,43 +33,70 @@ logger = logging.getLogger(__name__)
 _SENTINEL = None
 
 
+def use_lowlink(codec) -> bool:
+    """The LL-domain transport's policy (``lowlink.py``), the JAX package's
+    rule: ``VFP_LOWLINK=0`` turns it off; a codec it does not apply to stays
+    off; ``VFP_LOWLINK=1`` or ``VFP_LL_WIRE=host`` turns it on; otherwise
+    it is off, as the JAX package has it everywhere but on a TPU."""
+    flag = os.environ.get("VFP_LOWLINK", "auto")
+    if flag == "0" or not lowlink_ok(codec):
+        return False
+    return flag == "1" or default_wire() == "host"
+
+
 class FrameMarker:
-    """Binds a codec + spread watermark into a uint8 batch transform on ``device``."""
+    """Binds a codec + spread watermark into a uint8 batch transform on
+    ``device``; through the LL transport where ``use_lowlink`` says so."""
 
     def __init__(self, codec, wm: np.ndarray, batch_size: int = 16, *, device):
         self.codec = codec
         self.device = torch.device(device)
-        self.wm = torch.as_tensor(np.asarray(wm, np.float32).reshape(-1), device=self.device)
         self.batch_size = batch_size
+        wm = np.asarray(wm, np.float32).reshape(-1)
+        self._ll = (LowLinkMarker(codec, [wm], batch_size, device=self.device)
+                    if use_lowlink(codec) else None)
+        # the host wire makes no CUDA call, so nothing is placed on the device
+        self.wm = None if self._ll is not None else torch.as_tensor(wm, device=self.device)
 
     def mark(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] -> [k, H, W, 3] uint8."""
+        if self._ll is not None:
+            return self._ll.mark_all(frames)[0]
         return _submit_marks(self.codec, frames, self.wm[None], self.batch_size,
                              self.device).wait()[0]
 
 
 class MultiMarker:
     """Marks every watermark variant of each frame batch (the HLS copies);
-    the frames are uploaded once per batch."""
+    the frames are uploaded once per batch.  Through the LL transport where
+    ``use_lowlink`` says so, with device calls packed across markers by a
+    shared ``packer`` (``lowlink.PackedTwoPlane``) for 3 or more variants."""
 
-    def __init__(self, codec, wms, batch_size: int = 16, *, device):
+    def __init__(self, codec, wms, batch_size: int = 16, packer=None, *, device):
         self.codec = codec
         self.device = torch.device(device)
-        self.wms = torch.as_tensor(
-            np.stack([np.asarray(w, np.float32).reshape(-1) for w in wms]), device=self.device)
         self.batch_size = batch_size
+        wms = np.stack([np.asarray(w, np.float32).reshape(-1) for w in wms])
+        self._ll = (LowLinkMarker(codec, wms, batch_size, packer=packer, device=self.device)
+                    if use_lowlink(codec) else None)
+        self.wms = None if self._ll is not None else torch.as_tensor(wms, device=self.device)
+        self._n = len(wms)
 
     @property
     def n_variants(self) -> int:
-        return len(self.wms)
+        return self._n
 
-    def submit(self, frames: np.ndarray) -> Pending:
+    def submit(self, frames: np.ndarray):
         """Enqueue the upload, every variant's mark and the downloads, and
         return without waiting on the device (on the CPU: mark now)."""
+        if self._ll is not None:
+            return self._ll.submit(frames)
         return _submit_marks(self.codec, frames, self.wms, self.batch_size, self.device)
 
-    def collect(self, handle: Pending) -> np.ndarray:
+    def collect(self, handle) -> np.ndarray:
         """[V, k, H, W, 3] uint8 of a ``submit``, once its event has passed."""
+        if self._ll is not None:
+            return self._ll.collect(handle)
         return handle.wait()
 
     def mark_all(self, frames: np.ndarray) -> np.ndarray:

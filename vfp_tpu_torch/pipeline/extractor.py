@@ -2,7 +2,9 @@
 (port of ``vfp_tpu/pipeline/extractor.py``).
 
 Decoding and despreading run per batch on the device; only the per-frame
-payloads come back to the host, where the majority vote is taken once.
+payloads come back to the host, where the majority vote is taken once.  With
+``VFP_LOWLINK=1`` (or ``VFP_LL_WIRE=host``) the flagship codec's extractor
+sends the LL band up instead of frames (``lowlink.LowLinkExtractor``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .embedder import use_lowlink
+from .lowlink import LowLinkExtractor, default_wire
 from .transfer import Pending, download, upload_batch
 
 logger = logging.getLogger(__name__)
@@ -33,36 +37,46 @@ class FrameExtractor:
         self.degenerator = degenerator
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self._ll = (LowLinkExtractor(codec, degenerator, batch_size, device=self.device)
+                    if use_lowlink(codec) else None)
 
     def extract(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] u8 -> [k, payload_len] u8 payloads."""
         return self.collect(self.submit(frames))
 
     @torch.inference_mode()
-    def submit(self, frames: np.ndarray) -> Pending:
+    def submit(self, frames: np.ndarray):
         """Enqueue the upload, the decode and the download of the payloads
         alone, and return without waiting on the device (on the CPU: decode
         now)."""
+        if self._ll is not None:
+            return self._ll.submit(frames)
         x = upload_batch(frames, self.batch_size, self.device)
         payloads = self.degenerator.degenerate_batch(self.codec.extract_frames(x))
         return download([payloads], len(frames))
 
-    def collect(self, handle: Pending) -> np.ndarray:
+    def collect(self, handle) -> np.ndarray:
         """[k, payload_len] u8 payloads of a ``submit``, once its event has passed."""
+        if self._ll is not None:
+            return self._ll.collect(handle)
         return handle.wait()[0]
 
 
 def cached_bit_extractor(codec, key, payload_len: int, batch_size: int = 16,
                          threshold: str = "fixed", *, device) -> FrameExtractor:
     """Memoized FrameExtractor for bit payloads, keyed by every argument
-    (the codec is a frozen dataclass, so it hashes by value)."""
+    (the codec is a frozen dataclass, so it hashes by value) and by the
+    transport's resolved wire: an extractor binds its wire when it is made,
+    so a change of ``VFP_LOWLINK`` or ``VFP_LL_WIRE`` in the process must
+    not reuse one made under the old setting."""
+    wire = default_wire() if use_lowlink(codec) else None
     return _cached_bit_extractor(codec, key, payload_len, batch_size, threshold,
-                                 str(torch.device(device)))
+                                 str(torch.device(device)), wire)
 
 
 @lru_cache(maxsize=64)
 def _cached_bit_extractor(codec, key, payload_len: int, batch_size: int, threshold: str,
-                          device: str) -> FrameExtractor:
+                          device: str, wire) -> FrameExtractor:
     from ..wm import DeShuffler
 
     deg = DeShuffler(key=key, threshold=threshold).set_shape((payload_len,))

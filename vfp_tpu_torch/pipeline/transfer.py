@@ -46,44 +46,46 @@ class Pending:
 
 
 class _Staging:
-    def __init__(self, shape):
-        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    def __init__(self, shape, dtype: torch.dtype):
+        self.host = torch.empty(shape, dtype=dtype, pin_memory=True)
         self.array = self.host.numpy()
         self.uploaded: torch.cuda.Event | None = None  # after its last H2D copy
         self.lock = threading.Lock()
 
 
 class StagingPool:
-    """Pinned staging buffers, one per (device, shape), and one upload stream
-    per device."""
+    """Pinned staging buffers, one per (device, shape, dtype), and one upload
+    stream per device."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._buffers: dict = {}
         self._streams: dict = {}
 
-    def _get(self, device: torch.device, shape):
+    def _get(self, device: torch.device, shape, dtype: torch.dtype):
         with self._lock:
-            buf = self._buffers.get((device, shape))
+            buf = self._buffers.get((device, shape, dtype))
             if buf is None:
-                buf = self._buffers[(device, shape)] = _Staging(shape)
+                buf = self._buffers[(device, shape, dtype)] = _Staging(shape, dtype)
             if device not in self._streams:
                 self._streams[device] = torch.cuda.Stream(device)
             return buf, self._streams[device]
 
     def upload(self, frames: np.ndarray, batch_size: int, device: torch.device) -> torch.Tensor:
-        """[k, H, W, 3] u8 -> [max(batch_size, k), H, W, 3] on ``device``,
-        padded with copies of the last frame so every batch has one shape.
-        On CUDA the result is ready for work enqueued after it on the
-        caller's current stream."""
+        """[k, ...] -> [max(batch_size, k), ...] of the same dtype on
+        ``device``, padded with copies of the last row so every batch has one
+        shape (the frame batches [k, H, W, 3] u8; the LL transport's [k, hc,
+        wc] u8 or f16 with ``batch_size=k``, unpadded).  On CUDA the result
+        is ready for work enqueued after it on the caller's current stream."""
         k = len(frames)
         shape = (max(batch_size, k), *frames.shape[1:])
         if device.type != "cuda":
-            host = np.empty(shape, np.uint8)
+            host = np.empty(shape, frames.dtype)
             host[:k] = frames
             host[k:] = frames[-1:]
             return torch.from_numpy(host).to(device)
-        buf, side = self._get(device, shape)
+        dtype = torch.from_numpy(frames[:0]).dtype
+        buf, side = self._get(device, shape, dtype)
         compute = torch.cuda.current_stream(device)
         with buf.lock:
             if buf.uploaded is not None:

@@ -112,6 +112,24 @@ class DeShuffler:
         flat = torch.as_tensor(np.asarray(wm, np.float32)).reshape(1, -1)
         return self.degenerate_batch(flat)[0].numpy()
 
+    def degenerate_batch_np(self, wm: np.ndarray) -> np.ndarray:
+        """NumPy twin of :meth:`degenerate_batch` for the host wire of the
+        LL transport (``pipeline/lowlink.py``), which makes no device call:
+        [..., total] f32 -> [..., payload_len] u8."""
+        wm = np.asarray(wm, np.float32)
+        total, p = wm.shape[-1], self.payload_len
+        reps = -(-total // p)
+        x = np.pad(wm, [(0, 0)] * (wm.ndim - 1) + [(0, reps * p - total)])
+        x = x.reshape(*wm.shape[:-1], reps, p)
+        counts = np.array([(total - i + p - 1) // p for i in range(p)], np.float32)
+        means = x.sum(axis=-2) / counts
+        out = np.zeros_like(means)
+        out[..., keyed_shuffle_indices(self.key, p)] = means
+        if self._thr is _threshold_fixed:
+            return (out > 0.5).astype(np.uint8)
+        thr = 0.5 * (out.max(-1, keepdims=True) + out.min(-1, keepdims=True))
+        return (out > thr).astype(np.uint8)
+
 
 class GrayScale:
     """Image-payload spreader: binarise at 127, keyed shuffle, tile to capacity."""

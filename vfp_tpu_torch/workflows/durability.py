@@ -8,13 +8,18 @@ segments, run the full splice + re-encode + re-segment cycle, detect again,
 and compare; the pass bar is >= 75% segment-level preservation (reference:
 :500).
 
-The lossy channel is the JAX package's no-ffmpeg one: MJPEG ``.avi``
-segments at quality 95, marked segments at ``quality``, a chunk-copy splice
-into one ``full.avi`` and a frame-exact re-segmentation at quality 95, every
-JPEG coded by the native library as cv2 codes it (``native/jpeg.py``).  The
-marks and the detection run on ``device`` (default ``"cuda"``, raising
-without a GPU).  ``container="mp4"`` is refused: cv2's mp4v encoder is an
-inter-frame MPEG-4 Part 2 codec the port has no counterpart of.
+The lossy channel is the JAX package's.  Where an ``ffmpeg`` binary is on
+PATH (``io.ffmpeg.have_ffmpeg``): ffmpeg's segmenter (``.mp4`` segments),
+marked segments in the segments' own extension (the ffmpeg pipe writer for
+``.mp4``; ``container`` overrides it), ffmpeg's concat into ``full.mp4``
+(``full.avi`` for ``.avi`` segments) and ffmpeg's re-segmentation of it.
+Without one: MJPEG ``.avi`` segments at quality 95, marked segments at
+``quality``, a chunk-copy splice into one ``full.avi`` and a frame-exact
+re-segmentation at quality 95, every JPEG coded by the native library as cv2
+codes it (``native/jpeg.py``); ``container="mp4"`` is then refused, since the
+JAX package's no-ffmpeg mp4 channel is cv2's mp4v encoder, an inter-frame
+MPEG-4 Part 2 codec the port has no counterpart of.  The marks and the
+detection run on ``device`` (default ``"cuda"``, raising without a GPU).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from ..fingerprint.leak import concatenate_segments
 from ..fingerprint.marker import _read_all, verify_segment
 from ..fingerprint.segmenter import segment_video
-from ..io import open_writer
+from ..io import ffmpeg, open_writer
 from ..pipeline import FrameMarker
 from ..pipeline.transfer import upload_batch
 from ..utils.device import resolve_device
@@ -43,16 +48,28 @@ def payload_for_segment_8bit(segment_number: int) -> np.ndarray:
     return np.array([int(b) for b in format(segment_number % 256, "08b")])
 
 
-def _check_container(container) -> None:
-    if container == "mp4":
-        raise ValueError("--container mp4: vfp_tpu_torch has no mp4v encoder and no mp4v "
-                         "decoder. The JAX package's mp4 channel is cv2's mp4v encoder, an "
-                         "inter-frame MPEG-4 Part 2 codec (motion search, P-frames, its own "
-                         "rate control) read back through cv2's FFmpeg backend; the GPU "
-                         "machine has neither cv2 nor ffmpeg, and the port reads only MJPEG "
-                         "MP4 video. The lossy channel is MJPEG .avi (--container avi)")
-    if container not in (None, "avi"):
+def _check_container(container, use_ffmpeg: bool) -> None:
+    if container == "mp4" and not use_ffmpeg:
+        raise ValueError("--container mp4 needs an ffmpeg binary on PATH: vfp_tpu_torch "
+                         "has no mp4v encoder and no mp4v decoder. Without ffmpeg the JAX "
+                         "package's mp4 channel is cv2's mp4v encoder, an inter-frame MPEG-4 "
+                         "Part 2 codec (motion search, P-frames, its own rate control) read "
+                         "back through cv2's FFmpeg backend, and the port reads only MJPEG MP4 "
+                         "video. The lossy channel is MJPEG .avi (--container avi)")
+    if container not in (None, "avi", "mp4"):
         raise ValueError(f"unknown container {container!r}: avi or mp4")
+
+
+def _segment(input_file, segments_dir, segment_duration, use_ffmpeg: bool):
+    """ffmpeg's .mp4 segments where it is on PATH, else the MJPEG .avi route."""
+    if use_ffmpeg:
+        return segment_video(input_file, segments_dir, segment_duration, use_ffmpeg=True)
+    return segment_video(input_file, segments_dir, segment_duration, use_ffmpeg=False,
+                         container="avi")
+
+
+def _splice_name(marked_files) -> str:
+    return "full.mp4" if str(marked_files[0]).endswith(".mp4") else "full.avi"
 
 
 def _detect_all(segment_files, key: int, codec=None, *, device="cuda"):
@@ -175,7 +192,8 @@ def run_durability_corr(
     from ..wm import CorrShuffler, DeCorrShuffler
     from ..wm.dtcwt_codecs import DtcwtKey
 
-    _check_container(container)
+    use_ffmpeg = ffmpeg.have_ffmpeg()
+    _check_container(container, use_ffmpeg)
     device = resolve_device(device)
     t0 = time.time()
     codec = codec or DtcwtKey()
@@ -183,8 +201,7 @@ def run_durability_corr(
     marked_dir = base / "marked_segments"
     marked_dir.mkdir(parents=True, exist_ok=True)
 
-    segments = segment_video(input_file, base / "segments", segment_duration,
-                             use_ffmpeg=False, container="avi")
+    segments = _segment(input_file, base / "segments", segment_duration, use_ffmpeg)
     logger.info("created %d segments (corr mode)", len(segments))
 
     caps = []
@@ -204,10 +221,9 @@ def run_durability_corr(
     original_results = _corr_detect_all(marked_files, codec, refs, batch_size, threshold,
                                         device=device)
 
-    spliced = base / "full.avi"
+    spliced = base / _splice_name(marked_files)
     concatenate_segments(marked_files, spliced)
-    resegmented = segment_video(spliced, base / "resegmented", segment_duration,
-                                use_ffmpeg=False, container="avi")
+    resegmented = _segment(spliced, base / "resegmented", segment_duration, use_ffmpeg)
     reencoded_results = _corr_detect_all(
         resegmented[: len(segments)], codec, refs, batch_size, threshold, device=device
     )
@@ -230,9 +246,12 @@ def run_durability(
     analyze_results, segment_mark_detect_hls.py:320-386, plus wall_seconds).
 
     ``container`` picks the lossy channel the watermark must survive: None
-    or "avi" keeps the segments' own MJPEG ``.avi`` at ``quality``; "mp4"
-    (the JAX package's cv2 mp4v channel) raises ValueError."""
-    _check_container(container)
+    keeps the segments' own extension (``.mp4`` through ffmpeg where it is
+    on PATH, else MJPEG ``.avi`` at ``quality``), "avi" MJPEG, "mp4" the
+    ffmpeg pipe writer; without ffmpeg "mp4" (there the JAX package's cv2
+    mp4v channel) raises ValueError."""
+    use_ffmpeg = ffmpeg.have_ffmpeg()
+    _check_container(container, use_ffmpeg)
     device = resolve_device(device)
     t0 = time.time()
     codec = codec or DwtDctSvd()
@@ -240,8 +259,7 @@ def run_durability(
     marked_dir = base / "marked_segments"
     marked_dir.mkdir(parents=True, exist_ok=True)
 
-    segments = segment_video(input_file, base / "segments", segment_duration,
-                             use_ffmpeg=False, container="avi")
+    segments = _segment(input_file, base / "segments", segment_duration, use_ffmpeg)
     logger.info("created %d segments", len(segments))
 
     def wm_for(i, frame_shape):
@@ -253,10 +271,9 @@ def run_durability(
     original_results = _detect_all(marked_files, key, codec, device=device)
 
     # splice -> one re-encoded video -> re-segment on the same grid
-    spliced = base / "full.avi"
+    spliced = base / _splice_name(marked_files)
     concatenate_segments(marked_files, spliced)
-    resegmented = segment_video(spliced, base / "resegmented", segment_duration,
-                                use_ffmpeg=False, container="avi")
+    resegmented = _segment(spliced, base / "resegmented", segment_duration, use_ffmpeg)
     reencoded_results = _detect_all(resegmented, key, codec, device=device)
     return _analyze(original_results, reencoded_results, t0)
 
