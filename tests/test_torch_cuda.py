@@ -9,7 +9,8 @@ Tolerances: the DT-CWT image codec's mask normalisation equal; its
 extract on the card against the CPU's kernel path within 3e-5 of the
 planes' largest magnitude; the DT-CWT masks, the delta synthesis, the six full-transform
 DT-CWT kernels, the level-1 u8 lowpasses, the flagship and DCT-QIM marks,
-the DCT-QIM extract and the Y mean (an exact fixed-point sum) and, at the tile edges, the highpass-only LeGall synthesis
+the DCT-QIM extract and the Y mean (an exact fixed-point sum), the three
+QIM block kernels on SoA blocks and, at the tile edges, the highpass-only LeGall synthesis
 equal (max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and
 their plain versions share one op order, IEEE division and no FMA; the
 detect kernels at 480x856 atol 1e-5); the DT-CWT extract on
@@ -42,7 +43,7 @@ NEW_DTCWT = ("dtcwt_level1_analysis_ll", "dtcwt_qshift_analysis", "dtcwt_qshift_
              "dtcwt_qshift_synthesis_ll", "dtcwt_legall_synthesis", "dtcwt_legall_synthesis_ll")
 EQUAL = ("dtcwt_qshift_masks", "dtcwt_delta_synthesis", "dtcwt_level1_ll_y",
          "dtcwt_level1_ll_color", "fused_mark_planar", "fused_dct_qim_mark", "y_dc_mean",
-         "fused_dct_qim_extract")
+         "fused_dct_qim_extract", "qim_triplet_soa", "qim_decode_soa", "qim_embed_soa")
 SYNTHESIS_PLANES = {"dtcwt_qshift_synthesis": 16, "dtcwt_qshift_synthesis_ll": 4,
                     "dtcwt_legall_synthesis": 16, "dtcwt_legall_synthesis_ll": 4}
 
@@ -121,10 +122,38 @@ def test_kernel_matches_plain_version(cuda_device, name, h, w):
             assert torch.equal(g, r)
         elif g.dtype == torch.uint8:
             assert (g == r).float().mean() >= 0.995
-        elif name.endswith("extract_planar") or name == "qim_decode_soa":
+        elif name.endswith("extract_planar"):
             assert (g == r).float().mean() >= 0.999
         else:
             torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 33), (3, 1), (2, 4005), (16, 32265), (64, 32265)])
+def test_qim_kernels_equal_plain_versions_at_grid_edges(cuda_device, b, n):
+    """The QIM kernels' flat grid over B * N blocks: B = 1, N = 1 (a block
+    of threads with one live thread), N = 33 and N % 4 != 0 (a frame
+    boundary inside a warp), the 1918-wide path's N = 32265 at B = 16 and
+    at B = 64 (16,133 blocks of threads); blocks at 1e-3, 1 and 300 and
+    zero, sub-eps and Frobenius-underflow blocks (each eps guard of the
+    triplet) among them."""
+    rng = np.random.RandomState(b * 100003 + n)
+    m = rng.rand(b, 16, n).astype(np.float32) * rng.choice(
+        np.float32([1e-3, 1.0, 300.0]), (b, 1, n))
+    m[:, :, ::7] = 0
+    m[:, :, 3::11] *= np.float32(1e-22)
+    m[:, :, 5::13] *= np.float32(1e-15)
+    m = torch.as_tensor(m, device=cuda_device)
+    wm = torch.as_tensor(rng.randint(0, 2, n).astype(np.float32), device=cuda_device)
+    kernels.reset_launch_counts()
+    got = (tqim.qim_triplet_soa(m), tqim.qim_decode_soa(m, SCALE), tqim.qim_embed_soa(m, wm, SCALE))
+    torch.cuda.synchronize()
+    assert all(kernels.launch_counts()[k] == 1
+               for k in ("qim_triplet_soa", "qim_decode_soa", "qim_embed_soa"))
+    want = (tqim.qim_triplet_soa_reference(m), tqim.qim_decode_soa_reference(m, SCALE),
+            tqim.qim_embed_soa_reference(m, wm, SCALE))
+    for g, r in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert g.shape == r.shape and torch.equal(g, r)
 
 
 @pytest.mark.cuda
