@@ -12,6 +12,7 @@
     python3 chip_smoke.py --sass PATTERN [--package-root DIR]
                                    # only the build and the SASS opcode counts of
                                    # the kernels whose mangled name has PATTERN
+                                   # (and their I2F, I2FP, IMAD, FMUL and FADD)
 
 Phases, each printing its lines:
 
@@ -19,7 +20,8 @@ Phases, each printing its lines:
    torch sees no CUDA device — there is no CPU path;
 2. build: compiles ``vfp_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/vfp_tpu_torch/`` and prints the seconds;
-3. kernels: each of the 22 CUDA kernels against its plain PyTorch version on
+3. kernels: each of the 22 CUDA kernels (the flagship ones' integer bodies
+   in the int_path phase) against its plain PyTorch version on
    the card, at the main paths' shapes (1080p B=16, 1920x804 for the scope
    path's syntheses, [32, 1080, 1920] and [32, 4, 540, 960] for the level-1
    and q-shift analyses of [Y; U]) and at edge shapes (W=856, H=1078, N not
@@ -103,7 +105,13 @@ Phases, each printing its lines:
    frames in all, no batch routed to the host) -> ``leak`` 201 -> ``trace``,
    ``VFP_LL_WIRE=host`` (no launch, device memory unchanged) and the host
    clock's ``mark_all`` / ``extract`` of a 16-frame batch, full-frame
-   against the wires, with the wire's stages and bytes; then ``parallel``:
+   against the wires, with the wire's stages and bytes; then ``int_path``:
+   the flagship kernels' integer bodies (``int_path=True``) equal to their
+   plain versions at 1080p B=16 interleaved, 1916 wide, planar, 1078 rows,
+   all-0 and all-255 frames, then ``FrameMarker`` -> ``FrameExtractor``
+   with ``DwtDctSvd(int_path=True)`` on the 48 smooth 1080p frames (48/48,
+   PSNR > 40 dB, >= 0.98 of the bytes equal to the float32 codec's, one
+   integer mark and extract a batch, no float32 body); then ``parallel``:
    the sharded steps of ``parallel/sharded.py`` on a world-1 NCCL mesh (the mark step with 3 variants of each codec equal
    to three bare ``mark_frames``, the detect step's votes [0, 16, 0] through
    an NCCL ``all_reduce``, the spatial step at W = 1920 equal to the
@@ -117,6 +125,8 @@ Phases, each printing its lines:
    (``dtcwt_level1_analysis`` on it) must run once per distinct plane: 19
    launches of that kernel over all paths;
 5. timings: ms per 16-frame batch and frames/s, kernel vs plain version
+   (the flagship kernels' two bodies also device-only with a cold, clean
+   L2)
    (and one PyTorch library call where one computes the same function),
    with CUDA events after warm-up (``qim_triplet_soa`` and
    ``qim_decode_soa`` at the LL transport's [16, 16, 32400] blocks and
@@ -129,13 +139,14 @@ Phases, each printing its lines:
    with its lowpass-only and highpass-only twins, the masks, the q-shift
    synthesis with its lowpass-only twin, the delta synthesis, the last
    timed against the chain of the three synthesis kernels it fuses, the
-   level-1 u8 lowpasses of Y and of Y and U, the flagship mark, level 1
+   level-1 u8 lowpasses of Y and of Y and U, the flagship mark (both
+   bodies), level 1
    lowpass-only of f32 planes (also on the Y view of a YUV batch, beside
    the copy a contiguous-only wrapper would make), the DCT-QIM mark,
    interleaved and planar, the Y mean beside PyTorch's int64 sum of the
    same view, the DCT-QIM extract, its means taken in its own read, the
-   QIM block kernels on SoA blocks and the flagship extract, the callers of
-   the triplet body) at every shape the paths give them, each equal
+   QIM block kernels on SoA blocks and the flagship extract (both bodies),
+   the callers of the triplet body) at every shape the paths give them, each equal
    to its plain version, with its
    launch geometry beside ptxas's registers and shared bytes; then one
    batch of each codec's pipeline work (and ``dtcwtKey`` at 1920x804)
@@ -153,6 +164,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -170,6 +182,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PAYLOAD = "01100101"
 FULL = {"b": 16, "h": 1080, "w": 1920, "frames": 48, "narrow_w": 1918, "tail_h": 1078,
+        "int_w": 1916,
         "prime_w": 856, "prime_h": 480, "scope_h": 804, "depth_h": 720, "depth_w": 1280,
         "iters": 20}
 ALPHA = 20.0  # the DCT-QIM codec's default
@@ -211,6 +224,10 @@ REPLACES = {
     "dtcwt_qshift_synthesis_ll": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:497"),
     "dtcwt_legall_synthesis": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:299"),
     "dtcwt_legall_synthesis_ll": ("dtcwt_synthesis.cu", "vfp_tpu/kernels/dtcwt_synthesis.py:523"),
+    # the flagship Pallas functions' second body, under the static int_path
+    # (fused_embed.py:127-226 and :304-334): the same wrappers with int_path=True
+    "fused_mark_planar.int": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:239"),
+    "fused_extract_planar.int": ("fused_embed.cu", "vfp_tpu/kernels/fused_embed.py:338"),
 }
 DTCWT = ("dtcwt_level1_ll_y", "dtcwt_qshift_masks", "dtcwt_delta_synthesis",
          "dtcwt_level1_analysis")
@@ -228,6 +245,11 @@ FLOPS_PER_UNIT = {
     # lincomb 64 px x 5 + LL 16 x 7 + triplet 770 + QIM 5 + delta 48 + epilogue 64 x 2 x 5
     "fused_mark_planar": 1895,
     "fused_extract_planar": 1205,  # lincomb + LL + triplet + bit
+    # the integer bodies (int32 operations counted at the float32 rate): LL 16 x
+    # 11 (2 conversions and 2 scalings more), du 16 x 5 (1024 x and the rounding
+    # more), epilogue 64 x 2 x 6 (shift, multiply, 2 adds, shift, 2-sided clamp)
+    "fused_mark_planar.int": 2119,
+    "fused_extract_planar.int": 1269,
     # the triplet counted in its 16-entry form (the algorithm's work); the
     # kernels keep the symmetric matrices as 10 entries and do 246 fewer
     "qim_triplet_soa": 770,  # Gram 112, 5 normalisations and 4 4x4 squarings, v, s0, u
@@ -391,14 +413,16 @@ def _ll_tile_geometry(ch):
     return geometry
 
 
-def _mark_geometry(x):
-    """mark_tile_kernel<vec> on the interleaved view: 8 tile rows x 16 tiles
-    a block, one thread per tile; 16-byte staging where W % 16 == 0, else
-    4-byte."""
-    b, _, h, w = x.shape
-    tiles_h, tiles_w = -(-h // 8), -(-w // 8)
-    return (f"fused_embed.cu mark_tile_kernel<{16 if w % 16 == 0 else 4}>",
-            b * -(-tiles_h // 8) * -(-tiles_w // 16), 128, 0)
+def _mark_geometry(int_path):
+    """mark_tile_kernel<vec, int_path> on the interleaved view: 8 tile rows x
+    16 tiles a block, one thread per tile; 16-byte staging where W % 16 ==
+    0, else 4-byte."""
+    def geometry(x):
+        b, _, h, w = x.shape
+        tiles_h, tiles_w = -(-h // 8), -(-w // 8)
+        return (f"fused_embed.cu mark_tile_kernel<{16 if w % 16 == 0 else 4}, {int(int_path)}>",
+                b * -(-tiles_h // 8) * -(-tiles_w // 16), 128, 0)
+    return geometry
 
 
 def _ll_f32_geometry(x):
@@ -464,15 +488,18 @@ def _soa_geometry(kernel):
     return geometry
 
 
-def _extract_geometry(x):
-    """extract_kernel: one thread per 8x8 tile, 128 a block."""
-    b, _, h, w = x.shape
-    return ("fused_embed.cu extract_kernel", -(-b * (h // 8) * (w // 8) // 128), 128, 0)
+def _extract_geometry(int_path):
+    """extract_kernel<int_path>: one thread per 8x8 tile, 128 a block."""
+    def geometry(x):
+        b, _, h, w = x.shape
+        return (f"fused_embed.cu extract_kernel<{int(int_path)}>",
+                -(-b * (h // 8) * (w // 8) // 128), 128, 0)
+    return geometry
 
 
 GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": _qshift_geometry,
             "dtcwt_level1_ll_y": _ll_tile_geometry(1), "dtcwt_level1_ll_color": _ll_tile_geometry(2),
-            "fused_mark_planar": _mark_geometry,
+            "fused_mark_planar": _mark_geometry(False), "fused_mark_planar.int": _mark_geometry(True),
             "dtcwt_legall_synthesis": _legall_geometry(0, 4),
             "dtcwt_legall_synthesis_ll": _legall_geometry(1, 1),
             "dtcwt_legall_synthesis_hp": _legall_geometry(2, 3),
@@ -485,7 +512,8 @@ GEOMETRY = {"dtcwt_level1_analysis": _level1_geometry, "dtcwt_qshift_analysis": 
             "qim_decode_soa": _soa_geometry("decode_kernel"),
             "qim_triplet_soa": _soa_geometry("triplet_kernel"),
             "qim_embed_soa": _soa_geometry("embed_kernel"),
-            "fused_extract_planar": _extract_geometry}
+            "fused_extract_planar": _extract_geometry(False),
+            "fused_extract_planar.int": _extract_geometry(True)}
 
 
 def occupancy_line(name, x, report) -> str:
@@ -507,6 +535,12 @@ def occupancy_line(name, x, report) -> str:
             f"{smem} bytes shared, {r['registers']} registers, {r['spill']} bytes spilled, "
             f"{r['stack']} bytes stack; at most {resident} blocks ({resident * warps} warps) "
             f"resident per SM, {blocks / (132 * resident):.2f} waves on 132 SMs")
+
+
+# the opcodes that tell the flagship kernels' two bodies apart: conversions
+# (I2F by the conversion unit, I2FP on Hopper's float pipe), integer
+# multiply-adds, float multiplies and adds
+SASS_KEY_OPS = ("I2F", "I2FP", "IMAD", "FMUL", "FADD")
 
 
 def sass_report(lib: Path, pattern: str) -> list[str]:
@@ -531,9 +565,11 @@ def sass_report(lib: Path, pattern: str) -> list[str]:
             if op.startswith("BAR."):
                 stages.append(n)
                 n = 0
-        hist = collections.Counter(op.split(".")[0] for op in ops).most_common()
+        hist = collections.Counter(op.split(".")[0] for op in ops)
         lines.append(f"sass {name}: {len(ops)} instructions; between barriers "
-                     f"{stages + [n]}; " + ", ".join(f"{k} {v}" for k, v in hist))
+                     f"{stages + [n]}; " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
+        lines.append(f"sass counts {name}: " + ", ".join(
+            f"{k} {hist[k]}" for k in SASS_KEY_OPS))
     return lines or [f"sass: no kernel matches {pattern!r}"]
 
 
@@ -2642,6 +2678,96 @@ def run_lowlink_path(device, cfg, workdir: Path, source_1080p: Path, hls_stats: 
     return counts
 
 
+def check_int_kernels(device, cfg, rng) -> dict:
+    """The flagship kernels' integer bodies against their plain versions,
+    ``torch.equal``: 1080p B=16 on the interleaved view (16-byte staging), a
+    1916-wide batch (W % 16 != 0: 4-byte staging), a contiguous planar
+    batch (bytes through the strides), 1078 rows (rows past the block grid,
+    which must pass through) and all-0 and all-255 frames (the epilogue's
+    clamps).  Returns {name: max abs error}."""
+    from vfp_tpu_torch.kernels import EXTRACT_INT, MARK_INT
+    from vfp_tpu_torch.kernels import fused_embed as fe
+    from vfp_tpu_torch.wm import DwtDctSvd, block_grid
+
+    codec = DwtDctSvd(int_path=True)
+    b, h, w = cfg["b"], cfg["h"], cfg["w"]
+    cases = [("interleaved", b, h, w), ("W % 16 != 0", 2, h, cfg["int_w"]),
+             ("planar", 2, h, w), ("rows past the grid", 2, cfg["tail_h"], w),
+             ("all 0", 2, h, w), ("all 255", 2, h, w)]
+    err = {MARK_INT: 0.0, EXTRACT_INT: 0.0}
+    for label, fb, fh, fw in cases:
+        frames = natural_frames(rng, fb, fh, fw)
+        if label.startswith("all"):
+            frames[:] = int(label.split()[1])
+        planes = torch.as_tensor(frames, device=device).permute(0, 3, 1, 2)
+        if label == "planar":
+            planes = planes.contiguous()
+        (nbh, nbw), _ = block_grid((fh, fw))
+        wm2d = spread_wm(codec, fh, fw, device)[: nbh * nbw].reshape(nbh, nbw).contiguous()
+        got = fe.fused_mark_planar(planes, wm2d, 15.0, 1, int_path=True)
+        torch.cuda.synchronize()
+        want = fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1, int_path=True)
+        err[MARK_INT] = max(err[MARK_INT], float((got.int() - want.int()).abs().max()))
+        assert torch.equal(got, want), f"int mark {label} {fb}x{fh}x{fw}"
+        assert torch.equal(got[:, :, 8 * nbh:], planes[:, :, 8 * nbh:]), "rows past the grid moved"
+        bits = fe.fused_extract_planar(got, 15.0, 1, int_path=True)
+        torch.cuda.synchronize()
+        want_bits = fe.fused_extract_planar_reference(got, 15.0, 1, int_path=True)
+        err[EXTRACT_INT] = max(err[EXTRACT_INT], float((bits - want_bits).abs().max()))
+        assert torch.equal(bits, want_bits), f"int extract {label} {fb}x{fh}x{fw}"
+        f32 = fe.fused_mark_planar(planes, wm2d, 15.0, 1)
+        print(f"int_path kernels: {label} {fb}x{fh}x{fw}: mark and extract equal to their plain "
+              f"versions; {_frac_equal(got, f32):.6f} of the bytes equal to the float32 body's")
+    return err
+
+
+def run_int_path(device, cfg, source: Path) -> tuple[dict, dict]:
+    """The flagship codec with ``DwtDctSvd(int_path=True)``: its two integer
+    bodies held against their plain versions (``check_int_kernels``), then
+    ``FrameMarker`` -> ``FrameExtractor`` on the 48 smooth 1080p frames of
+    the dtcwtKey path's source: the payload in 48/48 frames, PSNR > 40 dB,
+    >= 0.98 of the marked bytes equal to the float32 codec's on the same
+    frames (the JAX int-path test's bar), and exactly one integer mark and
+    one integer extract a batch, no float32 body.  Returns (the launch
+    counts of the path, {name: max abs error})."""
+    from vfp_tpu_torch import kernels
+    from vfp_tpu_torch.pipeline import FrameExtractor, FrameMarker
+    from vfp_tpu_torch.wm import DeShuffler, DwtDctSvd
+
+    t_phase = time.perf_counter()
+    errs = check_int_kernels(device, cfg, np.random.RandomState(23))
+    frames = _read_rawv(source)
+    n, h, w, _ = frames.shape
+    batches = -(-n // cfg["b"])
+    codec, f32_codec = DwtDctSvd(int_path=True), DwtDctSvd()  # the default backend: kernels
+    wm = spread_wm(codec, h, w, "cpu").numpy()
+    deg = DeShuffler(key=0, threshold="fixed").set_shape((len(PAYLOAD),))
+    b = cfg["b"]
+    fresh_counts()
+    with NoPlainOnDevice():  # a batch a call, as the CLI drives them
+        fm = FrameMarker(codec, wm, b, device=device)
+        marked = np.concatenate([fm.mark(frames[i:i + b]) for i in range(0, n, b)])
+        fx = FrameExtractor(codec, deg, b, device=device)
+        payloads = np.concatenate([fx.extract(marked[i:i + b]) for i in range(0, n, b)])
+    counts = kernels.launch_counts()
+    want = {kernels.MARK_INT: batches, kernels.EXTRACT_INT: batches}
+    assert_counts(counts, want, "int_path")
+    good = int((payloads == np.array([int(c) for c in PAYLOAD], np.uint8)).all(axis=1).sum())
+    assert good == n, f"payload in {good}/{n} frames"
+    mse = float(np.mean((marked.astype(np.float64) - frames) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / mse)
+    assert psnr > 40.0, psnr
+    fm = FrameMarker(f32_codec, wm, b, device=device)
+    f32_marked = np.concatenate([fm.mark(frames[i:i + b]) for i in range(0, n, b)])
+    same = float((marked == f32_marked).mean())
+    assert same >= 0.98, same
+    print(f"int_path {w}x{h}: {n} smooth frames through FrameMarker -> FrameExtractor with "
+          f"DwtDctSvd(int_path=True): payload {PAYLOAD} in {good}/{n}, PSNR {psnr:.2f} dB, "
+          f"{same:.6f} of the bytes equal to the float32 codec's; launches "
+          f"{ {k: counts[k] for k in want} }; the phase {time.perf_counter() - t_phase:.1f} s")
+    return want, errs
+
+
 def _median_ms(fn, reps: int = 5) -> float:
     """Host-clock ms of ``fn()`` ending in a synchronise, median of ``reps``
     after one warm-up call."""
@@ -3001,6 +3127,12 @@ def time_kernels(device, cfg) -> dict:
                               lambda: fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1)),
         "fused_extract_planar": (lambda: fe.fused_extract_planar(planes, 15.0, 1),
                                  lambda: fe.fused_extract_planar_reference(planes, 15.0, 1)),
+        "fused_mark_planar.int": (
+            lambda: fe.fused_mark_planar(planes, wm2d, 15.0, 1, int_path=True),
+            lambda: fe.fused_mark_planar_reference(planes, wm2d, 15.0, 1, int_path=True)),
+        "fused_extract_planar.int": (
+            lambda: fe.fused_extract_planar(planes, 15.0, 1, int_path=True),
+            lambda: fe.fused_extract_planar_reference(planes, 15.0, 1, int_path=True)),
         "qim_triplet_soa": (lambda: qim.qim_triplet_soa(m_ll),
                             lambda: qim.qim_triplet_soa_reference(m_ll)),
         "qim_decode_soa": (lambda: qim.qim_decode_soa(m_ll, 15.0),
@@ -3027,6 +3159,8 @@ def time_kernels(device, cfg) -> dict:
     work = {  # (bytes each input read once and each output written once, FLOPs)
         "fused_mark_planar": (2 * frame_bytes + 4 * wm2d.numel(), tiles),
         "fused_extract_planar": (frame_bytes + 4 * tiles, tiles),
+        "fused_mark_planar.int": (2 * frame_bytes + 4 * wm2d.numel(), tiles),
+        "fused_extract_planar.int": (frame_bytes + 4 * tiles, tiles),
         "qim_triplet_soa": (ll_bytes + 4 * 9 * ns_ll, ns_ll),
         "qim_decode_soa": (ll_bytes + 4 * ns_ll, ns_ll),
         "qim_embed_soa": (2 * soa_bytes + 4 * m.shape[2], ns),
@@ -3053,10 +3187,21 @@ def time_kernels(device, cfg) -> dict:
         times[name] = timing_entry((k1 + k2) / 2, (p1 + p2) / 2, lib, kernel, nbytes,
                                    units * FLOPS_PER_UNIT[name], cfg["iters"],
                                    capturable=name not in HOST_SYNCED_LIBRARY, timer=timer)
+        if name in FLAGSHIP_BODIES:  # both bodies of the flagship kernels, also with a cold L2
+            times[name]["cold_device_ms"] = (_cold_graph_ms(kernel, cfg["iters"], flush)
+                                             + _cold_graph_ms(kernel, cfg["iters"], flush)) / 2
         print(timing_line(name, shapes[name], times[name], b)
-              + (" [L2 flushed before each timed launch]" if name in L2_FLUSHED else ""))
+              + (" [L2 flushed before each timed launch]" if name in L2_FLUSHED else "")
+              + (f" [device only with a cold, clean L2 {times[name]['cold_device_ms']:.4f} ms, "
+                 f"{times[name]['bound_ms'] / times[name]['cold_device_ms']:.1%} of the bound]"
+                 if name in FLAGSHIP_BODIES else ""))
     del flush
     return times
+
+
+# the flagship kernels' float32 and integer bodies, timed cold too
+FLAGSHIP_BODIES = ("fused_mark_planar", "fused_extract_planar", "fused_mark_planar.int",
+                   "fused_extract_planar.int")
 
 
 # library yardsticks that wait on the host (the solver checks its status),
@@ -3455,9 +3600,10 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
       3] and [16, 804, 1920, 3] and on [2, 480, 856, 3];
       ``dtcwt_level1_ll_color`` on the detect paths' inputs, those two
       batches marked by the codec;
-    - ``fused_mark_planar`` on the interleaved view ``frames.permute(0, 3, 1,
-      2)`` of [16, 1080, 1920], [2, 480, 856] and [2, 1078, 1920] frames, with
-      the spread watermark's bits, as phase 3 gives them;
+    - ``fused_mark_planar`` and its integer body (``fused_mark_planar.int``)
+      on the interleaved view ``frames.permute(0, 3, 1, 2)`` of [16, 1080,
+      1920], [2, 480, 856] and [2, 1078, 1920] frames, with the spread
+      watermark's bits, as phase 3 gives them;
     - ``dtcwt_level1_analysis_ll`` on path 2's [Y; U] [32, 1080, 1920], on
       its mark input ``bgr_to_yuv(frames)[..., 0]`` [16, 1080, 1920] read in
       place (its yardstick: the contiguous copy a wrapper that takes
@@ -3476,7 +3622,8 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
       last two with random bits (the three timed one launch at a time after
       a write that flushes the L2, as ``time_kernels`` times them, and
       device-only with a cold, clean L2, ``_cold_graph_ms``);
-      ``fused_extract_planar`` on the interleaved view of 1080p frames.
+      ``fused_extract_planar`` and its integer body on the interleaved view
+      of 1080p frames (both flagship kernels' bodies also cold).
 
     At each shape: the kernel against its plain version (equal), its
     host-inclusive and device-only times, the yardstick's where there is one
@@ -3604,7 +3751,8 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
     qim_cases = [*(("qim_decode_soa", (m, 15.0)) for m in soa),
                  *(("qim_triplet_soa", (m,)) for m in soa[:2]),
                  *(("qim_embed_soa", (m, bits, 15.0)) for m, bits in zip(soa[1:], soa_bits[1:])),
-                 ("fused_extract_planar", (mark_args[0][0], 15.0, 1))]
+                 ("fused_extract_planar", (mark_args[0][0], 15.0, 1)),
+                 ("fused_extract_planar.int", (mark_args[0][0], 15.0, 1))]
     cases = [("dtcwt_level1_analysis", (wm,)), ("dtcwt_level1_analysis", (x720,)),
              ("dtcwt_level1_analysis", (x1080,)), ("dtcwt_qshift_analysis", (ll_1080,)),
              ("dtcwt_qshift_analysis", (l1_720[:, :4],)),
@@ -3622,9 +3770,12 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
              ("dtcwt_level1_ll_y", (f480,)), ("dtcwt_level1_ll_color", (marked,)),
              ("dtcwt_level1_ll_color", (scope_marked,)),
              *(("fused_mark_planar", args) for args in mark_args),
+             *(("fused_mark_planar.int", args) for args in mark_args),
              ("dtcwt_level1_analysis_ll", (x32,)), ("dtcwt_level1_analysis_ll", (y_view,)),
              *(("dtcwt_level1_analysis_ll", (x,)) for x in pyramid_inputs),
              *(("fused_dct_qim_mark", args) for args in dct_args), *dct_cases, *qim_cases]
+    if not hasattr(fe.fused_mark_planar, "int_launches"):  # a package from before the int bodies
+        cases = [case for case in cases if not case[0].endswith(".int")]
     if only is not None:
         cases = [case for case in cases if any(part in case[0] for part in only.split(","))]
     w4 = _tree_weights([C.LEGALL_H0], [C.LEGALL_H0]).to(device)
@@ -3632,8 +3783,12 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
     entries, errs = collections.defaultdict(list), collections.defaultdict(float)
     for name, args in cases:
         x = args[0]
-        module = next(m for m in (dl, ds, dd, dm, fe, dq, qim) if hasattr(m, name))
-        kernel, plain = getattr(module, name), getattr(module, name + "_reference")
+        base, _, body = name.partition(".")  # "<wrapper>.int": its integer body
+        module = next(m for m in (dl, ds, dd, dm, fe, dq, qim) if hasattr(m, base))
+        kernel, plain = getattr(module, base), getattr(module, base + "_reference")
+        if body == "int":
+            kernel, plain = (functools.partial(kernel, int_path=True),
+                             functools.partial(plain, int_path=True))
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
@@ -3695,7 +3850,7 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
         # units: output positions of all 16 planes (the analyses), of the 4
         # (8) lowpass planes (the u8 lowpasses), mask positions of all 6
         # bands (masks), output samples (the syntheses), 8x8 tiles (the mark)
-        if name in ("fused_mark_planar", "fused_dct_qim_mark"):  # and the means
+        if base in ("fused_mark_planar", "fused_dct_qim_mark"):  # and the means
             fb, _, fh, fw = x.shape
             units, nbytes = fb * (fh // 8) * (fw // 8), 2 * x.numel() + 4 * args[1].numel()
             nbytes += 4 * fb if name == "fused_dct_qim_mark" else 0
@@ -3704,7 +3859,7 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
             tiles = fb * (fh // 8) * (fw // 8)
             units = fb * fh * fw if name == "y_dc_mean" else tiles
             nbytes = x.numel() + 4 * fb + (4 * tiles if name != "y_dc_mean" else 0)
-        elif name == "fused_extract_planar":  # one read of the frame, a bit a tile out
+        elif base == "fused_extract_planar":  # one read of the frame, a bit a tile out
             units = x.shape[0] * (x.shape[2] // 8) * (x.shape[3] // 8)
             nbytes = x.numel() + 4 * units
         elif name.startswith("qim_"):  # 4x4 blocks: the blocks read, the outputs (and bits)
@@ -3720,7 +3875,7 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
                       + got.element_size() * got.numel())
         t = timing_entry(ms, None, library, run, nbytes, units * FLOPS_PER_UNIT[name],
                          cfg["iters"], timer=timer)
-        cold = None if name not in L2_FLUSHED else (
+        cold = None if name not in L2_FLUSHED + FLAGSHIP_BODIES else (
             _cold_graph_ms(run, cfg["iters"], flush) + _cold_graph_ms(run, cfg["iters"], flush)) / 2
         del xpad, library, got, want, gots, wants
         view = (" (means taken in the same read, two launches)"
@@ -3731,8 +3886,9 @@ def redesign_sweep(device, cfg, occupancy: bool = True, only: str | None = None
             else " (batch-strided view)")
         print("sweep " + timing_line(name, x.shape, t, x.shape[0])[len("timing "):] + view
               + yard_note + ("" if cold is None else
-                             f" [L2 flushed before each timed launch; device only with a cold, "
-                             f"clean L2 {cold:.4f} ms, {t['bound_ms'] / cold:.1%} of the bound]"))
+                             (" [L2 flushed before each timed launch; " if name in L2_FLUSHED
+                              else " [") + f"device only with a cold, clean L2 {cold:.4f} ms, "
+                             f"{t['bound_ms'] / cold:.1%} of the bound]"))
         if occupancy:
             print(occupancy_line(name, x, report))
         split = device_split(run) if name in ("y_dc_mean", "fused_dct_qim_extract") else None
@@ -3839,7 +3995,8 @@ def main(argv=None) -> int:
                          "Hopper: level-1 and q-shift analysis, the LeGall and q-shift "
                          "syntheses, the masks, the delta, the level-1 u8 and f32 lowpasses, "
                          "the flagship and DCT-QIM marks, the Y mean and the DCT-QIM extract, "
-                         "at every shape the paths give them)")
+                         "the QIM kernels and the flagship extract, the flagship kernels' "
+                         "integer bodies, at every shape the paths give them)")
     ap.add_argument("--stages", action="store_true",
                     help="only the build and the batch stages (upload, device, download of "
                          "one batch of each codec's pipeline work)")
@@ -3924,6 +4081,9 @@ def main(argv=None) -> int:
         smooth_180.unlink()
         counts.update(run_ffmpeg_path(device, cfg, Path(tmp), hls_counts))
         counts.update(run_lowlink_path(device, cfg, Path(tmp), source_1080p, hls_stats))
+        int_counts, int_errs = run_int_path(device, cfg, smooth_1080p)
+        counts.update(int_counts)
+        errs.update(int_errs)
         counts.update(run_parallel_path(device, cfg, Path(tmp), hls_stats))
     from vfp_tpu_torch.kernels import EXTRACT_DECIDE
 

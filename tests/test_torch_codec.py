@@ -147,9 +147,10 @@ def test_from_reference_maps_backend(backend, want):
     assert hash(c) == hash(DwtDctSvd(scales=(5, 15, 0), backend=want))
 
 
-def test_from_reference_refuses_int_path():
-    with pytest.raises(NotImplementedError):
-        DwtDctSvd.from_reference(JaxCodec(int_path=True))
+def test_from_reference_carries_int_path():
+    c = DwtDctSvd.from_reference(JaxCodec(int_path=True, backend="pallas"))
+    assert c.int_path and c == DwtDctSvd(backend="kernel", int_path=True)
+    assert not DwtDctSvd.from_reference(JaxCodec()).int_path
 
 
 def test_auto_backend_follows_the_tensor_device():

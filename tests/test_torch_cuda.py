@@ -10,8 +10,9 @@ extract on the card against the CPU's kernel path within 3e-5 of the
 planes' largest magnitude; the DT-CWT masks, the delta synthesis, the six full-transform
 DT-CWT kernels, the level-1 u8 lowpasses, the flagship and DCT-QIM marks,
 the DCT-QIM extract and the Y mean (an exact fixed-point sum), the three
-QIM block kernels on SoA blocks and, at the tile edges, the highpass-only LeGall synthesis
-equal (max_abs_err 0); other float outputs rtol/atol 2e-5 (the kernels and
+QIM block kernels on SoA blocks, the flagship kernels' integer bodies and,
+at the tile edges, the highpass-only LeGall synthesis equal (max_abs_err
+0); other float outputs rtol/atol 2e-5 (the kernels and
 their plain versions share one op order, IEEE division and no FMA; the
 detect kernels at 480x856 atol 1e-5); the DT-CWT extract on
 the card against the CPU's kernel path atol 1e-4 (PyTorch's complex
@@ -580,6 +581,81 @@ def test_fused_mark_equals_plain_version_at_edge_shapes(cuda_device, shape, plan
     assert torch.equal(got[:, :, 8 * nbh:], planes[:, :, 8 * nbh:])  # tail rows
     assert torch.equal(got[..., 8 * nbw:], planes[..., 8 * nbw:])  # the half tile
     assert not torch.equal(got, planes)
+
+
+# The flagship kernels' integer bodies (int_path=True) at the mark strip's
+# and the extract grid's edges: B = 1 and 33, W % 16 != 0 (4-byte staging;
+# 1916 as a 1080p-class width), W % 8 == 4 (a half tile passed through),
+# tail rows, 1080p, all-0 and all-255 frames (the epilogue's clamps), on the
+# interleaved view and on a contiguous planar batch (bytes through the
+# strides); each run twice.
+INT_CASES = [(1, 72, 128, "natural"), (33, 40, 128, "natural"), (2, 48, 140, "natural"),
+             (1, 72, 132, "natural"), (2, 1078, 256, "natural"), (2, 64, 1916, "natural"),
+             (1, 1080, 1920, "natural"), (2, 72, 128, "black"), (2, 72, 128, "white")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("b,h,w,content", INT_CASES)
+def test_int_path_bodies_equal_plain_versions_at_edge_shapes(cuda_device, b, h, w, content,
+                                                             planar):
+    frames = natural_frames(np.random.RandomState(b * h + w), b, h, w)
+    if content != "natural":
+        frames[:] = 0 if content == "black" else 255
+    planes = torch.as_tensor(frames, device=cuda_device).permute(0, 3, 1, 2)
+    if planar:
+        planes = planes.contiguous()
+    (nbh, nbw), _ = block_grid((h, w))
+    wm2d = _wm(h, w, cuda_device)[: nbh * nbw].reshape(nbh, nbw).contiguous()
+    want = tfe.fused_mark_planar_reference(planes, wm2d, SCALE, 1, int_path=True)
+    want_bits = tfe.fused_extract_planar_reference(want, SCALE, 1, int_path=True)
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        got = tfe.fused_mark_planar(planes, wm2d, SCALE, 1, int_path=True)
+        bits = tfe.fused_extract_planar(got, SCALE, 1, int_path=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (counts[kernels.MARK_INT], counts[kernels.EXTRACT_INT]) == (1, 1), counts
+        assert counts["fused_mark_planar"] == counts["fused_extract_planar"] == 0, counts
+        assert got.stride() == planes.stride()
+        assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+        assert torch.equal(bits, want_bits)
+    assert torch.equal(got[:, :, 8 * nbh:], planes[:, :, 8 * nbh:])  # tail rows
+    assert torch.equal(got[..., 8 * nbw:], planes[..., 8 * nbw:])  # the half tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chan", [0, 2])
+def test_int_path_bodies_on_the_other_channels(cuda_device, chan):
+    """Y (every backward entry 1) and V (M_BWD[0, 2] == 0: B passes through)."""
+    planes = torch.as_tensor(natural_frames(np.random.RandomState(chan), 2, 72, 128),
+                             device=cuda_device).permute(0, 3, 1, 2)
+    (nbh, nbw), _ = block_grid((72, 128))
+    wm2d = _wm(72, 128, cuda_device)[: nbh * nbw].reshape(nbh, nbw).contiguous()
+    got = tfe.fused_mark_planar(planes, wm2d, SCALE, chan, int_path=True)
+    bits = tfe.fused_extract_planar(got, SCALE, chan, int_path=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfe.fused_mark_planar_reference(planes, wm2d, SCALE, chan,
+                                                            int_path=True))
+    assert torch.equal(bits, tfe.fused_extract_planar_reference(got, SCALE, chan, int_path=True))
+
+
+@pytest.mark.cuda
+def test_int_path_codec_on_the_card_takes_the_int_bodies(cuda_device):
+    frames = torch.as_tensor(natural_frames(np.random.RandomState(5), 3, 72, 128),
+                             device=cuda_device)
+    codec = DwtDctSvd(int_path=True)
+    kernels.reset_launch_counts()
+    marked = codec.mark_frames(frames, _wm(72, 128, cuda_device))
+    bits = codec.extract_frames(marked)
+    counts = kernels.launch_counts()
+    assert (counts[kernels.MARK_INT], counts[kernels.EXTRACT_INT]) == (1, 1), counts
+    assert not any(v for k, v in counts.items() if k not in (kernels.MARK_INT,
+                                                             kernels.EXTRACT_INT)), counts
+    assert (_payloads(bits) == PAYLOAD).all()
+    plain = DwtDctSvd(backend="kernel", int_path=True).mark_frames(frames.cpu(),
+                                                                   _wm(72, 128, "cpu"))
+    assert torch.equal(marked.cpu(), plain)
 
 
 # The f32 level-1 lowpass tile (8 x 32 positions from a 20 x 68 window, read

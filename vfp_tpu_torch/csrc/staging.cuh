@@ -3,8 +3,9 @@
 // batch of copies, a wait for all but the newest kPending groups), exact
 // conversions between u8 pixel bytes and float32 by integer permutes and
 // float adds, which run at four times the rate of the conversion unit, or by
-// the conversion unit where float issue is the scarcer resource, and the
-// strides of u8 planes with the test for the interleaved view.
+// the conversion unit where float issue is the scarcer resource, a byte of a
+// word by one permute, and the strides of u8 planes with the test for the
+// interleaved view.
 #pragma once
 
 #include <cstdint>
@@ -47,6 +48,11 @@ __device__ __forceinline__ float byte_to_float(uint32_t v) {
 // byte_to_float(w >> 8 k) compiles to a shift and two logic operations more.
 __device__ __forceinline__ float word_byte_to_float(uint32_t w, int k) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | k)) - 8388608.0f;
+}
+
+// Byte k of w, zero-extended, by one byte permute (an integer instruction).
+__device__ __forceinline__ uint32_t word_byte(uint32_t w, int k) {
+  return __byte_perm(w, 0u, 0x4440 | k);
 }
 
 // The low byte of v as a float, exactly, by the conversion unit: one

@@ -24,16 +24,24 @@ KERNELS = (fused_mark_planar, fused_extract_planar, qim_triplet_soa, qim_decode_
 
 # the extract's second kernel (fused_dct_qim.cu decide_kernel), counted apart
 EXTRACT_DECIDE = "fused_dct_qim_extract.decide"
+# the flagship kernels' integer bodies (int_path=True), counted apart
+MARK_INT = "fused_mark_planar.int"
+EXTRACT_INT = "fused_extract_planar.int"
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     fused_dct_qim_extract.decide_launches = 0
+    fused_mark_planar.int_launches = 0
+    fused_extract_planar.int_launches = 0
 
 
 def launch_counts() -> dict:
-    """{wrapper name: its kernel's launches}, and the extract's second kernel's
-    under ``EXTRACT_DECIDE``."""
+    """{wrapper name: its kernel's launches}, the extract's second kernel's
+    under ``EXTRACT_DECIDE`` and the flagship integer bodies' under
+    ``MARK_INT`` and ``EXTRACT_INT``."""
     return {**{k.__name__: k.launches for k in KERNELS},
-            EXTRACT_DECIDE: fused_dct_qim_extract.decide_launches}
+            EXTRACT_DECIDE: fused_dct_qim_extract.decide_launches,
+            MARK_INT: fused_mark_planar.int_launches,
+            EXTRACT_INT: fused_extract_planar.int_launches}

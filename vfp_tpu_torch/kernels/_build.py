@@ -44,6 +44,8 @@ SIGNATURES = {
     "vfp_qim_embed_soa": [_P, _P, _P, _I, _I, _F, _P, _P],
     "vfp_fused_mark_planar": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "vfp_fused_extract_planar": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "vfp_fused_mark_planar_int": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "vfp_fused_extract_planar_int": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "vfp_y_dc_mean": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "vfp_fused_dct_qim_mark": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "vfp_fused_dct_qim_extract": [_P, _P, _P, _P, _I, _I, _I, _P, _P],

@@ -5,7 +5,8 @@ into ``build/vfp_tpu_torch/native/<hash>/`` at the repository root, keyed by
 a hash of its sources and flags; later processes load the file that is
 there.  Host code only: no device code.
 
-- ``libvfpio.so`` from ``vfpio.cpp`` (``.rawv`` streaming) and ``jpeg.cpp``
+- ``libvfpio.so`` from ``vfpio.cpp`` (frame streaming: ``.rawv`` files and
+  command pipes) and ``jpeg.cpp``
   (the baseline JPEG codec of the MJPEG-AVI files);
 - ``liblowlink.so`` from ``lowlink.cpp`` (the host half of the LL-domain
   transport, ``pipeline/lowlink.py``), with flags of its own:
@@ -44,9 +45,11 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 # (restype, argtypes) of every exported function
 SIGNATURES = {
     "vfpio_reader_open_file": (_P, [ctypes.c_char_p, _L, _I, _L]),
+    "vfpio_reader_open_cmd": (_P, [ctypes.c_char_p, _L, _I]),
     "vfpio_read_batch": (_L, [_P, ctypes.c_char_p, _L]),
-    "vfpio_reader_close": (None, [_P]),
+    "vfpio_reader_close": (_I, [_P]),
     "vfpio_writer_open_file": (_P, [ctypes.c_char_p, _L, _I]),
+    "vfpio_writer_open_cmd": (_P, [ctypes.c_char_p, _L, _I]),
     "vfpio_write_batch": (_L, [_P, ctypes.c_char_p, _L]),
     "vfpio_writer_close": (_I, [_P]),
     "vfpjpeg_encode_bound": (_L, [_I, _I]),

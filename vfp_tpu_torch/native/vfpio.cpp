@@ -1,18 +1,34 @@
-// vfpio: native .rawv streaming for vfp_tpu_torch (the file half of
+// vfpio: native frame streaming for vfp_tpu_torch (the streaming half of
 // vfp_tpu/native/vfpio.cpp).
 //
-// Moves frame file I/O off the GIL: a producer thread reads frames from a
-// raw frame file into a ring of preallocated buffers while Python and the
-// device consume earlier batches.  The writer mirrors it with a consumer
-// thread draining a ring into a file.
+// Moves frame I/O off the GIL: a producer thread reads frames from a raw
+// frame file, or from the stdout of a command that writes rawvideo, into a
+// ring of preallocated buffers while Python and the device consume earlier
+// batches.  The writer mirrors it with a consumer thread draining a ring
+// into a file or a command's stdin.  A command runs under /bin/sh -c in a
+// child of its own, so that close can reap it and report its exit.
 //
 // C ABI (ctypes-friendly):
 //   void* vfpio_reader_open_file(const char* path, long frame_bytes, int ring, long skip)
+//   void* vfpio_reader_open_cmd (const char* cmd,  long frame_bytes, int ring)
 //   long  vfpio_read_batch(void* h, unsigned char* out, long max_frames)
-//   void  vfpio_reader_close(void* h)
+//   int   vfpio_reader_close(void* h)
 //   void* vfpio_writer_open_file(const char* path, long frame_bytes, int ring)
+//   void* vfpio_writer_open_cmd (const char* cmd,  long frame_bytes, int ring)
 //   long  vfpio_write_batch(void* h, const unsigned char* data, long frames)
 //   int   vfpio_writer_close(void* h)
+//
+// reader_close returns 0 for a file, and for a command its exit code
+// (128 + the signal for a child a signal ended) once the stream reached its
+// end or the child had exited; a child still running is killed and 0
+// returned.  writer_close returns -1 on a write error, else 0 for a file
+// and the command's exit code (as above) once it has read its stdin's end.
+
+#include <fcntl.h>
+#include <signal.h>
+#include <spawn.h>
+#include <sys/wait.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <atomic>
@@ -22,6 +38,8 @@
 #include <mutex>
 #include <thread>
 #include <vector>
+
+extern char** environ;
 
 namespace {
 
@@ -40,6 +58,8 @@ struct Ring {
 
 struct Reader {
     FILE* f = nullptr;
+    pid_t child = 0;  // the command's process, 0 for a file
+    bool at_end = false;  // the producer read the stream's end
     long frame_bytes = 0;
     long batch_frames = 0;
     Ring* ring = nullptr;
@@ -63,7 +83,7 @@ struct Reader {
             ring->head = (ring->head + 1) % ring->slots.size();
             ring->count++;
             bool eof = got < cap;
-            if (eof) ring->done = true;
+            if (eof) ring->done = at_end = true;
             lk.unlock();
             ring->cv_get.notify_one();
             if (eof) break;
@@ -74,6 +94,7 @@ struct Reader {
 
 struct Writer {
     FILE* f = nullptr;
+    pid_t child = 0;  // the command's process, 0 for a file
     long frame_bytes = 0;
     long batch_frames = 0;
     Ring* ring = nullptr;
@@ -102,21 +123,76 @@ struct Writer {
 
 constexpr long kBatchFrames = 16;
 
+// /bin/sh -c cmd in a new process with its stdout (read) or stdin (write) on
+// a pipe; our end of the pipe as a FILE, the child's pid in *pid.
+FILE* spawn_pipe(const char* cmd, bool read, pid_t* pid) {
+    int fds[2];
+    if (pipe(fds) != 0) return nullptr;
+    const int ours = read ? fds[0] : fds[1], theirs = read ? fds[1] : fds[0];
+    fcntl(ours, F_SETFD, FD_CLOEXEC);  // no later child inherits our end
+    posix_spawn_file_actions_t fa;
+    posix_spawn_file_actions_init(&fa);
+    posix_spawn_file_actions_adddup2(&fa, theirs, read ? STDOUT_FILENO : STDIN_FILENO);
+    posix_spawn_file_actions_addclose(&fa, theirs);
+    posix_spawn_file_actions_addclose(&fa, ours);
+    const char* argv[] = {"sh", "-c", cmd, nullptr};
+    const int rc = posix_spawn(pid, "/bin/sh", &fa, nullptr, const_cast<char* const*>(argv),
+                               environ);
+    posix_spawn_file_actions_destroy(&fa);
+    close(theirs);
+    FILE* f = rc == 0 ? fdopen(ours, read ? "rb" : "wb") : nullptr;
+    if (!f) {
+        close(ours);
+        if (rc == 0) waitpid(*pid, nullptr, 0);
+    }
+    return f;
+}
+
+// A wait status as an exit code: the child's own, or 128 + the signal.
+int exit_code(int status) {
+    if (WIFEXITED(status)) return WEXITSTATUS(status);
+    if (WIFSIGNALED(status)) return 128 + WTERMSIG(status);
+    return -1;
+}
+
+Reader* open_reader(FILE* f, pid_t child, long frame_bytes, int ring) {
+    if (!f) return nullptr;
+    auto* r = new Reader();
+    r->f = f;
+    r->child = child;
+    r->frame_bytes = frame_bytes;
+    r->batch_frames = kBatchFrames;
+    r->ring = new Ring(ring > 0 ? ring : 4, frame_bytes * kBatchFrames);
+    r->th = std::thread([r] { r->produce(); });
+    return r;
+}
+
+Writer* open_writer(FILE* f, pid_t child, long frame_bytes, int ring) {
+    if (!f) return nullptr;
+    auto* w = new Writer();
+    w->f = f;
+    w->child = child;
+    w->frame_bytes = frame_bytes;
+    w->batch_frames = kBatchFrames;
+    w->ring = new Ring(ring > 0 ? ring : 4, frame_bytes * kBatchFrames);
+    w->th = std::thread([w] { w->consume(); });
+    return w;
+}
+
 }  // namespace
 
 extern "C" {
 
 void* vfpio_reader_open_file(const char* path, long frame_bytes, int ring, long skip) {
     FILE* f = fopen(path, "rb");
-    if (!f) return nullptr;
-    if (skip > 0) fseek(f, skip, SEEK_SET);
-    auto* r = new Reader();
-    r->f = f;
-    r->frame_bytes = frame_bytes;
-    r->batch_frames = kBatchFrames;
-    r->ring = new Ring(ring > 0 ? ring : 4, frame_bytes * kBatchFrames);
-    r->th = std::thread([r] { r->produce(); });
-    return r;
+    if (f && skip > 0) fseek(f, skip, SEEK_SET);
+    return open_reader(f, 0, frame_bytes, ring);
+}
+
+void* vfpio_reader_open_cmd(const char* cmd, long frame_bytes, int ring) {
+    pid_t pid = 0;
+    FILE* f = spawn_pipe(cmd, true, &pid);
+    return open_reader(f, f ? pid : 0, frame_bytes, ring);
 }
 
 long vfpio_read_batch(void* h, unsigned char* out, long max_frames) {
@@ -152,30 +228,45 @@ long vfpio_read_batch(void* h, unsigned char* out, long max_frames) {
     return copied / r->frame_bytes;
 }
 
-void vfpio_reader_close(void* h) {
+int vfpio_reader_close(void* h) {
     auto* r = static_cast<Reader*>(h);
+    bool at_end;
     {
         std::lock_guard<std::mutex> lk(r->ring->mu);
+        at_end = r->at_end;
         r->ring->done = true;
+    }
+    int status = 0;
+    bool reaped = false, killed = false;
+    if (r->child && !at_end) {  // a child still running is stopped, not judged
+        reaped = waitpid(r->child, &status, WNOHANG) == r->child;
+        if (!reaped) {
+            kill(r->child, SIGKILL);
+            killed = true;
+        }
     }
     r->ring->cv_put.notify_all();
     r->ring->cv_get.notify_all();
-    if (r->th.joinable()) r->th.join();
+    if (r->th.joinable()) r->th.join();  // a killed child's pipe ends the producer's read
     fclose(r->f);
+    int rc = 0;
+    if (r->child) {
+        if (!reaped) waitpid(r->child, &status, 0);
+        rc = killed ? 0 : exit_code(status);
+    }
     delete r->ring;
     delete r;
+    return rc;
 }
 
 void* vfpio_writer_open_file(const char* path, long frame_bytes, int ring) {
-    FILE* f = fopen(path, "ab");
-    if (!f) return nullptr;
-    auto* w = new Writer();
-    w->f = f;
-    w->frame_bytes = frame_bytes;
-    w->batch_frames = kBatchFrames;
-    w->ring = new Ring(ring > 0 ? ring : 4, frame_bytes * kBatchFrames);
-    w->th = std::thread([w] { w->consume(); });
-    return w;
+    return open_writer(fopen(path, "ab"), 0, frame_bytes, ring);
+}
+
+void* vfpio_writer_open_cmd(const char* cmd, long frame_bytes, int ring) {
+    pid_t pid = 0;
+    FILE* f = spawn_pipe(cmd, false, &pid);
+    return open_writer(f, f ? pid : 0, frame_bytes, ring);
 }
 
 long vfpio_write_batch(void* h, const unsigned char* data, long frames) {
@@ -211,8 +302,14 @@ int vfpio_writer_close(void* h) {
     }
     w->ring->cv_get.notify_all();
     if (w->th.joinable()) w->th.join();
-    int rc = w->error ? -1 : 0;
-    fclose(w->f);
+    bool error = w->error;
+    if (fclose(w->f) != 0) error = true;  // the last buffered bytes; the child sees the end
+    int rc = error ? -1 : 0;
+    if (w->child) {
+        int status = 0;
+        waitpid(w->child, &status, 0);
+        if (!error) rc = exit_code(status);
+    }
     delete w->ring;
     delete w;
     return rc;

@@ -3,8 +3,8 @@
 ``image [B, H, W] -> [B, blk*blk, N]``: the flattened block on axis 1, the
 block index N minor, so per-block math is elementwise over N.  Ported: the
 layout transforms, the Kronecker DCT of the DctQim codec's torch path, and
-the power-method dominant triplet; the Jacobi branch and the AoS variants
-serve no ported path.
+the dominant triplet by the power method (the codecs' path) or by cyclic
+Jacobi sweeps (``method="jacobi"``); the AoS variants serve no ported path.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .dct import dct_matrix, full_f32
+from .svd4 import _jacobi_top_eigvec
 
 _EPS = 1e-20
 
@@ -65,26 +66,36 @@ def idct_soa(x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ji,bjn->bin", k, x)
 
 
-def top_triplet_soa(m: torch.Tensor, iters: int | None = None):
-    """Dominant triplet of each 4x4 block in SoA layout, by repeated squaring.
+def top_triplet_soa(m: torch.Tensor, method: str = "power", iters: int | None = None):
+    """Dominant triplet of each 4x4 block in SoA layout.
 
     m: [B, 16, N] (entry r*4+c of block n).  Returns (s0 [B, N], u [B, 4, N],
-    v [B, 4, N]) with B v = s0 u per block.  ``iters or 5`` squarings of
-    G = BᵀB, each after a Frobenius renormalisation, then one power step
-    from ``_V0``; the same guards as the JAX function.
+    v [B, 4, N]) with B v = s0 u per block.  ``method="power"`` (default):
+    ``iters or 5`` squarings of G = BᵀB, each after a Frobenius
+    renormalisation, then one power step from ``_V0``.  ``method="jacobi"``:
+    ``iters or 5`` cyclic Jacobi sweeps of G scaled by its largest magnitude
+    (``ops/svd4.py``'s rotations, the JAX SoA branch's formulas), v the
+    eigenvector of the first largest eigenvalue.  The same guards as the JAX
+    function.
     """
     b, sq, n = m.shape
     k = int(round(sq ** 0.5))
     x = m.reshape(b, k, k, n)  # [B, r, c, N]
     g = torch.einsum("bran,brdn->badn", x, x)  # G = BᵀB
-    v0 = torch.as_tensor(_V0[:k], device=m.device)
-    for _ in range(iters or 5):
-        norm = torch.sqrt(torch.sum(g * g, dim=(1, 2), keepdim=True))
-        g = g / torch.clamp(norm, min=_EPS)
-        g = torch.einsum("bikn,bkjn->bijn", g, g)
-    v = torch.einsum("bijn,j->bin", g, v0)
-    vn = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
-    vtop = torch.where(vn > _EPS, v / torch.clamp(vn, min=_EPS), v0[None, :, None])
+    if method == "jacobi":
+        vtop, _ = _jacobi_top_eigvec(g.permute(0, 3, 1, 2), sweeps=iters or 5)  # [B, N, k]
+        vtop = vtop.permute(0, 2, 1)
+    elif method == "power":
+        v0 = torch.as_tensor(_V0[:k], device=m.device)
+        for _ in range(iters or 5):
+            norm = torch.sqrt(torch.sum(g * g, dim=(1, 2), keepdim=True))
+            g = g / torch.clamp(norm, min=_EPS)
+            g = torch.einsum("bikn,bkjn->bijn", g, g)
+        v = torch.einsum("bijn,j->bin", g, v0)
+        vn = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
+        vtop = torch.where(vn > _EPS, v / torch.clamp(vn, min=_EPS), v0[None, :, None])
+    else:
+        raise ValueError(f"unknown triplet method: {method}")
     bv = torch.einsum("bran,ban->brn", x, vtop)
     s0 = torch.sqrt(torch.sum(bv * bv, dim=1))
     e0 = torch.zeros_like(bv)

@@ -70,6 +70,11 @@ class VfpConfig:
         with open(path) as f:
             return cls.from_dict(json.load(f))
 
+    def make_codec(self, name: str):
+        """Codec factory: 'dwtDctSvd' | 'dct' | 'dtcwtKey' | 'dtcwtImg' (the
+        module function with this configuration)."""
+        return make_codec(name, self)
+
 
 def make_codec(name: str, config: VfpConfig | None = None):
     """'dwtDctSvd' | 'dct' | 'dtcwtKey' | 'dtcwtImg' -> this package's codec, configured

@@ -17,6 +17,12 @@ versions for CPU tensors), ``"torch"`` the plain tensor path that mirrors the
 JAX ``"xla"`` path, ``"auto"`` the kernels for CUDA tensors and the plain
 path for CPU tensors.  The two paths compute the triplet and the colour
 epilogue differently, exactly as the JAX package's two paths do.
+
+``int_path``: the single-launch kernels take their integer body (integer
+colour row and epilogue, ``kernels/fused_embed.py``), as the JAX codec's
+field selects the Pallas kernels' second body.  Only that route reads it;
+the tensor path, the SoA kernels (W % 4 != 0) and the LL-domain transport
+compute as with ``int_path=False``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ class DwtDctSvd:
     scales: tuple = (0.0, 15.0, 0.0)
     blk: int = 4
     backend: str = "auto"
+    # the fused kernels' integer body (module docstring); off by default, as
+    # in the JAX codec
+    int_path: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -60,11 +69,8 @@ class DwtDctSvd:
     @classmethod
     def from_reference(cls, obj) -> "DwtDctSvd":
         """This codec configured as a ``vfp_tpu`` DwtDctSvd (read by attribute)."""
-        if getattr(obj, "int_path", False):
-            raise NotImplementedError("int_path is not ported: it measured a wash on the TPU "
-                                      "and the f32 path is the reference")
         return cls(scales=tuple(obj.scales), blk=int(obj.blk),
-                   backend=REFERENCE_BACKENDS[obj.backend])
+                   backend=REFERENCE_BACKENDS[obj.backend], int_path=bool(obj.int_path))
 
     def _use_kernel(self, x: torch.Tensor) -> bool:
         if self.backend == "auto":
@@ -212,7 +218,8 @@ class DwtDctSvd:
 
             (nbh, nbw), _ = block_grid(frames.shape[1:3], self.blk)
             wm2d = wm.reshape(-1)[: nbh * nbw].reshape(nbh, nbw).to(torch.float32).contiguous()
-            out = fused_mark_planar(frames.permute(0, 3, 1, 2), wm2d, float(self.scales[c]), c)
+            out = fused_mark_planar(frames.permute(0, 3, 1, 2), wm2d, float(self.scales[c]), c,
+                                    int_path=self.int_path)
             return out.permute(0, 2, 3, 1)
         b, h, w, _ = frames.shape
         h4, w4 = h // 4 * 4, w // 4 * 4
@@ -249,7 +256,8 @@ class DwtDctSvd:
         if self._use_kernel(frames) and self._fused_ok(frames.shape):
             from ..kernels.fused_embed import fused_extract_planar
 
-            bits = fused_extract_planar(frames.permute(0, 3, 1, 2), scale, 1).reshape(b, nbh * nbw)
+            bits = fused_extract_planar(frames.permute(0, 3, 1, 2), scale, 1,
+                                        int_path=self.int_path).reshape(b, nbh * nbw)
         else:
             ll = self._ll_from_frames(frames.to(torch.float32), 1)
             bits = self._decode_ll(ll, nbh, nbw, scale)
