@@ -1043,3 +1043,116 @@ def test_lowlink_host_wire_leaves_the_card_alone(cuda_device, monkeypatch):
     assert not any(kernels.launch_counts().values())
     assert torch.cuda.memory_allocated() == before
     np.testing.assert_array_equal(payloads, np.tile(PAYLOAD, (4, 1)))
+
+
+# -- the span recorder on the card (utils/profiling.py) -------------------------------
+
+EVENT_WAITS = ("sync.stage_wait", "sync.result_wait")  # explicit event waits
+# the sync.* spans of one warm 1080p batch call, in order
+BATCH_SYNCS = {
+    "dtcwtKey-mark": ["sync.stage_wait", "sync.wm_spectrum", "sync.constant_upload",
+                      "sync.result_wait"],
+    "dtcwtKey-submit-collect": ["sync.stage_wait"]
+    + ["sync.wm_spectrum", "sync.constant_upload"] * 2 + ["sync.result_wait"],
+    "dtcwtKey-extract": ["sync.stage_wait", "sync.corr_reference", "sync.result_wait"],
+    "dwtDctSvd-mark": ["sync.stage_wait", "sync.result_wait"],
+    "dwtDctSvd-extract": ["sync.stage_wait", "sync.despread_counts", "sync.unshuffle_index",
+                          "sync.result_wait"],
+}
+
+
+def _warm_batch_call(path, device, h=1080, w=1920, b=16):
+    """A batch call of ``path`` at 1080p, run twice so that its caches and
+    kernels are warm."""
+    import functools
+
+    from vfp_tpu_torch.pipeline import FrameExtractor, FrameMarker, MultiMarker
+
+    name, call = path.split("-", 1)
+    if name == "dtcwtKey":
+        codec = DtcwtKey()
+        wms = [CorrShuffler(key=k).generate_wm(None, codec.wm_capacity((h, w, 3)))
+               for k in (0, 1)]
+        deg = DeCorrShuffler(key=0)
+    else:
+        codec = DwtDctSvd()
+        wms = [_wm(h, w, "cpu").numpy()]
+        deg = DeShuffler(key=0, threshold="fixed").set_shape((len(PAYLOAD),))
+    frames = natural_frames(np.random.RandomState(44), b, h, w)
+    if call == "mark":
+        fn = functools.partial(FrameMarker(codec, wms[0], b, device=device).mark, frames)
+    elif call == "submit-collect":  # mark_all: collect(submit(frames))
+        fn = functools.partial(MultiMarker(codec, wms, b, device=device).mark_all, frames)
+    else:
+        marked = FrameMarker(codec, wms[0], b, device=device).mark(frames)
+        fn = functools.partial(FrameExtractor(codec, deg, b, device=device).extract, marked)
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(BATCH_SYNCS))
+def test_sync_debug_warnings_are_the_implicit_sync_spans(cuda_device, path):
+    """One warm 1080p batch call: every synchronizing call that torch's
+    sync debug mode reports falls in one implicit ``sync.*`` span, and each
+    of those holds one, so no implicit host sync of the batch path escapes
+    the count; with the two event waits they are every ``sync.*`` span."""
+    import time
+    import warnings
+
+    from vfp_tpu_torch.utils.profiling import record_spans
+
+    fn = _warm_batch_call(path, cuda_device)
+    seen = []
+
+    def show(message, category, *args, **kwargs):
+        if "called a synchronizing" in str(message):  # not the mode's own notice
+            seen.append(time.perf_counter_ns())
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with record_spans() as spans:
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sorted((s for s in spans if s.name.startswith("sync.")), key=lambda s: s.t0)
+    assert [s.name for s in syncs] == BATCH_SYNCS[path]
+    implicit = [s for s in syncs if s.name not in EVENT_WAITS]
+    assert len(seen) == len(implicit)
+    for s in implicit:
+        assert sum(s.t0 <= t <= s.t1 for t in seen) == 1, s.name
+
+
+@pytest.mark.cuda
+def test_the_codec_kernels_lie_inside_their_spans_on_the_traced_clock(cuda_device):
+    """The benchmark's tracer maps device events onto ``perf_counter_ns``;
+    the batch's mask and delta kernels start after its ``codec.mark`` span
+    opens and end before its ``marker.mark`` span closes, to within 1 ms."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from vfp_tpu_torch.utils.profiling import record_spans
+
+    path = Path(__file__).resolve().parents[1] / "portbench" / "harness" / "trace.py"
+    spec = importlib.util.spec_from_file_location("portbench_harness_trace", path)
+    trace = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    fn = _warm_batch_call("dtcwtKey-mark", cuda_device)
+    tracer = trace.Tracer()
+    tracer.start()
+    with record_spans() as spans:
+        fn()
+    tracer.stop()
+    (mark,) = [s for s in spans if s.name == "marker.mark"]
+    (codec,) = [s for s in spans if s.name == "codec.mark"]
+    kernels_ = [(a, b) for n, a, b in tracer.events() if "masks_kernel" in n or "delta_kernel" in n]
+    assert len(kernels_) == 2
+    ms = 1_000_000
+    for a, b in kernels_:
+        assert codec.t0 - ms <= a < b <= mark.t1 + ms

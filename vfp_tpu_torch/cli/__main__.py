@@ -53,8 +53,10 @@ stage seconds; its ``--workers`` processes mark on ``--device`` (the card
 by default, where the JAX CLI's workers run on the CPU), and its
 ``--distributed`` ranks join a torch.distributed gloo group.  ``mark
 --profile`` writes a torch.profiler Chrome trace (the JAX CLI: an xprof
-directory).  ``test-frame`` writes its JPEGs as cv2.imwrite does, through
-the port's JPEG encoder.
+directory) that holds the program's spans (``utils/profiling.py``) beside
+the kernels, and prints one line per span name: its count, total ms and
+self ms (less the time its child spans cover).  ``test-frame`` writes its
+JPEGs as cv2.imwrite does, through the port's JPEG encoder.
 """
 
 from __future__ import annotations
@@ -117,10 +119,13 @@ def cmd_mark(args):
 
     if args.profile:
         from ..utils import profile_trace
+        from ..utils.profiling import record_spans, span_lines
 
-        with profile_trace(args.profile, device):
+        with profile_trace(args.profile, device), record_spans() as spans:
             stats = run()
         print(f"profiler trace -> {args.profile}")
+        for line in span_lines(spans):
+            print(line)
     else:
         stats = run()
     print(f"marked {stats.frames} frames in {stats.seconds:.2f}s ({stats.fps:.1f} fps)")
@@ -501,7 +506,8 @@ def main(argv=None):
     m.add_argument("--quality", type=int, default=95)
     m.add_argument("--device", default="cuda", help="torch device (default cuda)")
     m.add_argument("--profile", default=None, metavar="DIR",
-                   help="capture a torch.profiler trace of the run into DIR (Chrome trace JSON)")
+                   help="capture a torch.profiler trace of the run into DIR (Chrome trace JSON) "
+                        "and print the program's spans: count, total ms, self ms")
     m.set_defaults(fn=cmd_mark)
 
     d = sub.add_parser("detect", help="extract per-frame payloads")

@@ -11,6 +11,13 @@ of frames (``lowlink.py``; ``use_lowlink``).
 returns a handle; ``collect`` waits on that handle alone, so the writer
 thread of ``fingerprint.marker`` collects while the next batches are
 submitted (transfers: ``transfer.py``).
+
+Spans (``utils/profiling.py``): ``marker.mark``, ``marker.submit`` and
+``marker.collect`` around the batch calls (items = frames; ``mark`` and
+``submit`` take a new batch id, ``collect`` joins its handle's),
+``codec.mark`` around the codec's enqueue of each variant's mark, and
+``embedder.read_wait`` / ``embedder.write_wait`` where ``Embedder``'s loop
+blocks on its queues, from the clock reads its ``stage_seconds`` sums.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .lowlink import LowLinkMarker, default_wire, lowlink_ok
 from .transfer import Pending, download, upload_batch
 
@@ -60,10 +68,11 @@ class FrameMarker:
 
     def mark(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] -> [k, H, W, 3] uint8."""
-        if self._ll is not None:
-            return self._ll.mark_all(frames)[0]
-        return _submit_marks(self.codec, frames, self.wm[None], self.batch_size,
-                             self.device).wait()[0]
+        with profiling.span("marker.mark", len(frames), batch=profiling.NEW_BATCH):
+            if self._ll is not None:
+                return self._ll.mark_all(frames)[0]
+            return _submit_marks(self.codec, frames, self.wm[None], self.batch_size,
+                                 self.device).wait()[0]
 
 
 class MultiMarker:
@@ -89,15 +98,18 @@ class MultiMarker:
     def submit(self, frames: np.ndarray):
         """Enqueue the upload, every variant's mark and the downloads, and
         return without waiting on the device (on the CPU: mark now)."""
-        if self._ll is not None:
-            return self._ll.submit(frames)
-        return _submit_marks(self.codec, frames, self.wms, self.batch_size, self.device)
+        with profiling.span("marker.submit", len(frames), batch=profiling.NEW_BATCH):
+            if self._ll is not None:
+                return self._ll.submit(frames)
+            return _submit_marks(self.codec, frames, self.wms, self.batch_size, self.device)
 
     def collect(self, handle) -> np.ndarray:
         """[V, k, H, W, 3] uint8 of a ``submit``, once its event has passed."""
-        if self._ll is not None:
-            return self._ll.collect(handle)
-        return handle.wait()
+        if self._ll is not None:  # the LL transport's handles carry no batch id
+            with profiling.span("marker.collect"):
+                return self._ll.collect(handle)
+        with profiling.span("marker.collect", handle.out.shape[1], batch=handle.batch):
+            return handle.wait()
 
     def mark_all(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] -> [V, k, H, W, 3] uint8."""
@@ -110,7 +122,11 @@ def _submit_marks(codec, frames: np.ndarray, wms: torch.Tensor, batch_size: int,
     """One upload of the batch, one mark per watermark, each variant
     downloaded into its slice of one host array [V, k, H, W, 3]."""
     x = upload_batch(frames, batch_size, device)
-    return download([codec.mark_frames(x, wm) for wm in wms], len(frames))
+    marked = []
+    for wm in wms:
+        with profiling.span("codec.mark", len(x)):
+            marked.append(codec.mark_frames(x, wm))
+    return download(marked, len(frames))
 
 
 @dataclass
@@ -172,17 +188,24 @@ class Embedder:
         wt.start()
 
         n = 0
-        wait_s = compute_s = 0.0
+        wait_ns = compute_ns = write_ns = 0
+        clock = time.perf_counter_ns
         try:
             while True:
-                t1 = time.perf_counter()
+                t1 = clock()
                 batch = in_q.get()
-                wait_s += time.perf_counter() - t1
+                t2 = clock()
+                wait_ns += t2 - t1
+                profiling.record("embedder.read_wait", t1, t2)
                 if batch is _SENTINEL:
                     break
-                t1 = time.perf_counter()
-                out_q.put(self.marker.mark(batch))
-                compute_s += time.perf_counter() - t1
+                marked = self.marker.mark(batch)
+                t3 = clock()
+                out_q.put(marked)
+                t4 = clock()
+                compute_ns += t3 - t2
+                write_ns += t4 - t3
+                profiling.record("embedder.write_wait", t3, t4)
                 n += len(batch)
         finally:
             out_q.put(_SENTINEL)
@@ -198,12 +221,14 @@ class Embedder:
             self.writer.close()
         if err:
             raise err[0]
+        wait_s, compute_s, write_s = wait_ns / 1e9, compute_ns / 1e9, write_ns / 1e9
         stats = PipelineStats(
             frames=n, seconds=time.perf_counter() - t0,
-            stage_seconds={"read_wait": round(wait_s, 4), "compute": round(compute_s, 4)},
+            stage_seconds={"read_wait": round(wait_s, 4), "compute": round(compute_s, 4),
+                           "write_wait": round(write_s, 4)},
         )
         logger.info(
-            "embedded %d frames in %.2fs (%.1f fps; read-wait %.2fs, compute %.2fs)",
-            n, stats.seconds, stats.fps, wait_s, compute_s,
+            "embedded %d frames in %.2fs (%.1f fps; read-wait %.2fs, compute %.2fs, "
+            "write-wait %.2fs)", n, stats.seconds, stats.fps, wait_s, compute_s, write_s,
         )
         return stats

@@ -5,6 +5,10 @@ Decoding and despreading run per batch on the device; only the per-frame
 payloads come back to the host, where the majority vote is taken once.  With
 ``VFP_LOWLINK=1`` (or ``VFP_LL_WIRE=host``) the flagship codec's extractor
 sends the LL band up instead of frames (``lowlink.LowLinkExtractor``).
+
+Spans (``utils/profiling.py``): ``extractor.extract`` around the batch call
+(items = frames, a new batch id) and ``codec.extract`` around the codec's
+enqueue of the decode and the despread.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .embedder import use_lowlink
 from .lowlink import LowLinkExtractor, default_wire
 from .transfer import Pending, download, upload_batch
@@ -42,7 +47,8 @@ class FrameExtractor:
 
     def extract(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] u8 -> [k, payload_len] u8 payloads."""
-        return self.collect(self.submit(frames))
+        with profiling.span("extractor.extract", len(frames), batch=profiling.NEW_BATCH):
+            return self.collect(self.submit(frames))
 
     @torch.inference_mode()
     def submit(self, frames: np.ndarray):
@@ -52,7 +58,8 @@ class FrameExtractor:
         if self._ll is not None:
             return self._ll.submit(frames)
         x = upload_batch(frames, self.batch_size, self.device)
-        payloads = self.degenerator.degenerate_batch(self.codec.extract_frames(x))
+        with profiling.span("codec.extract", len(x)):
+            payloads = self.degenerator.degenerate_batch(self.codec.extract_frames(x))
         return download([payloads], len(frames))
 
     def collect(self, handle) -> np.ndarray:

@@ -20,6 +20,12 @@ thread.  A device fault surfaces there, in the collecting thread.
 
 On the CPU nothing is pinned and nothing is asynchronous: the work runs
 when it is submitted and ``wait`` returns its result.
+
+Spans (``utils/profiling.py``): ``transfer.stage_copy`` (the host copy and
+padding, items = bytes), ``transfer.h2d_enqueue``, ``transfer.d2h_enqueue``,
+and the two waits on the device, ``sync.stage_wait`` and
+``sync.result_wait``.  A handle carries the batch id of the call that made
+it, so its ``wait`` on another thread joins that batch.
 """
 
 from __future__ import annotations
@@ -30,18 +36,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 @dataclass
 class Pending:
-    """A host result and the event after which it is complete (None: it
-    already is)."""
+    """A host result, the event after which it is complete (None: it
+    already is) and the batch id of its span (None while nothing records)."""
 
     out: np.ndarray
     done: torch.cuda.Event | None = None
+    batch: int | None = None
 
     def wait(self) -> np.ndarray:
         if self.done is not None:
-            self.done.synchronize()
+            with profiling.span("sync.result_wait", batch=self.batch):
+                self.done.synchronize()
         return self.out
 
 
@@ -81,18 +91,22 @@ class StagingPool:
         shape = (max(batch_size, k), *frames.shape[1:])
         if device.type != "cuda":
             host = np.empty(shape, frames.dtype)
-            host[:k] = frames
-            host[k:] = frames[-1:]
-            return torch.from_numpy(host).to(device)
+            with profiling.span("transfer.stage_copy", host.nbytes):
+                host[:k] = frames
+                host[k:] = frames[-1:]
+            with profiling.span("transfer.h2d_enqueue"):
+                return torch.from_numpy(host).to(device)
         dtype = torch.from_numpy(frames[:0]).dtype
         buf, side = self._get(device, shape, dtype)
         compute = torch.cuda.current_stream(device)
         with buf.lock:
             if buf.uploaded is not None:
-                buf.uploaded.synchronize()
-            buf.array[:k] = frames
-            buf.array[k:] = frames[-1:]
-            with torch.cuda.stream(side):
+                with profiling.span("sync.stage_wait"):
+                    buf.uploaded.synchronize()
+            with profiling.span("transfer.stage_copy", buf.array.nbytes):
+                buf.array[:k] = frames
+                buf.array[k:] = frames[-1:]
+            with profiling.span("transfer.h2d_enqueue"), torch.cuda.stream(side):
                 x = buf.host.to(device, non_blocking=True)
                 buf.uploaded = side.record_event()
         compute.wait_event(buf.uploaded)
@@ -112,9 +126,13 @@ def download(results, k: int) -> Pending:
     """Start copying the first ``k`` rows of each device result [B, ...] into
     one host array [len(results), k, ...]; on the CPU, copy them now."""
     first = results[0]
-    if not first.is_cuda:
-        return Pending(torch.stack([r[:k] for r in results]).numpy())
-    out = torch.empty((len(results), k, *first.shape[1:]), dtype=first.dtype, pin_memory=True)
-    for dst, r in zip(out, results):
-        dst.copy_(r[:k], non_blocking=True)
-    return Pending(out.numpy(), torch.cuda.current_stream(first.device).record_event())
+    batch = profiling.current_batch()
+    with profiling.span("transfer.d2h_enqueue"):
+        if not first.is_cuda:
+            return Pending(torch.stack([r[:k] for r in results]).numpy(), batch=batch)
+        out = torch.empty((len(results), k, *first.shape[1:]), dtype=first.dtype,
+                          pin_memory=True)
+        for dst, r in zip(out, results):
+            dst.copy_(r[:k], non_blocking=True)
+        return Pending(out.numpy(), torch.cuda.current_stream(first.device).record_event(),
+                       batch)

@@ -56,6 +56,7 @@ from ..kernels.fused_dct_qim import true_div
 from ..ops.color import M_BWD, bgr_to_yuv
 from ..ops.dtcwt import Transform2d, c2q_subs, q2c_magnitudes, q2c_planes
 from ..ops.filters import filter2d_mean2x2, rebin_mean
+from ..utils import profiling
 
 BACKENDS = ("auto", "kernel", "torch")
 
@@ -174,7 +175,8 @@ class _DtcwtBase:
             if hit is not None and hit[0] is wm:
                 return hit[1]
         # the frame size fixes the plane's shape, so its bytes alone name it
-        plane = wm.detach().to("cpu", torch.float32).contiguous()
+        with profiling.sync_span("sync.wm_spectrum", wm):
+            plane = wm.detach().to("cpu", torch.float32).contiguous()
         ck = (mode, hw, wm.device, plane.numpy().tobytes())
         spectrum = _WM_HP_CACHE.get(ck)
         if spectrum is None:
@@ -267,7 +269,8 @@ class _DtcwtBase:
 
     def _mark(self, frames: torch.Tensor, wm_hp: torch.Tensor) -> torch.Tensor:
         h, w = frames.shape[1], frames.shape[2]
-        bwd = torch.as_tensor(M_BWD[:, 1], device=frames.device)
+        with profiling.sync_span("sync.constant_upload", frames):
+            bwd = torch.as_tensor(M_BWD[:, 1], device=frames.device)
         f32 = frames.to(torch.float32)
         if self._u8_kernel_path(frames):
             du = self._embed_delta_from_ll1(dtcwt_level1_ll_y(frames), wm_hp, (h, w))

@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 @lru_cache(maxsize=None)
 def keyed_shuffle_indices(key, n: int) -> np.ndarray:
@@ -39,15 +41,17 @@ def despread_mean(wm_flat: torch.Tensor, payload_len: int, total_len: int) -> to
     pad = reps * payload_len - total_len
     x = torch.nn.functional.pad(wm_flat, (0, pad))
     x = x.reshape(*wm_flat.shape[:-1], reps, payload_len)
-    counts = torch.tensor(
-        [(total_len - i + payload_len - 1) // payload_len for i in range(payload_len)],
-        dtype=torch.float32, device=wm_flat.device)
+    with profiling.sync_span("sync.despread_counts", wm_flat):
+        counts = torch.tensor(
+            [(total_len - i + payload_len - 1) // payload_len for i in range(payload_len)],
+            dtype=torch.float32, device=wm_flat.device)
     return torch.sum(x, dim=-2) / counts
 
 
 def _unshuffle(vals: torch.Tensor, key) -> torch.Tensor:
     """Invert the keyed shuffle: out[..., idx] = vals."""
-    idx = torch.as_tensor(keyed_shuffle_indices(key, vals.shape[-1]), device=vals.device)
+    with profiling.sync_span("sync.unshuffle_index", vals):
+        idx = torch.as_tensor(keyed_shuffle_indices(key, vals.shape[-1]), device=vals.device)
     out = torch.zeros_like(vals)
     out[..., idx] = vals
     return out

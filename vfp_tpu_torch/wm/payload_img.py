@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.filters import resize_area, resize_linear
+from ..utils import profiling
 
 
 def _keyed_pm1_plane(key, shape=(1080, 1920)) -> np.ndarray:
@@ -60,7 +61,8 @@ class DeCorrShuffler:
     def correlation_batch(self, wm: torch.Tensor) -> torch.Tensor:
         """[B, h, w] recovered planes -> [B] normalised correlations, with the
         population standard deviation (``correction=0``), as jnp.std."""
-        ref = torch.as_tensor(self._reference((wm.shape[-2], wm.shape[-1])), device=wm.device)
+        with profiling.sync_span("sync.corr_reference", wm):
+            ref = torch.as_tensor(self._reference((wm.shape[-2], wm.shape[-1])), device=wm.device)
         n = wm.shape[-2] * wm.shape[-1]
         dims = (-2, -1)
         wmn = ((wm - wm.mean(dim=dims, keepdim=True))
