@@ -838,6 +838,25 @@ def test_staging_is_reused_and_held_outputs_stay_valid(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 5])
+def test_staging_upload_of_a_1080p_batch_equals_a_plain_copy(cuda_device, k):
+    """A 1080p B=16 upload (``k`` frames, padded with the last) equals the
+    plain copy of the padded batch, whether or not the host copy fans out;
+    it fans out over the rule's number of threads exactly when that is 2
+    or more."""
+    from vfp_tpu_torch.pipeline.transfer import STAGING
+    from vfp_tpu_torch.utils.profiling import record_spans
+
+    frames = np.random.default_rng(k).integers(0, 256, (k, 1080, 1920, 3), dtype=np.uint8)
+    padded = np.concatenate([frames, np.repeat(frames[-1:], 16 - k, axis=0)])
+    with record_spans() as spans:
+        x = STAGING.upload(frames, 16, cuda_device)
+    assert torch.equal(x, torch.from_numpy(padded).cuda())
+    n = STAGING._fanout.threads(padded.nbytes)
+    assert [s.items for s in spans if s.name == "transfer.stage_fanout"] == ([n] if n >= 2 else [])
+
+
+@pytest.mark.cuda
 def test_collect_from_another_thread(cuda_device):
     import threading
 

@@ -18,18 +18,36 @@ many batches follow.  ``Pending.wait`` waits on the handle's own event,
 never on a stream, so any thread may collect: the current stream is per
 thread.  A device fault surfaces there, in the collecting thread.
 
+The host copy into the staging buffer is split across host threads.  The
+``k`` rows and the padding rows are one flat byte range of the buffer, cut
+at 4 KiB boundaries into equal contiguous pieces of at least 4 MiB, which
+``min(cores, bytes // 4 MiB, 8)`` threads copy (``cores``: the CPUs the
+process may run on): the calling thread and daemon workers of one pool per
+process, started at the first upload that fans out.  The pieces are dealt
+one at a time to whichever thread asks next, so a worker that the host
+schedules late holds up nothing.  Each upload waits for its own pieces
+only, so uploads from several threads share the pool.  With fewer than 2
+threads, or a source that is not C-contiguous, the calling thread copies
+alone.  The workers never touch CUDA: the H2D is enqueued once every piece
+has landed.
+
 On the CPU nothing is pinned and nothing is asynchronous: the work runs
-when it is submitted and ``wait`` returns its result.
+when it is submitted and ``wait`` returns its result.  The host copy is
+the same split copy.
 
 Spans (``utils/profiling.py``): ``transfer.stage_copy`` (the host copy and
-padding, items = bytes), ``transfer.h2d_enqueue``, ``transfer.d2h_enqueue``,
-and the two waits on the device, ``sync.stage_wait`` and
-``sync.result_wait``.  A handle carries the batch id of the call that made
-it, so its ``wait`` on another thread joins that batch.
+padding, items = bytes), inside it ``transfer.stage_fanout`` where the copy
+fans out (items = threads; the workers open no span),
+``transfer.h2d_enqueue``, ``transfer.d2h_enqueue``, and the two waits on
+the device, ``sync.stage_wait`` and ``sync.result_wait``.  A handle
+carries the batch id of the call that made it, so its ``wait`` on another
+thread joins that batch.
 """
 
 from __future__ import annotations
 
+import os
+import queue
 import threading
 from dataclasses import dataclass
 
@@ -55,6 +73,117 @@ class Pending:
         return self.out
 
 
+# Chosen on an H100 machine's host (8 vCPUs; PERF.md, section 6).  A 1080p
+# B=16 batch (99.5 MB) out of a 64-frame pool into the pinned buffer took
+# 22.7 ms on one thread, 13.0 on 2, 9.0 on 4 and 7.5 on 8, so the cap is the
+# host's 8 cores.  Pieces under 1 MiB made a copy slower, pieces of 1-2 MiB
+# did not gain on every host, pieces of 4 MiB did (1.18-1.51x at 8 MiB).
+PIECE_FLOOR = 4 << 20  # bytes
+FANOUT_CAP = 8  # threads
+_ALIGN = 4096  # piece edges, in bytes
+
+
+def _fill(flat: np.ndarray, src: np.ndarray, last: np.ndarray, a: int, b: int) -> None:
+    """``flat[a:b]`` of a padded batch: the elements of ``src``, then copies
+    of ``last`` (the last row) up to the end of ``flat``."""
+    n = src.size
+    if a < n:
+        np.copyto(flat[a:min(b, n)], src[a:min(b, n)])
+        a = n
+    while a < b:
+        r = (a - n) % last.size  # where ``a`` falls in its padding row
+        m = min(b - a, last.size - r)
+        np.copyto(flat[a:a + m], last[r:r + m])
+        a += m
+
+
+class _Copy:
+    """One staging copy cut into pieces, dealt one at a time to whichever
+    thread asks next: a thread that the host has not scheduled yet holds up
+    no piece, and one that stalls holds up only the piece it has."""
+
+    def __init__(self, flat, src, last, edges):
+        self.flat, self.src, self.last, self.edges = flat, src, last, edges
+        self._lock = threading.Lock()
+        self._dealt = 0
+        self._left = len(edges) - 1
+        self.error: Exception | None = None
+        self.landed = threading.Event()  # set once every piece is in the buffer
+
+    def run(self) -> None:
+        """Copy pieces until none is left to deal."""
+        while True:
+            with self._lock:
+                i = self._dealt
+                self._dealt += 1
+            if i >= len(self.edges) - 1:
+                return
+            try:
+                _fill(self.flat, self.src, self.last, self.edges[i], self.edges[i + 1])
+            except Exception as e:  # raised again in the upload that waits for it
+                self.error = self.error or e
+            finally:
+                with self._lock:
+                    self._left -= 1
+                    if self._left == 0:
+                        self.landed.set()
+
+
+class _Fanout:
+    """The staging copy split over host threads: the fan-out rule and a pool
+    of daemon workers that copy pieces and never touch CUDA."""
+
+    def __init__(self):
+        self.cores = len(os.sched_getaffinity(0))
+        self._lock = threading.Lock()
+        self._tasks: queue.SimpleQueue | None = None
+        self._pid = None
+
+    def threads(self, nbytes: int) -> int:
+        return min(self.cores, nbytes // PIECE_FLOOR, FANOUT_CAP)
+
+    def _queue(self) -> queue.SimpleQueue:
+        with self._lock:
+            if self._pid != os.getpid():  # first use, or a forked child, which has no workers
+                self._tasks = queue.SimpleQueue()
+                for i in range(min(self.cores, FANOUT_CAP) - 1):
+                    threading.Thread(target=_work, args=(self._tasks,), daemon=True,
+                                     name=f"vfp-stage-copy-{i}").start()
+                self._pid = os.getpid()
+            return self._tasks
+
+    def stage(self, dst: np.ndarray, frames: np.ndarray) -> None:
+        """Fill ``dst`` [B, ...] with ``frames`` [k, ...] and copies of its
+        last row."""
+        k = len(frames)
+        n = self.threads(dst.nbytes) if frames.flags.c_contiguous else 1
+        if n < 2:
+            dst[:k] = frames
+            dst[k:] = frames[-1:]
+            return
+        with profiling.span("transfer.stage_fanout", n):
+            flat = dst.reshape(-1)
+            pieces, step = dst.nbytes // PIECE_FLOOR, _ALIGN // dst.itemsize
+            edges = [i * flat.size // pieces // step * step for i in range(pieces)] + [flat.size]
+            copy = _Copy(flat, frames.reshape(-1), frames[-1].reshape(-1), edges)
+            tasks = self._queue()
+            for _ in range(n - 1):
+                tasks.put(copy)
+            try:
+                copy.run()
+            finally:  # no piece may still be landing once the buffer is handed on
+                copy.landed.wait()
+            if copy.error is not None:
+                raise copy.error
+
+
+def _work(tasks: queue.SimpleQueue) -> None:
+    while True:
+        copy = tasks.get()
+        copy.run()
+        del copy  # hold no batch while idle
+
+
 class _Staging:
     def __init__(self, shape, dtype: torch.dtype):
         self.host = torch.empty(shape, dtype=dtype, pin_memory=True)
@@ -71,6 +200,7 @@ class StagingPool:
         self._lock = threading.Lock()
         self._buffers: dict = {}
         self._streams: dict = {}
+        self._fanout = _Fanout()
 
     def _get(self, device: torch.device, shape, dtype: torch.dtype):
         with self._lock:
@@ -92,8 +222,7 @@ class StagingPool:
         if device.type != "cuda":
             host = np.empty(shape, frames.dtype)
             with profiling.span("transfer.stage_copy", host.nbytes):
-                host[:k] = frames
-                host[k:] = frames[-1:]
+                self._fanout.stage(host, frames)
             with profiling.span("transfer.h2d_enqueue"):
                 return torch.from_numpy(host).to(device)
         dtype = torch.from_numpy(frames[:0]).dtype
@@ -104,8 +233,7 @@ class StagingPool:
                 with profiling.span("sync.stage_wait"):
                     buf.uploaded.synchronize()
             with profiling.span("transfer.stage_copy", buf.array.nbytes):
-                buf.array[:k] = frames
-                buf.array[k:] = frames[-1:]
+                self._fanout.stage(buf.array, frames)
             with profiling.span("transfer.h2d_enqueue"), torch.cuda.stream(side):
                 x = buf.host.to(device, non_blocking=True)
                 buf.uploaded = side.record_event()

@@ -3,10 +3,11 @@
 wall-second counters, and the program's span recorder.
 
 The span recorder times the batch path from inside: each layer boundary
-(the batch call, the staging copy, the copies' enqueues, the codec's
-enqueue, every host wait on the device) opens a ``span``.  It is off
-unless ``record_spans()`` is open; while off, a span costs one flag test
-and returns a shared no-op.  While it records, each span reads
+(the batch call, the staging copy and, where it is split across host
+threads, its fan-out, the copies' enqueues, the codec's enqueue, every
+host wait on the device) opens a ``span``.  It is off unless
+``record_spans()`` is open; while off, a span costs one flag test and
+returns a shared no-op.  While it records, each span reads
 ``time.perf_counter_ns`` at its ends (the clock a device trace is mapped
 to), notes the span open on its thread when it started (its parent) and
 the batch it belongs to, and, under an active ``torch.profiler``, also
