@@ -3,8 +3,10 @@ the CPU, where it runs the same split copy as on a card: the padded batch
 equal to a plain concatenation whether the copy fans out or stays inline,
 ``transfer.stage_fanout`` exactly where the fan-out rule says so, the rule
 itself, a copy that completes with no worker scheduled, two threads
-sharing the workers, and a worker's error raised in the upload that waits
-for it.  The card's upload is held by ``tests/test_torch_cuda.py``.
+sharing the workers, at one shape or two, and a worker's error
+raised in the upload that waits for it.  On the CPU an upload stages into
+a fresh array, so the card's uploads through the staging buffer that
+calls share are held by ``tests/test_torch_cuda.py``.
 """
 
 import os
@@ -106,15 +108,18 @@ def test_the_caller_copies_every_piece_that_no_worker_takes(monkeypatch):
     assert not t.is_alive() and np.array_equal(dst, _padded(frames, 16))
 
 
-def test_two_threads_uploading_at_once_get_their_own_bytes(pool):
-    shapes = {"frames": ((5, 720, 1280, 3), np.uint8, 8), "wire": ((16, 16, 32400), np.float16, 16)}
+def _upload_together(pool, shapes):
+    """Two threads start uploading together, back to back with no wait
+    between their calls, of different content; each gets its own bytes."""
     for shape, dtype, bs in shapes.values():  # both fan out
         assert pool._fanout.threads(bs * np.prod(shape[1:]) * np.dtype(dtype).itemsize) >= 2
     results, errors = {}, []
+    meet = threading.Barrier(2, timeout=30)
 
     def run(name):
         shape, dtype, bs = shapes[name]
         try:
+            meet.wait()
             for seed in range(6):
                 frames = _batch(shape, dtype, seed=seed + 10 * len(name))
                 results[name, seed] = np.array_equal(pool.upload(frames, bs, CPU).numpy(),
@@ -134,6 +139,17 @@ def test_two_threads_uploading_at_once_get_their_own_bytes(pool):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads) and errors == []
     assert len(results) == 12 and all(results.values())
+
+
+def test_two_threads_uploading_at_once_get_their_own_bytes(pool):
+    _upload_together(pool, {"frames": ((5, 720, 1280, 3), np.uint8, 8),
+                            "wire": ((16, 16, 32400), np.float16, 16)})
+
+
+def test_two_threads_uploading_one_shape_at_once_get_their_own_bytes(pool):
+    """As the two calls ``Embedder`` keeps in flight upload."""
+    _upload_together(pool, {"one": ((16, 720, 1280, 3), np.uint8, 16),  # names of two
+                            "other": ((16, 720, 1280, 3), np.uint8, 16)})  # lengths: two seeds
 
 
 def test_a_workers_error_is_raised_in_its_upload(pool, monkeypatch):

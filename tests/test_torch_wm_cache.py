@@ -2,12 +2,17 @@
 the port of the JAX codec's ``wm_hp_device``), on the CPU.
 
 The spectrum is computed once per distinct plane: an identity cache keyed by
-the tensor, its version counter and its device, then a content cache keyed
-by the plane's bytes, at most 8 entries each.  These tests count the
-spectrum computations (``wm_highpass`` calls), hold every cached spectrum
-equal to a fresh one, hold marks made with a hit, a miss and after
-``clear_wm_cache()`` to identical bytes, and hold those marks against the JAX
-codec with ``fast_dots=False`` as ``tests/test_torch_dtcwt.py`` does.
+the tensor that owns the plane's memory, where the plane lies in it, its
+version counter and its device, then a content cache keyed by the plane's
+bytes, at most 8 entries each.  These tests count the spectrum computations
+(``wm_highpass`` calls), hold every cached spectrum equal to a fresh one,
+hold marks made with a hit, a miss and after ``clear_wm_cache()`` to
+identical bytes, and hold those marks against the JAX codec with
+``fast_dots=False`` as ``tests/test_torch_dtcwt.py`` does.  A fresh view of
+the same plane, as each batch call passes, hits the identity cache without
+reaching the host read-back (``sync.wm_spectrum``), and ``M_BWD[:, 1]`` is
+placed on a device once (``sync.constant_upload``): the sites are counted
+through ``profiling.sync_span``, which on a card is a wait on the device.
 """
 
 import jax.numpy as jnp
@@ -16,7 +21,9 @@ import pytest
 import torch
 
 from vfp_tpu.wm import dtcwt_codecs as jcodecs, payload_img as jpimg
-from vfp_tpu_torch.pipeline import MultiMarker
+from vfp_tpu_torch.ops.color import M_BWD
+from vfp_tpu_torch.pipeline import FrameMarker, MultiMarker
+from vfp_tpu_torch.utils import profiling
 from vfp_tpu_torch.wm import CorrShuffler, DtcwtKey, clear_wm_cache, dtcwt_codecs as tcodecs
 
 from torch_parity import natural_frames
@@ -40,6 +47,19 @@ def spectra(monkeypatch):
     monkeypatch.setattr(tcodecs._DtcwtBase, "wm_highpass", counted)
     yield calls
     clear_wm_cache()
+
+
+@pytest.fixture
+def sync_sites(monkeypatch):
+    """The names of the ``sync_span`` sites reached, on any device."""
+    names = []
+
+    def counted(name, tensor):
+        names.append(name)
+        return profiling.OFF
+
+    monkeypatch.setattr(profiling, "sync_span", counted)
+    return names
 
 
 def _wm(key=0, shape=(H, W)):
@@ -139,8 +159,89 @@ def test_mark_frames_bytes_with_a_hit_a_miss_and_after_clearing_as_jax(spectra, 
     assert (d == 0).mean() >= 0.995 and d.max() <= 1, ((d == 0).mean(), d.max())
 
 
+def test_a_fresh_view_of_the_same_plane_hits_without_a_read_back(spectra, sync_sites):
+    codec, wm = DtcwtKey(backend="kernel"), _wm()
+    first = codec.wm_hp_device((H, W), wm)
+    assert sync_sites == ["sync.wm_spectrum"]  # the first sight reads the plane back
+    tcodecs._WM_HP_CACHE.clear()  # a hit below cannot come from the content cache
+    with torch.inference_mode():  # as in a batch call
+        views = [wm[None][0], wm[:], wm.view(wm.shape), *wm[None]]
+    for view in views:
+        assert view._base is wm and codec.wm_hp_device((H, W), view) is first
+    assert sync_sites == ["sync.wm_spectrum"] and not tcodecs._WM_HP_CACHE
+    assert len(spectra) == 1
+
+
+def test_an_in_place_edit_through_a_view_misses(spectra, sync_sites):
+    codec, wm = DtcwtKey(backend="kernel"), _wm()
+    first = codec.wm_hp_device((H, W), wm[None][0])
+    wm[None][0, 0, 0] += 1.0  # the base and every view share one version counter
+    edited = codec.wm_hp_device((H, W), wm[None][0])
+    assert sync_sites == ["sync.wm_spectrum"] * 2 and len(spectra) == 2
+    assert not torch.equal(edited, first) and torch.equal(edited, _fresh(codec, wm))
+
+
+def test_the_same_plane_at_another_place_in_its_base_misses(spectra):
+    codec = DtcwtKey(backend="kernel")
+    wms = torch.stack([_wm(0), _wm(1)])
+    a, b = codec.wm_hp_device((H, W), wms[0]), codec.wm_hp_device((H, W), wms[1])
+    assert len(spectra) == 2 and not torch.equal(a, b)
+    assert torch.equal(b, _fresh(codec, wms[1]))
+
+
+def test_two_calls_at_once_compute_a_new_planes_spectrum_once(spectra, monkeypatch):
+    """``Embedder``'s two calls in flight meet a new plane together: one
+    computes its spectrum, the other waits for it and gets the same one."""
+    import threading
+    import time
+
+    codec, wm = DtcwtKey(backend="kernel"), _wm()
+    counted = tcodecs._DtcwtBase.wm_highpass
+
+    def slow(self, plane):
+        time.sleep(0.2)  # long enough for the other thread to arrive
+        return counted(self, plane)
+
+    monkeypatch.setattr(tcodecs._DtcwtBase, "wm_highpass", slow)
+    meet, got = threading.Barrier(2, timeout=30), []
+
+    def call():
+        meet.wait()
+        with torch.inference_mode():
+            got.append(codec.wm_hp_device((H, W), wm[None][0]))
+
+    threads = [threading.Thread(target=call) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert len(spectra) == 1 and len(got) == 2 and got[0] is got[1]
+
+
+def test_a_warm_batch_call_reaches_no_sync_site_of_the_codec(sync_sites, rng):
+    """``FrameMarker.mark`` passes a fresh view of its plane on every call:
+    after the first call no ``sync.wm_spectrum`` and no
+    ``sync.constant_upload`` site is reached, and ``M_BWD[:, 1]`` sits on
+    the device once, with its dtype and values."""
+    clear_wm_cache()
+    tcodecs._BWD_U.clear()
+    codec = DtcwtKey(backend="kernel")
+    marker = FrameMarker(codec, _wm().numpy(), 2, device="cpu")
+    f = natural_frames(rng, 2, H, W)
+    first = marker.mark(f)
+    assert sync_sites == ["sync.wm_spectrum", "sync.constant_upload"]
+    bwd = tcodecs._BWD_U[torch.device("cpu")]
+    assert bwd.dtype == torch.float32 and torch.equal(bwd, torch.from_numpy(M_BWD[:, 1].copy()))
+    for _ in range(2):
+        np.testing.assert_array_equal(marker.mark(f), first)
+    assert sync_sites == ["sync.wm_spectrum", "sync.constant_upload"]
+    assert tcodecs._BWD_U[torch.device("cpu")] is bwd
+    clear_wm_cache()
+
+
 def test_multi_marker_computes_each_variant_spectrum_once(spectra, rng):
-    """``mark_all`` passes a fresh view per variant and call: the content
+    """``mark_all`` passes a fresh view per variant and call: the identity
     cache finds the spectra of earlier calls."""
     codec = DtcwtKey(backend="kernel")
     wms = [_wm(key).numpy() for key in (0, 1, 2)]

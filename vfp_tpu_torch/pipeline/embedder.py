@@ -1,9 +1,11 @@
 """Embedding pipeline: reader -> batched device mark -> writer, stages overlapped
 (port of ``vfp_tpu/pipeline/embedder.py``).
 
-Frames move in ``[B, H, W, 3]`` batches; a reader thread decodes batch k+1
-and a writer thread encodes batch k-1 while the device marks batch k.  Every
-class takes the device it runs on.  With ``VFP_LOWLINK=1`` (or
+Frames move in ``[B, H, W, 3]`` batches; a reader thread decodes ahead and
+a writer thread encodes batch k-1 while two calls of the marker are in
+flight, each on a thread of its own: batch k's call waits on the device
+while batch k+1's stages its upload and enqueues its work.  Every class
+takes the device it runs on.  With ``VFP_LOWLINK=1`` (or
 ``VFP_LL_WIRE=host``) the flagship codec's markers move LL-band data instead
 of frames (``lowlink.py``; ``use_lowlink``).
 
@@ -27,6 +29,8 @@ import os
 import queue
 import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -39,6 +43,7 @@ from .transfer import Pending, download, upload_batch
 logger = logging.getLogger(__name__)
 
 _SENTINEL = None
+IN_FLIGHT = 2  # the marker's calls that ``Embedder`` keeps going at once
 
 
 def use_lowlink(codec) -> bool:
@@ -54,7 +59,9 @@ def use_lowlink(codec) -> bool:
 
 class FrameMarker:
     """Binds a codec + spread watermark into a uint8 batch transform on
-    ``device``; through the LL transport where ``use_lowlink`` says so."""
+    ``device``; through the LL transport where ``use_lowlink`` says so.
+    ``mark`` may be called from several threads at once; the LL route runs
+    one call at a time."""
 
     def __init__(self, codec, wm: np.ndarray, batch_size: int = 16, *, device):
         self.codec = codec
@@ -65,12 +72,14 @@ class FrameMarker:
                     if use_lowlink(codec) else None)
         # the host wire makes no CUDA call, so nothing is placed on the device
         self.wm = None if self._ll is not None else torch.as_tensor(wm, device=self.device)
+        self._ll_lock = threading.Lock()
 
     def mark(self, frames: np.ndarray) -> np.ndarray:
         """[k, H, W, 3] -> [k, H, W, 3] uint8."""
         with profiling.span("marker.mark", len(frames), batch=profiling.NEW_BATCH):
             if self._ll is not None:
-                return self._ll.mark_all(frames)[0]
+                with self._ll_lock:
+                    return self._ll.mark_all(frames)[0]
             return _submit_marks(self.codec, frames, self.wm[None], self.batch_size,
                                  self.device).wait()[0]
 
@@ -142,7 +151,16 @@ class PipelineStats:
 
 class Embedder:
     """Drive reader -> marker -> writer to completion (reference API:
-    Embedder(frame_reader, frame_embedder, frame_writer).start())."""
+    Embedder(frame_reader, frame_embedder, frame_writer).start()).
+
+    ``IN_FLIGHT`` calls of the marker's ``mark`` run at once, each on a
+    thread of its own, and the writer gets their results in input order.
+    Of the marker only ``mark`` and ``batch_size`` are asked, and ``mark``
+    must take calls from several threads at once.  The first error of the
+    reader, a call or the writer is raised once every thread has ended.
+    ``stage_seconds``: ``read_wait`` and ``write_wait``, the loop's waits on
+    its queues; ``compute``, the seconds inside the marker's calls, summed
+    over calls that overlap."""
 
     def __init__(self, frame_reader, frame_marker: FrameMarker, frame_writer, prefetch: int = 2):
         self.reader = frame_reader
@@ -182,14 +200,34 @@ class Embedder:
                 while out_q.get() is not _SENTINEL:
                     pass
 
+        clock = time.perf_counter_ns
+
+        def call(batch):
+            t = clock()
+            marked = self.marker.mark(batch)
+            return marked, clock() - t
+
         rt = threading.Thread(target=produce, daemon=True)
         wt = threading.Thread(target=consume, daemon=True)
         rt.start()
         wt.start()
+        calls = ThreadPoolExecutor(IN_FLIGHT, thread_name_prefix="vfp-mark")
+        pending: deque = deque()  # the calls in flight, oldest first
 
         n = 0
         wait_ns = compute_ns = write_ns = 0
-        clock = time.perf_counter_ns
+
+        def deliver():
+            nonlocal n, compute_ns, write_ns
+            marked, ns = pending.popleft().result()
+            t3 = clock()
+            out_q.put(marked)
+            t4 = clock()
+            compute_ns += ns
+            write_ns += t4 - t3
+            profiling.record("embedder.write_wait", t3, t4)
+            n += len(marked)
+
         try:
             while True:
                 t1 = clock()
@@ -199,15 +237,14 @@ class Embedder:
                 profiling.record("embedder.read_wait", t1, t2)
                 if batch is _SENTINEL:
                     break
-                marked = self.marker.mark(batch)
-                t3 = clock()
-                out_q.put(marked)
-                t4 = clock()
-                compute_ns += t3 - t2
-                write_ns += t4 - t3
-                profiling.record("embedder.write_wait", t3, t4)
-                n += len(batch)
+                pending.append(calls.submit(call, batch))
+                if len(pending) == IN_FLIGHT:
+                    deliver()
+            while pending:
+                deliver()
         finally:
+            # after an error: the calls not started are dropped, those running end
+            calls.shutdown(wait=True, cancel_futures=True)
             out_q.put(_SENTINEL)
             # unblock a reader waiting on a full queue after a marker error
             while rt.is_alive():

@@ -7,7 +7,12 @@ overlap the previous batch's download.  There is one staging buffer per
 (device, batch shape) for the life of the process (``STAGING``): the HLS
 marker builds a marker per segment, and pinning 100 MB for each would cost
 more than the copy.  A buffer is refilled only once the event of its last
-upload has completed.
+upload has completed.  ``Embedder`` keeps two batch calls in flight, which
+share the buffer: the second call's host copy starts once the first's H2D
+has read the buffer.  A second buffer per shape would let that copy run
+during the H2D, but both draw on the host's memory bandwidth, and on an
+H100 host the cell marked slower with two buffers than with one (PERF.md,
+section 6).
 
 Download: each result goes by a non-blocking copy into a fresh pinned
 tensor from PyTorch's caching host allocator, which keeps a block out of
@@ -16,7 +21,9 @@ handle returns is that tensor's ``numpy()`` view, whose base keeps the
 tensor alive: it stays valid for as long as a consumer holds it, however
 many batches follow.  ``Pending.wait`` waits on the handle's own event,
 never on a stream, so any thread may collect: the current stream is per
-thread.  A device fault surfaces there, in the collecting thread.
+thread.  The events of both waits are blocking ones: the waiting thread
+sleeps rather than spins.  A device fault surfaces there, in the
+collecting thread.
 
 The host copy into the staging buffer is split across host threads.  The
 ``k`` rows and the padding rows are one flat byte range of the buffer, cut
@@ -236,13 +243,22 @@ class StagingPool:
                 self._fanout.stage(buf.array, frames)
             with profiling.span("transfer.h2d_enqueue"), torch.cuda.stream(side):
                 x = buf.host.to(device, non_blocking=True)
-                buf.uploaded = side.record_event()
-        compute.wait_event(buf.uploaded)
+                uploaded = buf.uploaded = _record(side)
+        compute.wait_event(uploaded)  # this upload's, whatever another thread records next
         x.record_stream(compute)  # allocated on the side stream, used on the caller's
         return x
 
 
 STAGING = StagingPool()
+
+
+def _record(stream: torch.cuda.Stream) -> torch.cuda.Event:
+    """An event recorded on ``stream`` whose ``synchronize`` sleeps until it
+    has passed.  A spinning wait would hold a core that the staging copy and
+    the other batch call in flight need (PERF.md, section 6)."""
+    event = torch.cuda.Event(blocking=True)
+    event.record(stream)
+    return event
 
 
 def upload_batch(frames: np.ndarray, batch_size: int, device: torch.device) -> torch.Tensor:
@@ -262,5 +278,4 @@ def download(results, k: int) -> Pending:
                           pin_memory=True)
         for dst, r in zip(out, results):
             dst.copy_(r[:k], non_blocking=True)
-        return Pending(out.numpy(), torch.cuda.current_stream(first.device).record_event(),
-                       batch)
+        return Pending(out.numpy(), _record(torch.cuda.current_stream(first.device)), batch)

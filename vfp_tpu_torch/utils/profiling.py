@@ -40,8 +40,10 @@ logger = logging.getLogger(__name__)
 def profile_trace(log_dir, device=None):
     """Capture a ``torch.profiler`` trace around a block and write it into
     ``log_dir`` as ``trace_<pid>_<time>.json`` (chrome://tracing, Perfetto).
-    The CPU is always traced, the GPU too when ``device`` is a CUDA device
-    (``None``: when torch sees one)."""
+    The CPU is always traced, on every thread (``Embedder`` marks on threads
+    of its own), the GPU too when ``device`` is a CUDA device (``None``:
+    when torch sees one)."""
+    global _trace_all_threads
     cuda = (torch.cuda.is_available() if device is None
             else torch.device(device).type == "cuda")
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -49,8 +51,13 @@ def profile_trace(log_dir, device=None):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    config = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=activities, experimental_config=config) as prof:
+        _trace_all_threads = True
+        try:
+            yield prof
+        finally:
+            _trace_all_threads = False
     path = out / f"trace_{os.getpid()}_{time.time_ns()}.json"
     prof.export_chrome_trace(str(path))
     logger.info("profiler trace written to %s", path)
@@ -115,6 +122,9 @@ class _Off:
 
 OFF = _Off()
 _on = False
+# ``profile_trace``'s profiler is on, recording every thread; a thread other
+# than the one that started it sees ``_profiler_enabled()`` False
+_trace_all_threads = False
 _spans: list = []
 _ids = itertools.count(1)
 _batches = itertools.count(1)
@@ -146,7 +156,7 @@ class _Open:
         self.id = next(_ids)
         stack.append(self)
         self.rf = None
-        if torch.autograd._profiler_enabled():
+        if _trace_all_threads or torch.autograd._profiler_enabled():
             self.rf = torch.profiler.record_function(self.name)
             self.rf.__enter__()
         self.t0 = time.perf_counter_ns()

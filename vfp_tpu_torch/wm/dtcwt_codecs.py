@@ -45,6 +45,7 @@ divide the coefficients (every detect path decodes in ``_decode_coeffs``).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -62,11 +63,17 @@ BACKENDS = ("auto", "kernel", "torch")
 
 # The watermark plane's level-1 spectrum, computed once per distinct plane
 # (``_DtcwtBase.wm_hp_device``): an identity cache in front, keyed by the
-# tensor object, its version counter and its device, and a content cache
-# behind it, keyed by the plane's bytes.  At most 8 entries each.
+# tensor that owns the plane's memory (the view's base, or the tensor
+# itself), where in it the plane lies, its version counter and its device,
+# and a content cache behind it, keyed by the plane's bytes.  At most 8
+# entries each.
 _WM_CACHE_SIZE = 8
 _WM_ID_CACHE: dict = {}
 _WM_HP_CACHE: dict = {}
+_WM_LOCK = threading.Lock()  # held while the caches are read and filled
+# ``M_BWD[:, 1]`` (float32) on each device a mark has run on, uploaded at
+# the first mark there.
+_BWD_U: dict = {}
 
 
 def clear_wm_cache() -> None:
@@ -162,28 +169,35 @@ class _DtcwtBase:
         """``wm_highpass`` of the plane for frames of size ``hw``, cached: the
         watermark is fixed across a run, so its spectrum is computed once per
         distinct plane (the JAX codec's ``wm_hp_device``).  The identity key
-        carries ``wm._version``, so an in-place edit misses; an inference
-        tensor has no version counter and goes to the content cache, as does
-        an equal plane in another tensor (``MultiMarker`` passes a fresh view
-        per variant)."""
+        names the tensor that owns the plane's memory (``wm._base`` for a
+        view) and where the plane lies in it, so the fresh view of the same
+        plane that each batch call passes (``FrameMarker``'s ``wm[None]``,
+        each of ``MultiMarker``'s variants) hits without reading the plane
+        back; it carries the version counter that views share with their
+        base, so an in-place edit through any of them misses.  An inference
+        tensor has no version counter and goes to the content cache, as
+        does an equal plane in another tensor."""
         mode = self._kernel_mode(wm)
         hw = (int(hw[0]), int(hw[1]))
-        idk = None
+        idk = owner = None
         if not wm.is_inference():
-            idk = (mode, hw, id(wm), wm._version, wm.device)
+            owner = wm if wm._base is None else wm._base
+            idk = (mode, hw, id(owner), wm.storage_offset(), tuple(wm.shape), wm.stride(),
+                   wm.dtype, wm._version, wm.device)
+        with _WM_LOCK:  # calls in flight at once compute a new plane's spectrum once
             hit = _WM_ID_CACHE.get(idk)
-            if hit is not None and hit[0] is wm:
+            if hit is not None and hit[0] is owner:
                 return hit[1]
-        # the frame size fixes the plane's shape, so its bytes alone name it
-        with profiling.sync_span("sync.wm_spectrum", wm):
-            plane = wm.detach().to("cpu", torch.float32).contiguous()
-        ck = (mode, hw, wm.device, plane.numpy().tobytes())
-        spectrum = _WM_HP_CACHE.get(ck)
-        if spectrum is None:
-            spectrum = self.wm_highpass(wm.reshape(self.wm_capacity((*hw, 3))))
-            _cache_put(_WM_HP_CACHE, ck, spectrum)
-        if idk is not None:
-            _cache_put(_WM_ID_CACHE, idk, (wm, spectrum))
+            # the frame size fixes the plane's shape, so its bytes alone name it
+            with profiling.sync_span("sync.wm_spectrum", wm):
+                plane = wm.detach().to("cpu", torch.float32).contiguous()
+            ck = (mode, hw, wm.device, plane.numpy().tobytes())
+            spectrum = _WM_HP_CACHE.get(ck)
+            if spectrum is None:
+                spectrum = self.wm_highpass(wm.reshape(self.wm_capacity((*hw, 3))))
+                _cache_put(_WM_HP_CACHE, ck, spectrum)
+            if idk is not None:
+                _cache_put(_WM_ID_CACHE, idk, (owner, spectrum))
         return spectrum
 
     # -- masks and delta ---------------------------------------------------------------
@@ -269,8 +283,10 @@ class _DtcwtBase:
 
     def _mark(self, frames: torch.Tensor, wm_hp: torch.Tensor) -> torch.Tensor:
         h, w = frames.shape[1], frames.shape[2]
-        with profiling.sync_span("sync.constant_upload", frames):
-            bwd = torch.as_tensor(M_BWD[:, 1], device=frames.device)
+        bwd = _BWD_U.get(frames.device)
+        if bwd is None:
+            with profiling.sync_span("sync.constant_upload", frames):
+                bwd = _BWD_U[frames.device] = torch.as_tensor(M_BWD[:, 1], device=frames.device)
         f32 = frames.to(torch.float32)
         if self._u8_kernel_path(frames):
             du = self._embed_delta_from_ll1(dtcwt_level1_ll_y(frames), wm_hp, (h, w))
